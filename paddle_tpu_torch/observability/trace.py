@@ -1,0 +1,618 @@
+"""Span tracer with Chrome-trace-event / Perfetto export.
+
+The reference's second observability pillar (`platform/profiler.h`
+RecordEvent + `tools/timeline.py` chrome export) answered "what
+happened to THIS run, in order, where did the time go inside it" —
+post-hoc, per-op.  The metrics registry answers the aggregate
+question; this module restores the timeline one, TPU-first:
+
+* **low-overhead spans** — a bounded ring of chrome-trace events
+  (`collections.deque(maxlen=...)`: unbounded traffic can never OOM the
+  host), timestamps from one monotonic clock, a thread-local span stack
+  for nesting + trace-id inheritance.  When tracing is DISABLED every
+  entry point returns a shared no-op object: the instrumented hot paths
+  (Executor.run, serving dispatch, fit) pay one attribute check;
+* **explicit trace_id propagation** — serving requests cross three
+  threads (client -> dispatcher -> completer); spans carry a trace id
+  explicitly (args + async-event ids) rather than relying on thread
+  identity, so one request's timeline reassembles no matter where its
+  phases ran.  `trace_context(tid)` sets the thread-local current id
+  for code that can't thread it through call sites;
+* **counter / instant / async events** — the full chrome vocabulary:
+  `ph:"X"` complete spans on thread tracks, `ph:"i"` instants,
+  `ph:"C"` counters, `ph:"b"/"e"` nestable async spans keyed by id
+  (the per-request serving timeline);
+* **export** — `chrome_trace()` / `save(path)` emit the JSON object
+  format (`{"traceEvents": [...]}`) that chrome://tracing and Perfetto
+  load directly; process/thread metadata (`ph:"M"`) names the tracks.
+  A wall-clock anchor in the metadata lets `merge_traces` align shards
+  from different processes (ranks) onto one timeline.
+
+Enable via `enable_tracing()` or `PADDLE_TPU_TRACE=1`; the
+`FlightRecorder` (flight_recorder.py) arms a bounded always-on ring and
+dumps it on crash/SIGTERM/first failed step.
+"""
+
+from __future__ import annotations
+
+import gzip
+import itertools
+import json
+import os
+import threading
+
+from . import locks
+import time
+from collections import deque
+
+__all__ = [
+    "Tracer",
+    "TraceContext",
+    "default_tracer",
+    "enable_tracing",
+    "disable_tracing",
+    "tracing_enabled",
+    "span",
+    "instant",
+    "counter_event",
+    "trace_context",
+    "current_trace_id",
+    "new_trace_id",
+    "merge_traces",
+    "merge_fleet_trace",
+    "load_trace",
+]
+
+_tls = threading.local()
+
+
+def _now():
+    """One clock for every event (µs math happens at emit time)."""
+    return time.perf_counter()
+
+
+class _NullCtx:
+    """Shared no-op for the disabled fast path (no allocation per
+    call).  Mirrors the _SpanCtx surface so user instrumentation like
+    `with trace_span(...) as s: s.add_args(...)` keeps working — and
+    costing nothing — when tracing is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def add_args(self, **kw):
+        return self
+
+    def abandon(self):
+        pass
+
+
+_NULL_CTX = _NullCtx()
+
+
+class _SpanCtx:
+    __slots__ = ("_tr", "_name", "_cat", "_args", "_trace_id", "_t0",
+                 "_abandoned")
+
+    def __init__(self, tracer, name, cat, args, trace_id):
+        self._tr = tracer
+        self._name = name
+        self._cat = cat
+        self._args = args
+        self._trace_id = trace_id
+        self._abandoned = False
+
+    def __enter__(self):
+        stack = getattr(_tls, "spans", None)
+        if stack is None:
+            stack = _tls.spans = []
+        if self._trace_id is None:
+            # inherit: enclosing span's id, else the thread's context id
+            self._trace_id = stack[-1]._trace_id if stack \
+                else getattr(_tls, "trace_id", None)
+        stack.append(self)
+        self._t0 = _now()
+        return self
+
+    def add_args(self, **kw):
+        """Attach metadata discovered while the span is open (e.g. the
+        compile/compute split known only at close)."""
+        if self._args is None:
+            self._args = {}
+        self._args.update(kw)
+        return self
+
+    def abandon(self):
+        """Close WITHOUT emitting — the operation this span was timing
+        was cancelled (e.g. the step whose data fetch hit
+        StopIteration), so no event should pretend it happened.  Also
+        honored when the span is left via its with-block."""
+        self._abandoned = True
+        stack = getattr(_tls, "spans", None)
+        if stack and stack[-1] is self:
+            stack.pop()
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._abandoned:
+            return False
+        t1 = _now()
+        stack = getattr(_tls, "spans", None)
+        if stack and stack[-1] is self:
+            stack.pop()
+        args = self._args
+        if exc_type is not None:
+            args = dict(args or {})
+            args["error"] = exc_type.__name__
+        self._tr.complete(self._name, self._t0, t1, cat=self._cat,
+                          args=args, trace_id=self._trace_id)
+        return False
+
+
+class Tracer:
+    """Bounded ring of chrome-trace events (the scrape/dump unit).
+
+    `capacity` bounds host memory under unbounded traffic — old events
+    fall off the front (the flight-recorder semantics); raise it for a
+    full-run capture.  Event timestamps are µs on the process-local
+    monotonic clock; `anchor` (wall, mono) recorded at construction
+    lets cross-process merges align shards.
+    """
+
+    def __init__(self, capacity=65536, enabled=None, pid=None):
+        if enabled is None:
+            enabled = os.getenv("PADDLE_TPU_TRACE", "") not in ("", "0")
+        self._enabled = bool(enabled)
+        self._events = deque(maxlen=max(int(capacity), 16))
+        self._pid = os.getpid() if pid is None else int(pid)
+        self._meta_lock = locks.named_lock(
+            "observability.trace.meta", level="tracer")
+        self._named_tids = set()
+        self._meta_events = []
+        self.anchor = (time.time(), _now())
+        self._process_name = None
+
+    # -- switches --------------------------------------------------------
+    @property
+    def enabled(self):
+        return self._enabled
+
+    def enable(self):
+        self._enabled = True
+        return self
+
+    def disable(self):
+        self._enabled = False
+        return self
+
+    def set_process_name(self, name):
+        self._process_name = str(name)
+        return self
+
+    def resize(self, capacity):
+        """Rebind the ring at a new capacity (drops recorded events).
+        In place — instrumented loops that captured this tracer object
+        keep reporting to it."""
+        self._events = deque(maxlen=max(int(capacity), 16))
+        return self
+
+    # -- emit ------------------------------------------------------------
+    # thread_name metadata is capped: idents of dead threads are
+    # recycled only sometimes, and an uncapped list would grow with
+    # thread churn while the event ring stays bounded
+    _MAX_NAMED_THREADS = 512
+
+    def _tid(self):
+        tid = threading.get_ident()
+        if tid not in self._named_tids:
+            with self._meta_lock:
+                if (tid not in self._named_tids
+                        and len(self._named_tids) < self._MAX_NAMED_THREADS):
+                    self._named_tids.add(tid)
+                    self._meta_events.append({
+                        "ph": "M", "name": "thread_name", "pid": self._pid,
+                        "tid": tid,
+                        "args": {"name": threading.current_thread().name},
+                    })
+        return tid
+
+    def _us(self, t):
+        return int(t * 1e6)
+
+    def span(self, name, cat="", args=None, trace_id=None):
+        """Context manager timing a region on this thread (ph:"X").
+        No-op (shared null object) when disabled."""
+        if not self._enabled:
+            return _NULL_CTX
+        return _SpanCtx(self, name, cat, args, trace_id)
+
+    def complete(self, name, t0, t1, cat="", args=None, trace_id=None,
+                 tid=None):
+        """Explicit-interval span: t0/t1 are `Tracer` clock seconds
+        (time.perf_counter) captured by the caller."""
+        if not self._enabled:
+            return
+        if trace_id is not None:
+            args = dict(args or {})
+            args.setdefault("trace_id", trace_id)
+        ev = {"ph": "X", "name": name, "cat": cat or "app",
+              "ts": self._us(t0), "dur": max(self._us(t1) - self._us(t0), 0),
+              "pid": self._pid, "tid": tid if tid is not None else self._tid()}
+        if args:
+            ev["args"] = args
+        self._events.append(ev)
+
+    def instant(self, name, args=None, scope="t", cat=""):
+        """Point-in-time marker (ph:"i"); scope "t"hread / "p"rocess /
+        "g"lobal."""
+        if not self._enabled:
+            return
+        ev = {"ph": "i", "name": name, "cat": cat or "app",
+              "ts": self._us(_now()), "pid": self._pid, "tid": self._tid(),
+              "s": scope}
+        if args:
+            ev["args"] = args
+        self._events.append(ev)
+
+    def counter(self, name, values, cat=""):
+        """Counter sample (ph:"C"): values is {series_name: number} —
+        renders as a stacked counter track."""
+        if not self._enabled:
+            return
+        self._events.append({
+            "ph": "C", "name": name, "cat": cat or "app",
+            "ts": self._us(_now()), "pid": self._pid, "tid": self._tid(),
+            "args": {k: float(v) for k, v in values.items()},
+        })
+
+    def async_begin(self, name, aid, cat="", args=None, ts=None):
+        """Nestable async span begin (ph:"b") keyed by id — the
+        per-request timeline across threads.  ts: explicit clock seconds
+        (default now)."""
+        self._async_ev("b", name, aid, cat, args, ts)
+
+    def async_end(self, name, aid, cat="", args=None, ts=None):
+        self._async_ev("e", name, aid, cat, args, ts)
+
+    def async_instant(self, name, aid, cat="", args=None, ts=None):
+        self._async_ev("n", name, aid, cat, args, ts)
+
+    def _async_ev(self, ph, name, aid, cat, args, ts):
+        if not self._enabled:
+            return
+        ev = {"ph": ph, "name": name, "cat": cat or "app",
+              "id": str(aid), "ts": self._us(_now() if ts is None else ts),
+              "pid": self._pid, "tid": self._tid()}
+        if args:
+            ev["args"] = args
+        self._events.append(ev)
+
+    # -- trace-id plumbing ----------------------------------------------
+    def trace_context(self, trace_id):
+        """Set the thread-local current trace id for the `with` body —
+        spans opened inside (on THIS thread) inherit it."""
+        return _TraceIdCtx(trace_id)
+
+    # -- read / export ---------------------------------------------------
+    def clear(self):
+        self._events.clear()
+
+    def __len__(self):
+        return len(self._events)
+
+    def events(self):
+        """Snapshot: metadata events + ring contents (chrome dicts)."""
+        with self._meta_lock:
+            meta = list(self._meta_events)
+        if self._process_name:
+            meta.insert(0, {"ph": "M", "name": "process_name",
+                            "pid": self._pid,
+                            "args": {"name": self._process_name}})
+        return meta + list(self._events)
+
+    def chrome_trace(self, extra_metadata=None, extra_events=None):
+        """The loadable JSON object format.  `extra_events`: chrome
+        event dicts appended after the ring (the flight recorder's
+        scalar counters ride along this way)."""
+        md = {
+            "clock": "perf_counter",
+            "anchor_unix_time": self.anchor[0],
+            "anchor_clock": self.anchor[1],
+            "pid": self._pid,
+        }
+        if extra_metadata:
+            md.update(extra_metadata)
+        events = self.events()
+        if extra_events:
+            events.extend(extra_events)
+        return {"traceEvents": events,
+                "displayTimeUnit": "ms",
+                "metadata": md}
+
+    def save(self, path, extra_metadata=None, extra_events=None):
+        """Write the trace (gzipped when the path ends in .gz); returns
+        the path.  Atomic (tmp + rename): a dump interrupted by the
+        very crash it is recording never leaves a torn file behind."""
+        path = os.fspath(path)
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        payload = json.dumps(self.chrome_trace(extra_metadata, extra_events))
+        tmp = "%s.tmp%d" % (path, os.getpid())
+        if path.endswith(".gz"):
+            with gzip.open(tmp, "wt") as f:
+                f.write(payload)
+        else:
+            with open(tmp, "w") as f:
+                f.write(payload)
+        os.replace(tmp, path)
+        return path
+
+
+class _TraceIdCtx:
+    __slots__ = ("_id", "_prev")
+
+    def __init__(self, trace_id):
+        self._id = trace_id
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "trace_id", None)
+        _tls.trace_id = self._id
+        return self._id
+
+    def __exit__(self, *exc):
+        _tls.trace_id = self._prev
+        return False
+
+
+# ---------------------------------------------------------------------------
+# module-level default tracer + conveniences (what instrumented layers use)
+# ---------------------------------------------------------------------------
+
+_default = Tracer()
+_trace_seq = itertools.count(1)
+
+
+def default_tracer():
+    """The process-wide tracer every built-in subsystem reports to."""
+    return _default
+
+
+def enable_tracing(capacity=None):
+    """Turn span recording on (idempotent); optionally resize the ring
+    (resizing drops recorded events).  The default Tracer OBJECT never
+    changes — loops that fetched it once (fit, TrainEpochRange) keep
+    reporting to the live ring."""
+    if capacity is not None and capacity != _default._events.maxlen:
+        _default.resize(capacity)
+    _default.enable()
+    return _default
+
+
+def disable_tracing():
+    _default.disable()
+    return _default
+
+
+def tracing_enabled():
+    return _default.enabled
+
+
+def span(name, cat="", args=None, trace_id=None):
+    return _default.span(name, cat=cat, args=args, trace_id=trace_id)
+
+
+def instant(name, args=None, scope="t", cat=""):
+    return _default.instant(name, args=args, scope=scope, cat=cat)
+
+
+def counter_event(name, values, cat=""):
+    return _default.counter(name, values, cat=cat)
+
+
+def trace_context(trace_id):
+    return _default.trace_context(trace_id)
+
+
+def current_trace_id():
+    """The innermost open span's trace id on this thread (or the
+    thread's trace_context id); None outside both."""
+    stack = getattr(_tls, "spans", None)
+    if stack:
+        return stack[-1]._trace_id
+    return getattr(_tls, "trace_id", None)
+
+
+def new_trace_id(prefix="tr"):
+    """Process-unique trace id (cheap monotonic counter + pid so ids
+    from different ranks never collide in a merged fleet trace)."""
+    return "%s-%d-%d" % (prefix, os.getpid(), next(_trace_seq))
+
+
+class TraceContext:
+    """The serializable trace context a request carries ACROSS
+    processes: trace id + parent span name + the originating process's
+    wall/mono anchor pair.
+
+    The anchor is what makes a cross-process timeline honest: each
+    worker stamps events on its own monotonic clock, and
+    `merge_fleet_trace` aligns shards on the wall clock via their
+    anchors — the context carries the ORIGIN anchor so even a shard
+    that never built a Tracer can be placed on the request's timeline.
+
+    Wire format (`to_wire()`) is a plain dict — JSON- and pickle-safe,
+    so it rides the replica pipe protocol, `KVHandoff`, and HTTP
+    headers alike:
+
+        {"trace_id": "req-123-7", "parent": "queue",
+         "anchor_unix_time": 1723.0, "anchor_clock": 41.2}
+    """
+
+    __slots__ = ("trace_id", "parent", "anchor")
+
+    def __init__(self, trace_id=None, parent=None, anchor=None):
+        self.trace_id = trace_id or new_trace_id("req")
+        self.parent = parent
+        self.anchor = tuple(anchor) if anchor is not None \
+            else _default.anchor
+
+    def child(self, parent):
+        """Same trace id / anchor, new parent span name — what a stage
+        hands to the next stage."""
+        return TraceContext(self.trace_id, parent=parent,
+                            anchor=self.anchor)
+
+    def to_wire(self):
+        d = {"trace_id": self.trace_id,
+             "anchor_unix_time": float(self.anchor[0]),
+             "anchor_clock": float(self.anchor[1])}
+        if self.parent is not None:
+            d["parent"] = self.parent
+        return d
+
+    @classmethod
+    def from_wire(cls, wire):
+        """None / TraceContext / wire dict -> TraceContext or None."""
+        if wire is None or isinstance(wire, cls):
+            return wire
+        anchor = None
+        if "anchor_unix_time" in wire and "anchor_clock" in wire:
+            anchor = (wire["anchor_unix_time"], wire["anchor_clock"])
+        return cls(wire.get("trace_id"), parent=wire.get("parent"),
+                   anchor=anchor)
+
+    def __repr__(self):
+        return "TraceContext(%r, parent=%r)" % (self.trace_id,
+                                                self.parent)
+
+
+# ---------------------------------------------------------------------------
+# load / merge (the fleet-timeline side)
+# ---------------------------------------------------------------------------
+
+
+def load_trace(path):
+    """Parse a chrome trace file (.json or .json.gz; object or bare
+    array format) -> (events, metadata)."""
+    opener = gzip.open if os.fspath(path).endswith(".gz") else open
+    with opener(path, "rt") as f:
+        data = json.load(f)
+    if isinstance(data, list):
+        return data, {}
+    if not isinstance(data, dict) or "traceEvents" not in data:
+        raise ValueError("%s: not a chrome trace (no traceEvents)" % path)
+    return data["traceEvents"], data.get("metadata") or {}
+
+
+def merge_traces(shards, align=True):
+    """Merge per-process trace shards into ONE timeline.
+
+    shards: [(pid, events, metadata)] — pid is the merged process id
+    (rank number for a fleet trace); every event is re-stamped with it.
+    When `align` and EVERY shard's metadata carries the wall/monotonic
+    anchor pair, timestamps are shifted onto the common wall clock so
+    ranks line up (a per-shard constant offset; NTP-level skew remains).
+    A single anchorless shard disables alignment for the whole merge —
+    shifting only the anchored ones would strand them a wall-clock
+    epoch away from the rest of the timeline.
+    Returns the merged chrome-trace object.
+    """
+    out = []
+    t_base = None
+    offsets = []
+    for pid, events, md in shards:
+        if md and "anchor_unix_time" in md and "anchor_clock" in md:
+            # event ts (µs of the shard's mono clock) + off = µs wall
+            offsets.append(
+                (md["anchor_unix_time"] - md["anchor_clock"]) * 1e6)
+        else:
+            offsets.append(None)
+    if align and offsets and all(o is not None for o in offsets):
+        t_base = min(offsets)
+    else:
+        offsets = [0.0] * len(offsets)
+    for (pid, events, md), off in zip(shards, offsets):
+        shift = (off - t_base) if t_base is not None else 0.0
+        for ev in events:
+            ev = dict(ev)
+            ev["pid"] = pid
+            if "ts" in ev:
+                ev["ts"] = int(ev["ts"] + shift)
+            out.append(ev)
+    out.sort(key=lambda e: (e.get("ts", 0), e.get("ph") != "M"))
+    return {"traceEvents": out, "displayTimeUnit": "ms",
+            "metadata": {"merged_shards": len(shards)}}
+
+
+def _event_matches_trace(ev, trace_id):
+    if ev.get("ph") == "M":
+        return True              # track names stay: they label the merge
+    if ev.get("id") == trace_id:
+        return True              # async request-timeline events
+    args = ev.get("args")
+    if not args:
+        return False
+    if args.get("trace_id") == trace_id:
+        return True
+    ids = args.get("trace_ids")
+    return bool(ids) and trace_id in ids
+
+
+def merge_fleet_trace(shards, trace_id=None, out_path=None):
+    """One request, one timeline: merge per-worker shards (prefill
+    worker, decode worker, front) into a single anchor-aligned chrome
+    trace, optionally filtered to one trace id.
+
+    shards: a list whose items may be
+      * ``(pid, events, metadata)`` tuples (the `merge_traces` form),
+      * chrome-trace dicts (``Tracer.chrome_trace()`` output / what a
+        worker answers to a ``("trace",)`` pipe frame),
+      * paths to saved traces (via `load_trace`).
+    Dict/path shards use their metadata ``pid`` (falling back to the
+    shard's position) as the merged track id.
+
+    trace_id: keep only events on that request's track — async events
+    keyed by the id plus spans whose args carry ``trace_id`` /
+    ``trace_ids``; ``ph:"M"`` track metadata always survives.
+
+    Returns the merged chrome-trace object (metadata records the
+    trace_id filter and whether anchors aligned every shard); saves it
+    to `out_path` when given.
+    """
+    norm = []
+    for i, sh in enumerate(shards):
+        if isinstance(sh, tuple) and len(sh) == 3:
+            norm.append(sh)
+            continue
+        if isinstance(sh, (str, os.PathLike)):
+            events, md = load_trace(sh)
+        elif isinstance(sh, dict):
+            events, md = sh.get("traceEvents", []), sh.get("metadata") or {}
+        else:
+            raise TypeError("shard %d: expected (pid, events, metadata) "
+                            "tuple, chrome-trace dict, or path; got %r"
+                            % (i, type(sh).__name__))
+        norm.append((md.get("pid", i), events, md))
+    aligned = all(
+        md and "anchor_unix_time" in md and "anchor_clock" in md
+        for _, _, md in norm)
+    merged = merge_traces(norm, align=True)
+    if trace_id is not None:
+        merged["traceEvents"] = [
+            ev for ev in merged["traceEvents"]
+            if _event_matches_trace(ev, trace_id)]
+        merged["metadata"]["trace_id"] = trace_id
+    merged["metadata"]["aligned"] = aligned
+    if out_path is not None:
+        out_path = os.fspath(out_path)
+        d = os.path.dirname(out_path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        opener = gzip.open if out_path.endswith(".gz") else open
+        with opener(out_path, "wt") as f:
+            json.dump(merged, f)
+    return merged
