@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
-"""Chip smoke of paddle_tpu_torch: builds the CUDA kernels, holds each
-against its plain PyTorch version at the serving path's shapes, serves
-a full-width TransformerLM through the paged generation engine, and
-checks the streams against the port's sequential oracle and the dense
-engine.
+"""Chip smoke of paddle_tpu_torch: builds the CUDA kernels and holds
+each against its plain PyTorch version (the flash forward and its three
+backward kernels over f32/bf16, S in {128, 512, 1024}, causal or not,
+with a padding bias and segment ids that leave a dead row, and at the
+training step's own shape; the decode kernels at serving shapes); times
+the fused against the pair backward over B*H around the SM count;
+runs full-width BERT-base once on the card and on the CPU with the same
+weights; trains it as `bench.py`'s flagship step does (B=60, S=512,
+bf16, ShardedTrainStep + AdamW), fused and pair backward, with a
+profile of one step; then serves a full-width TransformerLM through the
+paged generation engine and checks the streams against the port's
+sequential oracle and the dense engine.
 
     python3 chip_smoke.py
 
@@ -15,15 +22,23 @@ power limit as nvidia-smi reports them, and as the last line
 non-zero before that line.
 
 Float32 products run in full f32 (TF32 off for matmul and cuDNN).
-Tolerances: f32 kernels atol 1e-5 / rtol 1e-4 against the plain
-version (the sums run in another order); bf16 flash atol = rtol = 2e-2
-(the repo's PADDLE_TPU_FLASH_ACC policy); dense vs paged decode bitwise.
+Tolerances: each kernel is held against its plain version run in f32
+on the same inputs (bf16 inputs upcast exactly).  f32 kernels: atol
+1e-5 / rtol 1e-4 (the sums run in another order), gradients 1e-4.  bf16
+flash kernels compute in f32 and round each output once, so an output
+is off by at most half a bf16 ulp, 2^-8 of its value: the limit is
+rtol 2^-7 (that bound doubled) plus atol 1e-5, far inside the repo's
+PADDLE_TPU_FLASH_ACC policy (2e-2 / 5e-2), which at S=512 is as large
+as the gradients themselves.  Two bf16 kernels against each other
+(fused vs pair): rtol 2^-6.  Dense vs paged decode bitwise; the model
+checks state theirs beside them.
 Bounds: the larger of bytes / 3.35 TB/s and flops / peak, with the
 H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the kernels use f32 FMA),
 989 TFLOP/s bf16.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -33,9 +48,17 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+BF16_ROUND = 2.0 ** -8      # half a bf16 ulp, relative to the value
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
-       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+       torch.bfloat16: dict(atol=1e-5, rtol=2 * BF16_ROUND)}
+GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=1e-5, rtol=2 * BF16_ROUND)}
+PAIR_TOL = {torch.float32: GRAD_TOL[torch.float32],
+            torch.bfloat16: dict(atol=1e-5, rtol=4 * BF16_ROUND)}
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+NEG_INF = -1e30
 H, D = 12, 64
+TRAIN_B, TRAIN_S, TRAIN_P = 60, 512, 80
 
 
 def emit(obj):
@@ -62,11 +85,23 @@ def bound(nbytes, flops, dtype):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name, got, want, dtype):
-    err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype],
-                               msg=lambda m: "%s: %s" % (name, m))
-    return err
+def compare(name, got, want, tol):
+    """Raises unless |got - want| <= atol + rtol |want| everywhere (and
+    both are finite).  Returns (max |got - want|, the largest share of
+    its limit any element uses)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    share = (diff / (tol["atol"] + tol["rtol"] * want.abs())).max().item()
+    err = diff.max().item()
+    if not (share <= 1.0 and torch.isfinite(got).all()):
+        raise AssertionError("%s: max |err| %g, %.3g of its limit (atol %g, "
+                             "rtol %g)" % (name, err, share, tol["atol"],
+                                           tol["rtol"]))
+    return err, share
+
+
+def upcast(*ts):
+    return [None if t is None else t.float() for t in ts]
 
 
 # ---------------------------------------------------------------------------
@@ -76,8 +111,6 @@ def compare(name, got, want, dtype):
 
 def check_flash(ops):
     import torch.nn.functional as F
-
-    from paddle_tpu_torch.ops.attention import naive_attention_with_layout
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -94,10 +127,12 @@ def check_flash(ops):
                        for _ in range(3))
         scale = D ** -0.5
         out = ops.flash_attention(q, k, v, scale=scale, causal=True)
-        plain = lambda: naive_attention_with_layout(  # noqa: E731
-            q, k, v, None, scale, True, "BSHD")
+        plain = lambda: ops.flash_attention_reference(  # noqa: E731
+            q, k, v, scale=scale, causal=True)[0]
+        want = ops.flash_attention_reference(*upcast(q, k, v), scale=scale,
+                                             causal=True)[0]
         torch.cuda.synchronize()
-        err = compare("flash S=%d %s" % (s, dt), out, plain(), dt)
+        err, share = compare("flash S=%d %s" % (s, dt), out, want, TOL[dt])
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         elt = q.element_size()
         nbytes = 4 * s * H * D * elt
@@ -105,7 +140,7 @@ def check_flash(ops):
         bms, by = bound(nbytes, flops, dt)
         rows.append({
             "S": s, "dtype": str(dt).replace("torch.", ""),
-            "strided_qkv": strided, "max_abs_err": err,
+            "strided_qkv": strided, "max_abs_err": err, "limit_share": share,
             "ms": time_ms(lambda: ops.flash_attention(q, k, v, scale=scale,
                                                       causal=True)),
             "plain_ms": time_ms(plain),
@@ -114,6 +149,229 @@ def check_flash(ops):
             "bound_ms": bms, "bound_by": by})
     emit({"phase": "kernel_check", "kernel": "flash_fwd", "B": 1, "H": H,
           "D": D, "causal": True, "cases": rows})
+    return rows
+
+
+def _visible_pairs(sq, sk, causal):
+    """(query, key) pairs a head computes: all, or the bottom-right
+    causal triangle (row i sees keys j <= i + Sk - Sq)."""
+    if not causal:
+        return sq * sk
+    return sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
+
+
+def flash_bounds(b, s, dtype, causal, masked):
+    """{kernel: (bound_ms, bound_by)} of the four flash kernels at
+    [b, s, H, D]: each input read once and each output written once over
+    3.35 TB/s, against the products the function needs (forward 2: QK^T
+    and PV; dQ 3: S, dP, dS K; dK/dV 4: S, dP, P^T dO, dS^T Q; fused 5)
+    of 2 flops per visible (query, key, d) over the dtype's peak."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    x = b * s * H * D * elt                 # one q/k/v/o/do-sized tensor
+    row = b * H * s * 4                     # lse or delta, f32
+    mask = (b * s * 4 + 2 * b * s * 4) if masked else 0   # bias, segs
+    dbias = b * H * s * 4 if masked else 0
+    pairs = b * H * _visible_pairs(s, s, causal) * D
+    return {
+        "flash_fwd": bound(4 * x + row + mask, 4 * pairs, dtype),
+        "flash_bwd_dq": bound(6 * x + 2 * row + mask, 6 * pairs, dtype),
+        "flash_bwd_dkv": bound(6 * x + 2 * row + mask + dbias, 8 * pairs,
+                               dtype),
+        "flash_bwd_fused": bound(8 * x + row + mask + dbias, 10 * pairs,
+                                 dtype),
+    }
+
+
+def _library_attention(q, k, v, do, bias, segs, causal, scale):
+    """F.scaled_dot_product_attention's forward, backward alone (on a
+    retained graph) and forward+backward at the same shapes, with the
+    bias and masks as one float mask: the yardstick, timed only."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    mask = None
+    if bias is not None or segs is not None:
+        b, s = q.shape[0], q.shape[1]
+        mask = torch.zeros(b, 1, s, s, device=q.device)
+        if bias is not None:
+            mask = mask + bias
+        if segs is not None:
+            same = segs[0][:, None, :, None] == segs[1][:, None, None, :]
+            mask = torch.where(same, mask, -1e30)
+        if causal:
+            vis = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+            mask = torch.where(vis, mask, -1e30)
+        mask = mask.to(q.dtype)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                scale=scale)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            scale=scale)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        scale=scale)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True))
+    return time_ms(fwd), bwd_ms, time_ms(fwd_bwd)
+
+
+def flash_train_case(ops, gen, b, s, dt, causal, masked):
+    """One shape of the training kernels against their plain versions:
+    the forward with its LSE, the dQ + dK/dV pair and (where it fits)
+    the fused backward, each held against the plain version on the same
+    inputs, the fused held against the pair; then every one timed.
+    ``masked``: row 0 pads its last quarter of keys with a -1e4 bias
+    (which needs a gradient), row 1 packs two segments, and its query 3
+    has a segment id no key has: a dead row."""
+    q, k, v, do = (torch.randn(b, s, H, D, device="cuda", generator=gen)
+                   .to(dt) for _ in range(4))
+    bias = segs = None
+    if masked:
+        bias = torch.zeros(b, 1, 1, s, device="cuda")
+        bias[0, :, :, s - s // 4:] = -1e4
+        kseg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        kseg[1, s // 2:] = 1
+        qseg = kseg.clone()
+        qseg[1, 3] = 7
+        segs = (qseg, kseg)
+    scale = D ** -0.5
+    kw = dict(bias=bias, segment_ids=segs, scale=scale, causal=causal)
+    name = "S=%d %s causal=%s masked=%s" % (
+        s, str(dt).replace("torch.", ""), causal, masked)
+
+    errs, shares = {}, {}
+
+    def check(tag, got, want, tol):
+        errs[tag], shares[tag] = compare("%s %s" % (name, tag), got, want,
+                                         tol)
+
+    o, lse = ops.flash_fwd(q, k, v, with_lse=True, **kw)
+    o_ref, lse_ref = ops.flash_attention_reference(*upcast(q, k, v), **kw)
+    torch.cuda.synchronize()
+    check("o", o, o_ref, TOL[dt])
+    check("lse", lse, lse_ref, LSE_TOL)
+    # the f32 plain backward from the kernel's own o and lse
+    want = ops.flash_attention_bwd_reference(
+        *upcast(q, k, v), bias, segs, o.float(), do.float(), lse, scale,
+        causal)
+    dq, delta = ops.flash_bwd_dq(q, k, v, o, do, lse, **kw)
+    dk, dv, db = ops.flash_bwd_dkv(q, k, v, o, do, lse, delta,
+                                   bias_grad=masked, **kw)
+    pair = (dq, dk, dv, db)
+    torch.cuda.synchronize()
+    for tag, got, ref in zip(("dq", "dk", "dv", "dbias"), pair, want):
+        if got is not None:
+            check("pair_" + tag, got, ref, GRAD_TOL[dt])
+    fits = s <= 512
+    if fits:
+        fused = ops.flash_bwd_fused(q, k, v, o, do, lse, bias_grad=masked,
+                                    **kw)
+        torch.cuda.synchronize()
+        for tag, got, ref, other in zip(("dq", "dk", "dv", "dbias"), fused,
+                                        want, pair):
+            if got is not None:
+                check("fused_" + tag, got, ref, GRAD_TOL[dt])
+                check("fused_vs_pair_" + tag, got, other, PAIR_TOL[dt])
+    if masked:
+        dead = [o[1, 3].abs().max().item(), dq[1, 3].abs().max().item()]
+        if any(dead) or (lse.view(b, H, s)[1, :, 3] != NEG_INF).any():
+            raise AssertionError("%s: the dead row is not dead: |o|, |dq| "
+                                 "= %s" % (name, dead))
+
+    lib_fwd, lib_bwd, lib_fwd_bwd = _library_attention(
+        q, k, v, do, bias, segs, causal, scale)
+    row = {
+        "B": b, "S": s, "dtype": str(dt).replace("torch.", ""),
+        "causal": causal, "masked": masked, "max_abs_err": errs,
+        "limit_share": shares,
+        "fwd_ms": time_ms(lambda: ops.flash_fwd(q, k, v, with_lse=True,
+                                                **kw)),
+        "dq_ms": time_ms(lambda: ops.flash_bwd_dq(q, k, v, o, do, lse, **kw)),
+        "dkv_ms": time_ms(lambda: ops.flash_bwd_dkv(
+            q, k, v, o, do, lse, delta, bias_grad=masked, **kw)),
+        "fused_ms": (time_ms(lambda: ops.flash_bwd_fused(
+            q, k, v, o, do, lse, bias_grad=masked, **kw)) if fits else None),
+        "plain_fwd_ms": time_ms(lambda: ops.flash_attention_reference(
+            q, k, v, **kw), iters=5, warmup=1),
+        "plain_bwd_ms": time_ms(lambda: ops.flash_attention_bwd_reference(
+            q, k, v, bias, segs, o, do, lse, scale, causal),
+            iters=5, warmup=1),
+        "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd,
+        "library_fwd_bwd_ms": lib_fwd_bwd,
+        "bounds": flash_bounds(b, s, dt, causal, masked)}
+    return row
+
+
+def check_flash_train(ops):
+    """The four training kernels at B=2, H=12, D=64 over f32 / bf16,
+    S in {128, 512, 1024}, causal and not, masked (bias + segments with
+    a dead row); plus the unmasked S=512 shape.  S=1024 runs only the
+    pair (the fused kernel takes S <= 512)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for s in (128, 512, 1024):
+            for causal in (False, True):
+                rows.append(flash_train_case(ops, gen, 2, s, dt, causal,
+                                             True))
+        rows.append(flash_train_case(ops, gen, 2, 512, dt, False, False))
+    emit({"phase": "kernel_check", "kernel": "flash_train", "H": H, "D": D,
+          "cases": rows})
+    return rows
+
+
+def check_flash_main_shape(ops):
+    """The four kernels at the training step's own shape (B=60, S=512,
+    bf16, no mask, not causal): errors against the plain versions and
+    the times the `kernels` line reports."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    row = flash_train_case(ops, gen, TRAIN_B, TRAIN_S, torch.bfloat16,
+                           False, False)
+    emit({"phase": "kernel_check", "kernel": "flash_main_shape", **row})
+    return row
+
+
+def check_bwd_crossover(ops):
+    """Fused against pair backward at S=512 (and 128) over B*H around
+    the SM count, bf16, no mask: each one's ms and what
+    `_use_fused_bwd` picks, so the dispatch rule is read against the
+    card.  Times only; the kernels' values are checked above."""
+    from paddle_tpu_torch.ops.attention import _use_fused_bwd
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for b, s in ((2, 512), (10, 512), (11, 512), (12, 512), (22, 512),
+                 (60, 512), (2, 128), (60, 128)):
+        q, k, v, do = (torch.randn(b, s, H, D, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = ops.flash_fwd(q, k, v, with_lse=True)
+
+        def pair():
+            _, delta = ops.flash_bwd_dq(q, k, v, o, do, lse)
+            ops.flash_bwd_dkv(q, k, v, o, do, lse, delta)
+
+        fused_ms = time_ms(lambda: ops.flash_bwd_fused(q, k, v, o, do, lse))
+        pair_ms = time_ms(pair)
+        rule = _use_fused_bwd(b * H, s, s, D, sms)
+        faster = "fused" if fused_ms < pair_ms else "pair"
+        rows.append({"B": b, "S": s, "BH": b * H, "fused_ms": fused_ms,
+                     "pair_ms": pair_ms, "rule": "fused" if rule else "pair",
+                     "faster": faster,
+                     "rule_costs_ms": max(0.0, (fused_ms if rule else pair_ms)
+                                          - min(fused_ms, pair_ms))})
+    emit({"phase": "bwd_crossover", "sms": sms, "H": H, "D": D,
+          "dtype": "bfloat16", "cases": rows})
     return rows
 
 
@@ -157,8 +415,10 @@ def check_decode(ops):
         q, k_dense, v_dense, lengths, scale)
     paged_plain = lambda: ops.paged_decode_attention_reference(  # noqa: E731
         q, k_pool, v_pool, tables, lengths, scale)
-    err_d = compare("decode dense", dense, dense_plain(), torch.float32)
-    err_p = compare("decode paged", paged, paged_plain(), torch.float32)
+    err_d = compare("decode dense", dense, dense_plain(),
+                    TOL[torch.float32])[0]
+    err_p = compare("decode paged", paged, paged_plain(),
+                    TOL[torch.float32])[0]
 
     live = sum(lengths_l)
     nbytes = (2 * q.numel() * 4 + 2 * live * H * D * 4 + n * 4)
@@ -194,7 +454,270 @@ def check_decode(ops):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the engine at full width
+# phase 3: BERT-base pretraining at full width
+# ---------------------------------------------------------------------------
+
+# bench.py's flagship configuration (vocab padded to a multiple of 64)
+BERT_BASE = dict(vocab_size=30528, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=512)
+TRAIN_STEPS, REPEAT_STEPS, PAIR_STEPS = 10, 8, 3
+# card vs CPU, f32: the loss within 1e-4; each gradient within 1e-4 of
+# its own largest entry.  The sums run in other orders (cuBLAS vs the
+# CPU's BLAS, the kernels' tiles vs the plain einsums) through 12
+# layers, ~1e-6 of the scale; a wrong mask or a missing term is 1e-2.
+MODEL_LOSS_ATOL, MODEL_GRAD_REL = 1e-4, 1e-4
+# fused vs pair backward in the bf16 train step.  Their dQ differs by at
+# most one bf16 ulp, so the losses agree to ~1e-4 (1.3e-4 over 3 steps
+# on the H100) and one step's master gradients to under 1e-2 in
+# relative norm (6.6e-3 at layer 0's qkv_proj, 2.5e-6 at layer 11's:
+# the ulps of dQ grow as the bf16 backward carries them down); the
+# limits are 3x and more those readings.
+PAIR_LOSS_ATOL, PAIR_GRAD_REL = 1e-3, 2e-2
+
+
+def _grad_names(L):
+    return ("bert.encoder.0.attn.qkv_proj.weight",
+            "bert.encoder.%d.attn.qkv_proj.weight" % (L - 1),
+            "bert.embeddings.word.weight")
+
+
+def flops_per_step(cfg, params, b, s, p):
+    """`bench.py:_flops_per_step`: 6 FLOPs per matmul parameter per
+    token for the trunk, the MLM head (tied decoder + mlm_transform) on
+    the P masked rows only, plus the exact attention term 12 L S h per
+    token (forward and backward); embedding lookups cost none."""
+    d, v = cfg.hidden_size, cfg.vocab_size
+    head = v * d + d * d + d + v
+    trunk = 0
+    for name, arr in params.items():
+        if not ("position" in name or "token_type" in name
+                or "word" in name or "mlm" in name):
+            trunk += int(np.prod(arr.shape))
+    attn = 12.0 * cfg.num_hidden_layers * cfg.hidden_size * s
+    return b * s * (6.0 * trunk + attn) + b * p * 6.0 * head
+
+
+def make_bert_batch(rng, cfg, b, s, p):
+    """One pretraining batch as `bench.py:287-307` makes it."""
+    pos = np.stack([np.sort(rng.choice(s, size=p, replace=False))
+                    for _ in range(b)]).astype(np.int32)
+    return {
+        "input_ids": rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int32),
+        "token_type_ids": np.zeros((b, s), np.int32),
+        "position_ids": np.tile(np.arange(s, dtype=np.int32), (b, 1)),
+        "masked_positions": pos,
+        "mlm_labels": rng.randint(0, cfg.vocab_size, (b, p)).astype(np.int32),
+        "mlm_weights": np.ones((b, p), np.float32),
+        "nsp_labels": rng.randint(0, 2, (b, 1)).astype(np.int32),
+    }
+
+
+def bert_loss_fn(model, batch):
+    logits, nsp_logits = model(
+        batch["input_ids"], batch["token_type_ids"], batch["position_ids"],
+        attention_mask=batch.get("attention_mask"),
+        segment_ids=batch.get("segment_ids"),
+        masked_positions=batch["masked_positions"])
+    return model.loss(logits, nsp_logits, batch["mlm_labels"],
+                      batch["mlm_weights"], batch["nsp_labels"])
+
+
+def train_model_check(ptt):
+    """Full-width BERT-base, dropout 0, one f32 forward and backward at
+    B=2, S=128, P=20 on the card (the flash kernels) and, with the same
+    weights and batch, on the CPU (the plain versions).  Row 0 pads its
+    last 40 keys through ``attention_mask`` and row 1 packs two segments
+    through ``segment_ids``, so the bias and segment paths run inside
+    the model."""
+    models, ops = ptt.models, ptt.ops
+    cfg = models.BertConfig(**BERT_BASE, hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    weights = models.from_jax_state_dict(models.init_bert_params(cfg, 13))
+    b, s, p = 2, 128, 20
+    batch = make_bert_batch(np.random.RandomState(1), cfg, b, s, p)
+    batch["attention_mask"] = np.ones((b, s), np.int32)
+    batch["attention_mask"][0, s - 40:] = 0
+    batch["segment_ids"] = np.zeros((b, s), np.int32)
+    batch["segment_ids"][1, s // 2:] = 1
+    L = cfg.num_hidden_layers
+    names = ("bert.encoder.0.attn.qkv_proj.weight",
+             "bert.encoder.%d.attn.qkv_proj.weight" % (L - 1),
+             "bert.embeddings.word.weight", "mlm_bias")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = models.BertForPretraining(cfg, device=dev)
+        model.load_state_dict(weights)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        params = dict(model.named_parameters())
+        ops.reset_launch_counts()
+        loss = bert_loss_fn(model, tb)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        got[dev] = (loss.item(), [g.cpu() for g in grads],
+                    ops.launch_counts())
+        del model, params, grads
+    (loss_c, grads_c, launches), (loss_h, grads_h, _) = got["cuda"], \
+        got["cpu"]
+    if not np.isfinite(loss_c) or abs(loss_c - loss_h) > MODEL_LOSS_ATOL:
+        raise AssertionError("BERT-base loss: card %r, CPU %r"
+                             % (loss_c, loss_h))
+    errs = {}
+    for name, gc, gh in zip(names, grads_c, grads_h):
+        scale = gh.abs().max().item()
+        err = (gc - gh).abs().max().item()
+        errs[name] = {"max_abs_err": err, "max_abs": scale}
+        if not torch.isfinite(gc).all() or err > MODEL_GRAD_REL * scale:
+            raise AssertionError("BERT-base grad %s: max err %g against "
+                                 "max |g| %g" % (name, err, scale))
+    # B=2: 24 heads leave the card mostly idle, so the rule takes the pair
+    fused = ops.attention._use_fused_bwd(
+        b * cfg.num_attention_heads, s, s, D,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    _expect_launches("card forward/backward", launches, {
+        "flash_fwd": L, "flash_bwd_fused": L if fused else 0,
+        "flash_bwd_dq": 0 if fused else L,
+        "flash_bwd_dkv": 0 if fused else L})
+    emit({"phase": "train_model_check", "B": b, "S": s, "P": p,
+          "backward": "fused" if fused else "pair",
+          "loss_card": loss_c, "loss_cpu": loss_h,
+          "loss_abs_err": abs(loss_c - loss_h), "loss_atol": MODEL_LOSS_ATOL,
+          "grad_rel_tol": MODEL_GRAD_REL, "grads": errs,
+          "launches": launches})
+
+
+def _run_steps(step, state, batches, ids):
+    """``step`` over ``batches[i]`` for i in ``ids``; CUDA events around
+    every step.  Returns (state, losses, per-step ms)."""
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(ids) + 1)]
+    losses = []
+    evs[0].record()
+    for n, i in enumerate(ids):
+        state, loss = step(state, batches[i])
+        losses.append(loss)
+        evs[n + 1].record()
+    torch.cuda.synchronize()
+    ms = [evs[n].elapsed_time(evs[n + 1]) for n in range(len(ids))]
+    return state, [x.item() for x in losses], ms
+
+
+def _expect_launches(tag, launches, want):
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError("%s launches %s, want %s" % (tag, launches,
+                                                          want))
+
+
+def train(ptt):
+    """`bench.py:_run`'s flagship step on the port: BERT-base at full
+    width, dropout 0.1, AdamW(1e-4, wd 0.01), ShardedTrainStep(zero_stage
+    0, amp bf16), B=60, S=512, P=80, four batches.  Two warm-up steps,
+    then TRAIN_STEPS timed; REPEAT_STEPS on one repeated batch (the loss
+    must fall); PAIR_STEPS again from the initial state under
+    PADDLE_TPU_FLASH_FUSED_BWD=0 (the dQ + dK/dV pair), whose losses
+    must equal the fused run's at the bf16 policy; one step profiled."""
+    models, ops = ptt.models, ptt.ops
+    cfg = models.BertConfig(**BERT_BASE, hidden_dropout_prob=0.1,
+                            attention_probs_dropout_prob=0.1)
+    b, s, p = TRAIN_B, TRAIN_S, TRAIN_P
+    t0 = time.perf_counter()
+    model = models.BertForPretraining(cfg, device="cuda")
+    model.load_state_dict(models.from_jax_state_dict(
+        models.init_bert_params(cfg, 17)))
+    step = ptt.distributed.ShardedTrainStep(
+        model, ptt.optimizer.AdamWOptimizer(learning_rate=1e-4,
+                                            weight_decay=0.01),
+        bert_loss_fn, mesh=None, zero_stage=0, amp="bf16")
+    state0 = step.init()
+    rng = np.random.RandomState(0)
+    batches = [step.place_batch(make_bert_batch(rng, cfg, b, s, p))
+               for _ in range(4)]
+    flops = flops_per_step(cfg, state0["params"], b, s, p)
+    setup_s = time.perf_counter() - t0
+    L = cfg.num_hidden_layers
+
+    state, warm_losses, _ = _run_steps(step, state0, batches, [0, 1])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [(2 + n) % 4 for n in range(TRAIN_STEPS)]
+    state, losses, step_ms = _run_steps(step, state, batches, ids)
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    _expect_launches("fused train run", launches, {
+        "flash_fwd": L * TRAIN_STEPS, "flash_bwd_fused": L * TRAIN_STEPS,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    peak_mem = torch.cuda.max_memory_allocated()
+    fused_losses = warm_losses + losses
+    if not np.isfinite(fused_losses).all():
+        raise AssertionError("non-finite training loss: %s" % fused_losses)
+
+    state, repeat_losses, _ = _run_steps(step, state, batches,
+                                         [0] * REPEAT_STEPS)
+    if not (np.isfinite(repeat_losses).all()
+            and repeat_losses[-1] < repeat_losses[0]):
+        raise AssertionError("the loss did not fall on one repeated batch: "
+                             "%s" % repeat_losses)
+
+    prof = device_profile(lambda: step(state, batches[0]))
+    del state
+
+    os.environ["PADDLE_TPU_FLASH_FUSED_BWD"] = "0"
+    try:
+        ops.reset_launch_counts()
+        _, pair_losses, pair_ms = _run_steps(step, state0, batches,
+                                             list(range(PAIR_STEPS)))
+        pair_launches = ops.launch_counts()
+        pair_first, _ = step(state0, batches[0])
+    finally:
+        del os.environ["PADDLE_TPU_FLASH_FUSED_BWD"]
+    _expect_launches("pair train run", pair_launches, {
+        "flash_fwd": L * PAIR_STEPS, "flash_bwd_fused": 0,
+        "flash_bwd_dq": L * PAIR_STEPS, "flash_bwd_dkv": L * PAIR_STEPS})
+    pair_loss_err = float(np.max(np.abs(
+        np.subtract(pair_losses, fused_losses[:PAIR_STEPS]))))
+    if not pair_loss_err <= PAIR_LOSS_ATOL:
+        raise AssertionError("pair run losses %s against the fused run's %s"
+                             % (pair_losses, fused_losses[:PAIR_STEPS]))
+    # one step's gradients, fused against pair: the first step from zero
+    # moments leaves Moment1 = (1 - beta1) * grad, the f32 master grads
+    fused_first, _ = step(state0, batches[0])
+    grad_errs = {}
+    for name in _grad_names(L):
+        gf, gp = (st["opt"][name]["Moment1"] for st in (fused_first,
+                                                          pair_first))
+        rel = ((gf - gp).norm() / gp.norm()).item()
+        grad_errs[name] = rel
+        if not rel <= PAIR_GRAD_REL:
+            raise AssertionError("step-1 grad %s: fused vs pair relative "
+                                 "error %g, limit %g" % (name, rel,
+                                                         PAIR_GRAD_REL))
+    del fused_first, pair_first
+
+    mean_s = float(np.mean(step_ms)) / 1e3
+    emit({"phase": "train", "B": b, "S": s, "P": p, "amp": "bf16",
+          "setup_s": setup_s, "steps": TRAIN_STEPS,
+          "step_ms": step_ms,
+          "step_ms_p50": float(np.percentile(step_ms, 50)),
+          "step_ms_p99": float(np.percentile(step_ms, 99)),
+          "tokens_per_s": b * s / mean_s,
+          "host_wall_tokens_per_s": b * s * TRAIN_STEPS / wall_s,
+          "flops_per_step": flops,
+          "model_flops_share_of_989tf": flops / mean_s / PEAK_FLOPS[
+              torch.bfloat16],
+          "peak_memory_bytes": peak_mem,
+          "losses": fused_losses, "repeat_batch_losses": repeat_losses,
+          "launches": launches,
+          "pair_losses": pair_losses, "pair_step_ms": pair_ms,
+          "pair_vs_fused_max_abs": pair_loss_err,
+          "pair_loss_atol": PAIR_LOSS_ATOL,
+          "pair_vs_fused_step1_grad_rel": grad_errs,
+          "pair_grad_rel_limit": PAIR_GRAD_REL,
+          "pair_launches": pair_launches})
+    emit({"phase": "train_profile", "steps": 1, **prof})
+    return launches, pair_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the engine at full width
 # ---------------------------------------------------------------------------
 
 
@@ -236,15 +759,26 @@ def serve(gen, model, reqs, **kw):
 
 KERNEL_CATEGORIES = (
     ("flash_fwd", "flash_fwd"),
+    ("flash_bwd_fused", "flash_bwd_fused"),
+    ("flash_bwd_dq", "flash_bwd_dq"),
+    ("flash_bwd_dkv", "flash_bwd_dkv"),
     ("decode_paged", "paged_attention"),
     ("decode_dense", "decode_attention"),
     ("gemm", "matmul"), ("gemv", "matmul"), ("sm90_", "matmul"),
-    ("cutlass", "matmul"), ("cublas", "matmul"),
+    ("cutlass", "matmul"), ("cublas", "matmul"), ("nvjet", "matmul"),
     ("sort", "sampling_sort"), ("Sort", "sampling_sort"),
-    ("layer_norm", "layer_norm"),
-    ("Memcpy", "copy"), ("Memset", "copy"),
+    ("layer_norm", "layer_norm"), ("GammaBeta", "layer_norm"),
+    ("embedding", "embedding"),
+    ("Memcpy", "copy"), ("Memset", "copy"), ("CatArray", "copy"),
     ("index", "kv_scatter_gather"), ("scatter", "kv_scatter_gather"),
     ("gather", "kv_scatter_gather"),
+    ("distribution", "dropout_rng"),
+    ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
+    ("softmax", "softmax_xent"), ("SoftMax", "softmax_xent"),
+    ("nll", "softmax_xent"),
+    ("GeluCUDA", "gelu"),
+    ("reduce", "reduce"),
+    ("elementwise", "elementwise"), ("vectorized", "elementwise"),
 )
 
 
@@ -255,21 +789,19 @@ def kernel_category(name):
     return "other"
 
 
-def profile_engine(gen, model, reqs):
-    """Device time by kernel category over one engine run of ``reqs``,
-    from torch.profiler's CUDA activity.  The profiler slows the host,
-    so the idle share here is an upper bound on the unprofiled run's."""
+def device_profile(run):
+    """Device time by kernel category over one call of ``run`` (which
+    ends in a synchronize), from torch.profiler's CUDA activity.  The
+    profiler slows the host, so the idle share here is an upper bound on
+    the unprofiled run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng = gen.GenerationEngine(model, slots=8, max_len=1024)
-    for r in reqs:
-        eng.submit(r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run_until_idle()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_cat, by_name = {}, {}
@@ -284,14 +816,22 @@ def profile_engine(gen, model, reqs):
             row[1] += 1
     busy_us = sum(v[0] for v in by_cat.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"profiled_wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3 if by_cat else None,
+            "device_idle_share": (1 - busy_us / wall_us) if by_cat else None,
+            "by_category_ms": {k: [v[0] / 1e3, v[1]] for k, v in sorted(
+                by_cat.items(), key=lambda kv: -kv[1][0])},
+            "top_kernels_ms": [[k, v[0] / 1e3, v[1]] for k, v in top]}
+
+
+def profile_engine(gen, model, reqs):
+    """`device_profile` of one engine run of ``reqs``."""
+    eng = gen.GenerationEngine(model, slots=8, max_len=1024)
+    for r in reqs:
+        eng.submit(r)
+    prof = device_profile(eng.run_until_idle)
     emit({"phase": "engine_profile", "requests": len(reqs),
-          "decode_steps": eng.stats()["decode_steps"],
-          "profiled_wall_ms": wall_us / 1e3,
-          "device_busy_ms": busy_us / 1e3 if by_cat else None,
-          "device_idle_share": (1 - busy_us / wall_us) if by_cat else None,
-          "by_category_ms": {k: [v[0] / 1e3, v[1]] for k, v in sorted(
-              by_cat.items(), key=lambda kv: -kv[1][0])},
-          "top_kernels_ms": [[k, v[0] / 1e3, v[1]] for k, v in top]})
+          "decode_steps": eng.stats()["decode_steps"], **prof})
 
 
 def run_engine(ptt):
@@ -330,8 +870,8 @@ def run_engine(ptt):
     ops.reset_launch_counts()
     eng, handles, streams, wall = serve(gen, model, reqs)
     launches = ops.launch_counts()
-    for name, c in launches.items():
-        if name != "decode_attention" and c <= 0:
+    for name in ("flash_fwd", "paged_attention"):
+        if launches[name] <= 0:
             raise AssertionError("kernel %s never launched on the paged "
                                  "engine run" % name)
     n_tok = sum(len(s) for s in streams)
@@ -424,20 +964,55 @@ def main():
 
     ops = ptt.ops
     flash_rows = check_flash(ops)
+    check_flash_train(ops)
+    main = check_flash_main_shape(ops)
+    check_bwd_crossover(ops)
     dense_row, paged_row = check_decode(ops)
+    train_model_check(ptt)
+    train_launches, pair_launches = train(ptt)
     launches = run_engine(ptt)
 
-    main_flash = next(r for r in flash_rows
-                      if r["S"] == 1024 and r["dtype"] == "float32"
-                      and not r["strided_qkv"])
+    prefill = next(r for r in flash_rows
+                   if r["S"] == 1024 and r["dtype"] == "float32"
+                   and not r["strided_qkv"])
+    err, bounds = main["max_abs_err"], main["bounds"]
     src = "paddle_tpu_torch/ops/csrc/"
+    pallas = "paddle_tpu/ops/pallas/attention.py:"
+
+    def flash_entry(name, source, line, n, max_abs_err, ms, plain_ms,
+                    library_ms):
+        return dict(name=name, route="cuda", source=src + source,
+                    replaces=pallas + line, launches=n,
+                    max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                    library_ms=library_ms)
+
+    # the flash kernels at the training step's shape (B=60, S=512, bf16),
+    # launches over the timed train run (the pair's over its own run);
+    # the backward kernels' library yardstick is SDPA's whole backward
     kernels = [
-        dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
-             replaces="paddle_tpu/ops/pallas/attention.py:196",
-             launches=launches["flash_fwd"],
-             **{k: main_flash[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "library_ms")}),
+        dict(flash_entry("flash_fwd", "flash_fwd.cu", "196",
+                         train_launches["flash_fwd"], err["o"],
+                         main["fwd_ms"], main["plain_fwd_ms"],
+                         main["library_fwd_ms"]),
+             engine_prefill={"launches": launches["flash_fwd"],
+                             **{k: prefill[k] for k in (
+                                 "S", "dtype", "max_abs_err", "ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}),
+        flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
+                    pair_launches["flash_bwd_dq"], err["pair_dq"],
+                    main["dq_ms"], main["plain_bwd_ms"],
+                    main["library_bwd_ms"]),
+        flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
+                    pair_launches["flash_bwd_dkv"],
+                    max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
+                    main["plain_bwd_ms"], main["library_bwd_ms"]),
+        flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
+                    train_launches["flash_bwd_fused"],
+                    max(err["fused_dq"], err["fused_dk"], err["fused_dv"]),
+                    main["fused_ms"], main["plain_bwd_ms"],
+                    main["library_bwd_ms"]),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="paddle_tpu/ops/pallas/decode_attention.py:73",

@@ -7,7 +7,9 @@ Pallas kernel on the ported path is a hand-written CUDA kernel under
 
 Covered so far: `models.TransformerLM` served through
 `generation.GenerationEngine` (bucketed flash prefill, paged and dense
-decode).  See README "PyTorch/CUDA port".
+decode), and `models.BertForPretraining` trained by
+`distributed.ShardedTrainStep` under `optimizer.AdamWOptimizer` (flash
+forward and backward kernels).  See README "PyTorch/CUDA port".
 
 Device rule: every entry point takes ``device=``; with none given it is
 ``"cuda"``, and a box without a CUDA device raises (`device.resolve_device`)
@@ -19,7 +21,8 @@ CPU-only box and imports neither JAX nor `paddle_tpu`.
 
 import importlib
 
-_SUBMODULES = ("device", "generation", "models", "observability", "ops")
+_SUBMODULES = ("device", "distributed", "generation", "models",
+               "observability", "ops", "optimizer")
 
 __all__ = list(_SUBMODULES)
 

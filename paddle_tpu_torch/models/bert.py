@@ -1,27 +1,73 @@
-"""The BERT building blocks the decoder-only LM reuses.
+"""BERT/ERNIE-base encoder and pretraining heads, and the blocks the
+decoder-only LM reuses.
 
-Counterpart of `paddle_tpu.models.bert`, cut to what `TransformerLM`
-needs: `BertConfig` and the fused-QKV self-attention `MultiHeadAttention`
-with its prefill (``use_cache``) and single-token decode (``cache``)
-hooks, dense and f32 paged.  The encoder, heads, cross attention,
-chunked/verify attention (C > 1 query rows over a cache) and int8 pools
-come with later slices and raise `NotImplementedError` here.
+Counterpart of `paddle_tpu.models.bert`: learned word / position /
+token-type embeddings, post-LN encoder layers (fused-QKV self-attention
+through the flash kernels, exact-erf gelu FFN), the MLM head over the
+masked positions with the decoder tied to the word embeddings, and the
+NSP head.  `MultiHeadAttention` also carries the engine's prefill
+(``use_cache``) and single-token decode (``cache``) hooks, dense and f32
+paged.
 
-State-dict keys match the JAX package (``qkv_proj.weight`` ...); the
-Linear weights are PyTorch's ``[out, in]`` (`models.convert`
-transposes the JAX ``[in, out]``).
+Not ported yet, and raising `NotImplementedError`: cross attention, the
+fused-epilogue FFN (``PADDLE_TPU_FUSED_FFN=1``: the ``matmul_bias_act``
+slice), chunked/verify attention (C > 1 query rows over a cache) and
+int8 pools (the rest of the generation engine).
+
+State-dict keys match the JAX package (``bert.encoder.0.attn.qkv_proj
+.weight`` ...); the Linear weights are PyTorch's ``[out, in]``
+(`models.convert` transposes the JAX ``[in, out]``).  Dropout draws from
+the ``generator`` of each `Dropout` module, which `ShardedTrainStep`
+seeds from (seed, step).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
+from ..device import resolve_device
+from ..ops import nn_ops
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.decode_attention import decode_attention
 from ..ops.paged_attention import paged_decode_attention
 
-__all__ = ["BertConfig", "MultiHeadAttention"]
+__all__ = ["BertConfig", "BertEmbeddings", "BertForPretraining", "BertModel",
+           "Dropout", "LayerNorm", "MultiHeadAttention",
+           "TransformerEncoderLayer", "convert_legacy_qkv_state_dict"]
+
+
+class Dropout(nn.Module):
+    """``upscale_in_train`` dropout (`ops.nn_ops.dropout`) drawing its
+    keep mask from ``self.generator``: None uses PyTorch's default
+    generator of the input's device; `ShardedTrainStep` sets one seeded
+    from (seed, step) before each step."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x):
+        return nn_ops.dropout(x, self.p, self.generator, self.training)
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` (eps 1e-5) with the reference's arithmetic: f32
+    statistics, the result cast back to the input's dtype
+    (`ops.nn_ops.layer_norm`)."""
+
+    def __init__(self, d, device=None):
+        super().__init__(d, eps=nn_ops.LN_EPS, device=device)
+
+    def forward(self, x):
+        return nn_ops.layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def _fused_ffn_enabled():
+    return os.getenv("PADDLE_TPU_FUSED_FFN") == "1"
 
 
 class BertConfig:
@@ -49,6 +95,19 @@ class BertConfig:
         self.attention_probs_dropout_prob = attention_probs_dropout_prob
         self.initializer_range = initializer_range
 
+    @staticmethod
+    def base():
+        return BertConfig()
+
+    @staticmethod
+    def tiny():
+        """For tests and dry runs."""
+        return BertConfig(
+            vocab_size=128, hidden_size=32, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=64,
+            max_position_embeddings=64, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0)
+
 
 class MultiHeadAttention(nn.Module):
     """Self-attention over one fused ``[D, 3D]`` QKV projection (Q | K | V
@@ -61,19 +120,24 @@ class MultiHeadAttention(nn.Module):
             raise NotImplementedError(
                 "MultiHeadAttention: only fused-QKV self-attention is "
                 "ported; cross attention comes with a later slice")
+        device = resolve_device(device)
         d = d_model or cfg.hidden_size
         self.n_head = n_head or cfg.num_attention_heads
         self.d_head = d // self.n_head
         self.qkv_proj = nn.Linear(d, 3 * d, device=device)
         self.out_proj = nn.Linear(d, d, device=device)
-        self.dropout = nn.Dropout(
+        self.dropout = Dropout(
             dropout if dropout is not None
             else cfg.attention_probs_dropout_prob)
 
-    def forward(self, query, causal=False, cache=None, use_cache=False):
-        """``use_cache=True`` (prefill): also returns the projected
-        ``(k, v)`` as ``[B, S, H, Dh]`` views of the QKV projection.
-        ``cache`` (decode): see `_decode_with_cache`."""
+    def forward(self, query, attn_bias=None, causal=False, segment_ids=None,
+                cache=None, use_cache=False):
+        """``attn_bias``: an additive row bias [B, 1 or H, 1, S] (padding
+        masks); ``segment_ids``: [B, S] ids of a packed batch, attention
+        confined to equal ids.  ``use_cache=True`` (prefill): also
+        returns the projected ``(k, v)`` as ``[B, S, H, Dh]`` views of
+        the QKV projection.  ``cache`` (decode): see
+        `_decode_with_cache`."""
         b, s, _ = query.shape
         d = self.n_head * self.d_head
         qkv = self.qkv_proj(query)                           # [B, S, 3D]
@@ -84,7 +148,8 @@ class MultiHeadAttention(nn.Module):
         if cache is not None:
             return self._decode_with_cache(q, k, v, cache)
         ctx = scaled_dot_product_attention(
-            q, k, v, scale=self.d_head ** -0.5, causal=causal, layout="BSHD")
+            q, k, v, bias=attn_bias, segment_ids=segment_ids,
+            scale=self.d_head ** -0.5, causal=causal, layout="BSHD")
         out = self.dropout(self.out_proj(ctx.reshape(b, s, d)))
         if use_cache:
             return out, (k, v)
@@ -144,3 +209,168 @@ class MultiHeadAttention(nn.Module):
                 "got %d (int8 pools are not ported yet)" % len(cache))
         ctxv = ctx.reshape(b, 1, self.n_head * self.d_head)
         return self.dropout(self.out_proj(ctxv)), new_cache
+
+
+def _init_linear_and_embedding(module, std):
+    """N(0, std) Linear and Embedding weights, zero biases (the JAX
+    package's `_winit` and default bias initializer)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                nn.init.normal_(m.weight, 0.0, std)
+                if getattr(m, "bias", None) is not None:
+                    nn.init.zeros_(m.bias)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN encoder block (BERT style): ``ln1(x + attn(x))``, then
+    ``ln2(h + dropout(fc2(gelu(fc1(h)))))``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        d = cfg.hidden_size
+        self.attn = MultiHeadAttention(cfg, self_attention=True,
+                                       device=device)
+        self.ln1 = LayerNorm(d, device=device)
+        self.fc1 = nn.Linear(d, cfg.intermediate_size, device=device)
+        self.fc2 = nn.Linear(cfg.intermediate_size, d, device=device)
+        self.ln2 = LayerNorm(d, device=device)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, x, attn_bias=None, segment_ids=None):
+        h = self.ln1(x + self.attn(x, attn_bias=attn_bias,
+                                   segment_ids=segment_ids))
+        if _fused_ffn_enabled():
+            raise NotImplementedError(
+                "PADDLE_TPU_FUSED_FFN=1 (the fused bias+gelu GEMM, "
+                "matmul_bias_act) comes with the next slice of the port")
+        f = self.fc2(nn_ops.gelu(self.fc1(h)))
+        return self.ln2(h + self.dropout(f))
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        d = cfg.hidden_size
+        self.word = nn.Embedding(cfg.vocab_size, d, device=device)
+        self.position = nn.Embedding(cfg.max_position_embeddings, d,
+                                     device=device)
+        self.token_type = nn.Embedding(cfg.type_vocab_size, d, device=device)
+        self.ln = LayerNorm(d, device=device)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, input_ids, token_type_ids, position_ids):
+        emb = (self.word(input_ids) + self.position(position_ids)
+               + self.token_type(token_type_ids))
+        return self.dropout(self.ln(emb))
+
+
+def convert_legacy_qkv_state_dict(state_dict, target_keys):
+    """Fuse pre-fusion checkpoints (separate ``q_proj`` / ``k_proj`` /
+    ``v_proj``) into the fused ``qkv_proj`` so old checkpoints keep
+    loading, as `paddle_tpu.models.bert.convert_legacy_qkv_state_dict`.
+    This package's layout: Linear weights ``[out, in]``, so the three
+    are stacked along dim 0 (Q | K | V output columns)."""
+    out = dict(state_dict)
+    for key in target_keys:
+        if not key.endswith("qkv_proj.weight") or key in out:
+            continue
+        base = key[: -len("qkv_proj.weight")]
+        names = [base + p + "_proj." + t for t in ("weight", "bias")
+                 for p in ("q", "k", "v")]
+        if not all(n in out for n in names):
+            continue
+        parts = [torch.as_tensor(out.pop(n)) for n in names]
+        out[key] = torch.cat(parts[:3], dim=0)
+        out[base + "qkv_proj.bias"] = torch.cat(parts[3:], dim=0)
+    return out
+
+
+class _QkvCompatMixin:
+    def load_state_dict(self, state_dict, strict=True, assign=False):
+        state_dict = convert_legacy_qkv_state_dict(
+            state_dict, self.state_dict().keys())
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
+
+
+class BertModel(_QkvCompatMixin, nn.Module):
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.embeddings = BertEmbeddings(cfg, device=device)
+        self.encoder = nn.ModuleList(
+            [TransformerEncoderLayer(cfg, device=device)
+             for _ in range(cfg.num_hidden_layers)])
+        self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size,
+                                device=device)
+
+    def forward(self, input_ids, token_type_ids, position_ids,
+                attention_mask=None, segment_ids=None):
+        """attention_mask: [B, S] with 1 = attend, 0 = pad, turned into
+        the additive row bias ``(m - 1) * 1e4`` for the flash op.
+        segment_ids: [B, S] ids of a packed batch (attention stays within
+        a segment).  Returns ``(sequence [B, S, D], pooled [B, D])``."""
+        attn_bias = None
+        if attention_mask is not None:
+            m = attention_mask.to(torch.float32)
+            attn_bias = ((m - 1.0) * 10000.0)[:, None, None, :]
+        h = self.embeddings(input_ids, token_type_ids, position_ids)
+        for layer in self.encoder:
+            h = layer(h, attn_bias=attn_bias, segment_ids=segment_ids)
+        pooled = torch.tanh(self.pooler(h[:, 0]))
+        return h, pooled
+
+
+class BertForPretraining(_QkvCompatMixin, nn.Module):
+    """MLM + NSP heads.  ``device=None`` is the card (raises when there is
+    none); weights start N(0, initializer_range), biases zero, LayerNorms
+    unit, as the JAX package initializes them."""
+
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.bert = BertModel(cfg, device=device)
+        d = cfg.hidden_size
+        self.mlm_transform = nn.Linear(d, d, device=device)
+        self.mlm_ln = LayerNorm(d, device=device)
+        # the decoder shares the word-embedding matrix (weight tying)
+        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size,
+                                                 device=device))
+        self.nsp = nn.Linear(d, 2, device=device)
+        _init_linear_and_embedding(self, cfg.initializer_range)
+
+    def forward(self, input_ids, token_type_ids, position_ids,
+                attention_mask=None, segment_ids=None,
+                masked_positions=None):
+        """masked_positions: optional [B, P] int positions of the masked
+        tokens; the MLM head then runs on those P rows only (the
+        reference gathers them before the decoder matmul).  Returns
+        ``(mlm logits [B, P or S, V], nsp logits [B, 2])``."""
+        seq, pooled = self.bert(input_ids, token_type_ids, position_ids,
+                                attention_mask, segment_ids=segment_ids)
+        if masked_positions is not None:
+            seq = nn_ops.take_along_axis(seq, masked_positions[..., None],
+                                         axis=1)
+        h = self.mlm_ln(nn_ops.gelu(self.mlm_transform(seq)))
+        logits = torch.matmul(h, self.bert.embeddings.word.weight.t())
+        logits = logits + self.mlm_bias
+        return logits, self.nsp(pooled)
+
+    @staticmethod
+    def loss(logits, nsp_logits, mlm_labels, mlm_weights, nsp_labels):
+        """Masked-LM loss, weighted by ``mlm_weights`` (1.0 at the masked
+        positions) and normalized by their sum, plus the mean NSP loss.
+        mlm_labels / mlm_weights: shaped like the logits' leading dims;
+        nsp_labels: [B, 1]."""
+        vocab = logits.shape[-1]
+        mlm = nn_ops.softmax_with_cross_entropy(logits.reshape(-1, vocab),
+                                                mlm_labels.reshape(-1, 1))
+        w = mlm_weights.reshape(-1, 1)
+        mlm = (mlm * w).sum() / (w.sum() + 1e-6)
+        nsp = nn_ops.softmax_with_cross_entropy(nsp_logits, nsp_labels).mean()
+        return mlm + nsp

@@ -11,9 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state_dict", "init_params"]
+__all__ = ["from_jax_state_dict", "init_bert_params", "init_params"]
 
-_LINEARS = ("qkv_proj", "out_proj", "fc1", "fc2")
+# every Linear of the two model families (BERT's heads, the LM's blocks,
+# and the separate projections of pre-fusion BERT checkpoints)
+_LINEARS = ("qkv_proj", "q_proj", "k_proj", "v_proj", "out_proj", "fc1",
+            "fc2", "pooler", "mlm_transform", "nsp")
 
 
 def _is_linear_weight(key):
@@ -33,27 +36,34 @@ def from_jax_state_dict(np_dict):
     return out
 
 
+class _Init:
+    """Seeded JAX-layout parameter makers: N(0, std) weights and
+    embeddings, zero biases, unit LayerNorm scales, numpy float32."""
+
+    def __init__(self, seed, std, d):
+        self.rng = np.random.default_rng(seed)
+        self.std, self.d = np.float32(std), d
+
+    def normal(self, *shape):
+        return self.rng.standard_normal(shape, dtype=np.float32) * self.std
+
+    def ln(self, prefix):
+        return {prefix + ".weight": np.ones(self.d, np.float32),
+                prefix + ".bias": np.zeros(self.d, np.float32)}
+
+    def linear(self, prefix, n_in, n_out):
+        return {prefix + ".weight": self.normal(n_in, n_out),
+                prefix + ".bias": np.zeros(n_out, np.float32)}
+
+
 def init_params(cfg, seed=0):
     """`TransformerLM` parameters in the JAX layout, as numpy float32:
     N(0, ``cfg.initializer_range``) weights and embeddings, zero biases,
     unit LayerNorm scales.  Made from ``seed`` alone, so the chip smoke
     builds full-width weights with no JAX present."""
-    rng = np.random.default_rng(seed)
-    std = float(cfg.initializer_range)
     d, f = cfg.hidden_size, cfg.intermediate_size
-
-    def normal(*shape):
-        return (rng.standard_normal(shape, dtype=np.float32)
-                * np.float32(std))
-
-    def ln(prefix):
-        return {prefix + ".weight": np.ones(d, np.float32),
-                prefix + ".bias": np.zeros(d, np.float32)}
-
-    def linear(prefix, n_in, n_out):
-        return {prefix + ".weight": normal(n_in, n_out),
-                prefix + ".bias": np.zeros(n_out, np.float32)}
-
+    init = _Init(seed, cfg.initializer_range, d)
+    normal, ln, linear = init.normal, init.ln, init.linear
     p = {"word.weight": normal(cfg.vocab_size, d),
          "position.weight": normal(cfg.max_position_embeddings, d)}
     for i in range(cfg.num_layers):
@@ -65,4 +75,32 @@ def init_params(cfg, seed=0):
         p.update(linear(b + "fc1", d, f))
         p.update(linear(b + "fc2", f, d))
     p.update(ln("ln_f"))
+    return p
+
+
+def init_bert_params(cfg, seed=0):
+    """`BertForPretraining` parameters in the JAX layout (the keys of
+    `paddle_tpu.models.BertForPretraining.state_dict`), as numpy
+    float32, initialized as `init_params` does (``mlm_bias`` zero).  Made
+    from ``seed`` alone, with no JAX."""
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    init = _Init(seed, cfg.initializer_range, d)
+    e = "bert.embeddings."
+    p = {"mlm_bias": np.zeros(cfg.vocab_size, np.float32),
+         e + "word.weight": init.normal(cfg.vocab_size, d),
+         e + "position.weight": init.normal(cfg.max_position_embeddings, d),
+         e + "token_type.weight": init.normal(cfg.type_vocab_size, d)}
+    p.update(init.ln(e + "ln"))
+    for i in range(cfg.num_hidden_layers):
+        b = "bert.encoder.%d." % i
+        p.update(init.linear(b + "attn.qkv_proj", d, 3 * d))
+        p.update(init.linear(b + "attn.out_proj", d, d))
+        p.update(init.ln(b + "ln1"))
+        p.update(init.linear(b + "fc1", d, f))
+        p.update(init.linear(b + "fc2", f, d))
+        p.update(init.ln(b + "ln2"))
+    p.update(init.linear("bert.pooler", d, d))
+    p.update(init.linear("mlm_transform", d, d))
+    p.update(init.ln("mlm_ln"))
+    p.update(init.linear("nsp", d, 2))
     return p

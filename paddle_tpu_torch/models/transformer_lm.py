@@ -79,6 +79,7 @@ class TransformerLMBlock(nn.Module):
 
     def __init__(self, cfg: TransformerLMConfig, device=None):
         super().__init__()
+        device = resolve_device(device)
         bcfg = cfg._bert_cfg()
         d = cfg.hidden_size
         self.ln1 = nn.LayerNorm(d, eps=LN_EPS, device=device)

@@ -1,10 +1,18 @@
 """Operators with hand-written CUDA kernels (``csrc/``), each beside its
-plain PyTorch version.  Each wrapper carries a ``launches`` count that
+plain PyTorch version, and the plain ops of the training path
+(`nn_ops`).  Each wrapper carries a ``launches`` count that
 grows by one per kernel launch and nowhere else."""
 
 from .attention import (  # noqa: F401
     flash_attention,
-    naive_attention_with_layout,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_bwd_fused,
+    flash_fwd,
+    normalize_segment_ids,
     scaled_dot_product_attention,
 )
 from .decode_attention import (  # noqa: F401
@@ -19,7 +27,10 @@ from .paged_attention import (  # noqa: F401
 
 # kernel name (the csrc/ source it builds from) -> its wrapper
 KERNEL_WRAPPERS = {
-    "flash_fwd": flash_attention,
+    "flash_fwd": flash_fwd,
+    "flash_bwd_dq": flash_bwd_dq,
+    "flash_bwd_dkv": flash_bwd_dkv,
+    "flash_bwd_fused": flash_bwd_fused,
     "decode_attention": decode_attention,
     "paged_attention": paged_decode_attention,
 }

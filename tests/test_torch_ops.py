@@ -46,10 +46,10 @@ def test_flash_plain_matches_jax_kernel_causal_bshd(s):
     want = jax_flash.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
         layout="BSHD", interpret=True)
-    before = ops.flash_attention.launches
+    before = ops.flash_fwd.launches
     got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
                               layout="BSHD")
-    assert ops.flash_attention.launches == before   # CPU: no kernel
+    assert ops.flash_fwd.launches == before   # CPU: no kernel
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -72,13 +72,34 @@ def test_flash_ragged_bottom_right_and_dead_rows(sq, sk, causal):
 
 
 def test_flash_unported_operands_raise():
+    """Only a row bias [B|1, H|1, 1, Sk] is an operand of the kernels (a
+    full [B, H, Sq, Sk] bias is the reference's naive fallback, not
+    ported); unknown layouts raise too."""
     x = torch.zeros(1, 8, H, D)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(x, x, x, bias=torch.zeros(1, 1, 1, 8))
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(x, x, x, segment_ids=torch.zeros(1, 8))
+    with pytest.raises(ValueError, match="row bias"):
+        ops.flash_attention(x, x, x, bias=torch.zeros(1, 1, 8, 8))
+    with pytest.raises(ValueError, match="row bias"):
+        ops.flash_attention(x, x, x, bias=torch.zeros(1, 3, 1, 8))
     with pytest.raises(ValueError):
         ops.flash_attention(x, x, x, layout="SBHD")
+
+
+def test_flash_bias_and_segment_ids_run():
+    """The row bias and segment ids are ported: the plain path gives the
+    JAX composition's result (segment ids as its additive bias)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (_randn(rng, 2, 24, H, D) for _ in range(3))
+    bias = np.where(rng.random((2, 1, 1, 24)) < 0.3, -1e4, 0.0)
+    bias = bias.astype(np.float32)
+    seg = np.repeat(np.array([[0, 1, 2]]), 8, axis=1).repeat(2, axis=0)
+    want = jax_attention.scaled_dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        bias=jnp.asarray(bias), segment_ids=jnp.asarray(seg), causal=True,
+        layout="BSHD")
+    got = ops.flash_attention(_t(q), _t(k), _t(v), bias=_t(bias),
+                              segment_ids=_t(seg), causal=True,
+                              layout="BSHD")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -156,10 +177,12 @@ def test_paged_gather_and_reference_match_jax(bs):
 
 
 def test_launch_counters_reset():
-    ops.flash_attention.launches = 3
+    ops.flash_fwd.launches = 3
+    ops.flash_bwd_fused.launches = 2
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"flash_fwd": 0, "decode_attention": 0,
-                                   "paged_attention": 0}
+    assert ops.launch_counts() == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_bwd_fused": 0, "decode_attention": 0, "paged_attention": 0}
 
 
 def test_build_targets_sm90a_from_the_checkout_sources():
