@@ -3,14 +3,18 @@
 each against its plain PyTorch version (the flash forward and its three
 backward kernels over f32/bf16, S in {128, 512, 1024}, causal or not,
 with a padding bias and segment ids that leave a dead row, and at the
-training step's own shape; the decode kernels at serving shapes); times
-the fused against the pair backward over B*H around the SM count;
-runs full-width BERT-base once on the card and on the CPU with the same
-weights; trains it as `bench.py`'s flagship step does (B=60, S=512,
-bf16, ShardedTrainStep + AdamW), fused and pair backward, with a
-profile of one step; then serves a full-width TransformerLM through the
-paged generation engine and checks the streams against the port's
-sequential oracle and the dense engine.
+training step's own shape; the decode kernels at serving shapes; the
+fused-epilogue GEMM forward, dX and dW + dbias over f32/bf16, five
+activations, bias or not, z emitted or not, a ragged shape and the
+BERT FFN's own shape); times the fused against the pair backward over
+B*H around the SM count; runs full-width BERT-base once on the card and
+on the CPU with the same weights, with the default FFN and with
+PADDLE_TPU_FUSED_FFN=1; trains it as `bench.py`'s flagship step does
+(B=60, S=512, bf16, ShardedTrainStep + AdamW), fused and pair flash
+backward and the fused-epilogue FFN, with a profile of one step of each
+FFN; then serves a full-width TransformerLM through the paged generation
+engine and checks the streams against the port's sequential oracle and
+the dense engine.
 
     python3 chip_smoke.py
 
@@ -30,11 +34,13 @@ is off by at most half a bf16 ulp, 2^-8 of its value: the limit is
 rtol 2^-7 (that bound doubled) plus atol 1e-5, far inside the repo's
 PADDLE_TPU_FLASH_ACC policy (2e-2 / 5e-2), which at S=512 is as large
 as the gradients themselves.  Two bf16 kernels against each other
-(fused vs pair): rtol 2^-6.  Dense vs paged decode bitwise; the model
-checks state theirs beside them.
+(fused vs pair): rtol 2^-6.  The GEMM kernels: rtol 2^-7 (bf16) or
+1e-5 (f32) with an atol set against the output's scale, widened for
+the bf16 backward's rounding of dZ (`gemm_tol`).  Dense vs paged decode
+bitwise; the model checks state theirs beside them.
 Bounds: the larger of bytes / 3.35 TB/s and flops / peak, with the
-H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the kernels use f32 FMA),
-989 TFLOP/s bf16.
+H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the flash kernels use f32
+FMA), 989 TFLOP/s bf16.
 """
 
 import json
@@ -95,7 +101,8 @@ def compare(name, got, want, tol):
     err = diff.max().item()
     if not (share <= 1.0 and torch.isfinite(got).all()):
         raise AssertionError("%s: max |err| %g, %.3g of its limit (atol %g, "
-                             "rtol %g)" % (name, err, share, tol["atol"],
+                             "rtol %g)" % (name, err, share,
+                                           torch.as_tensor(tol["atol"]).max(),
                                            tol["rtol"]))
     return err, share
 
@@ -454,6 +461,163 @@ def check_decode(ops):
 
 
 # ---------------------------------------------------------------------------
+# the fused-epilogue GEMM kernels
+# ---------------------------------------------------------------------------
+
+MM_ACTS = (("none", False), ("relu", False), ("tanh", False),
+           ("gelu", False), ("gelu", True))
+MM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 * BF16_ROUND}
+FFN_M, FFN_K, FFN_N = TRAIN_B * TRAIN_S, 768, 3072
+
+
+def gemm_tol(dtype, want, dz_rounded=False):
+    """The limit of one GEMM output against its plain version, atol set
+    against the output's scale s = max |want|.
+
+    * rtol: f32 1e-5 (the activations' last-ulp differences); bf16 2^-7,
+      twice the output's one rounding.
+    * atol 2^-16 s: the f32 sums run in another order (~1e-7 s), which
+      the rtol term misses only where an output is near zero.
+    * The bf16 dX and dW round dZ to bf16 before the tensor cores (one
+      rounding the f32 plain version lacks).  Each output then carries
+      sum_i dz_i w_i d_i with independent |d_i| <= 2^-8: about 2^-8 /
+      sqrt(3) of its rms, ~5.5 of those at the largest of 2.4e7 outputs,
+      ~1.2% of the rms or ~0.25% of s.  atol 2^-7 s there: twice that
+      and more, while a missing 32-wide K tile (~10% of the rms) or a
+      2% scale error still fails."""
+    s = want.abs().max().item()
+    return dict(atol=(2 * BF16_ROUND if dz_rounded else 2.0 ** -16) * s,
+                rtol=MM_RTOL[dtype])
+
+
+def matmul_case(ops, gen, m, k, n, dt, act, approx, has_bias, scale=1.0):
+    """Kernels 5-7 on one shape against their plain versions on the same
+    inputs (bf16 upcast exactly): the forward with and without z, dX and
+    dW(+dbias) from the kernel's own residual.  Returns (errors, limit
+    shares, tensors) keyed by output."""
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+    w = (torch.randn(n, k, device="cuda", generator=gen) * scale
+         * k ** -0.5).to(dt)
+    b = (torch.randn(n, device="cuda", generator=gen) * 0.1).to(dt) \
+        if has_bias else None
+    g = torch.randn(m, n, device="cuda", generator=gen).to(dt)
+    name = "matmul M=%d K=%d N=%d %s %s%s bias=%s" % (
+        m, k, n, str(dt).replace("torch.", ""), act,
+        "(tanh)" if approx else "", has_bias)
+    kind = ops.matmul._residual_kind(act)
+    y, z = ops.matmul_bias_act_fwd(x, w, b, act, approx, emit_z=True)
+    y_noz, none = ops.matmul_bias_act_fwd(x, w, b, act, approx)
+    res = z if kind == "z" else (y if kind == "y" else None)
+    dx = ops.matmul_bwd_dx(g, res, w, act, approx)
+    dw, db = ops.matmul_bwd_dw(x, g, res, act, approx, bias=b)
+    torch.cuda.synchronize()
+    if none is not None or not torch.equal(y, y_noz):
+        raise AssertionError("%s: the forward without z differs" % name)
+    xf, wf, bf, gf, rf = upcast(x, w, b, g, res)
+    y_ref, z_ref = ops.matmul_bias_act_reference(xf, wf, bf, act, approx,
+                                                 emit_z=True)
+    dx_ref, dw_ref, db_ref = ops.matmul_bias_act_bwd_reference(
+        xf, wf, bf, rf, gf, act, approx)
+    bf16 = dt == torch.bfloat16
+    checks = [("y", y, y_ref, gemm_tol(dt, y_ref)),
+              ("z", z, z_ref, gemm_tol(dt, z_ref)),
+              ("dx", dx, dx_ref, gemm_tol(dt, dx_ref, bf16)),
+              ("dw", dw, dw_ref, gemm_tol(dt, dw_ref, bf16))]
+    if b is not None:
+        checks.append(("dbias", db, db_ref, gemm_tol(dt, db_ref)))
+    errs, shares = {}, {}
+    for tag, got, want, tol in checks:
+        errs[tag], shares[tag] = compare("%s %s" % (name, tag), got, want,
+                                         tol)
+    return errs, shares, dict(x=x, w=w, b=b, g=g, res=res)
+
+
+def check_matmul(ops):
+    """Kernels 5-7 against their plain versions at small shapes: f32 and
+    bf16, the five activations, with and without a bias, z emitted and
+    not, on a 128-tileable shape and a ragged one (M, K, N = 777, 264,
+    200: every edge masked)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for m, k, n in ((256, 128, 384), (777, 264, 200)):
+            for act, approx in MM_ACTS:
+                for has_bias in (False, True):
+                    errs, shares, _ = matmul_case(ops, gen, m, k, n, dt, act,
+                                                  approx, has_bias)
+                    rows.append({"M": m, "K": k, "N": n,
+                                 "dtype": str(dt).replace("torch.", ""),
+                                 "act": act + ("_tanh" if approx else ""),
+                                 "bias": has_bias, "max_abs_err": errs,
+                                 "limit_share": shares})
+    worst = {tag: max(r["limit_share"].get(tag, 0.0) for r in rows)
+             for tag in ("y", "z", "dx", "dw", "dbias")}
+    emit({"phase": "kernel_check", "kernel": "matmul_bias_act",
+          "cases": len(rows), "worst_limit_share": worst, "rows": rows})
+    return rows
+
+
+def check_matmul_main_shape(ops):
+    """Kernels 5-7 at the fused FFN's own shape (M = 60 * 512, K = 768, N
+    = 3072, bf16, exact gelu, bias, z emitted; fc1's init scale): errors
+    against the plain versions, then each timed beside its plain
+    version and the library yardstick (F.linear + F.gelu; torch's dX,
+    and dW + dbias, of that composition on a retained graph)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    m, k, n, dt = FFN_M, FFN_K, FFN_N, torch.bfloat16
+    errs, shares, t = matmul_case(ops, gen, m, k, n, dt, "gelu", False, True,
+                                  scale=0.02 * k ** 0.5)
+    x, w, b, g, res = t["x"], t["w"], t["b"], t["g"], t["res"]
+    fwd = lambda: ops.matmul_bias_act_fwd(x, w, b, "gelu", emit_z=True)  # noqa: E731
+    xl, wl, bl = (v.detach().requires_grad_() for v in (x, w, b))
+    out = F.gelu(F.linear(xl, wl, bl))
+    elt = 2
+    bounds = {
+        "matmul_bias_act": bound((m * k + n * k + n + 2 * m * n) * elt,
+                                 2 * m * n * k, dt),
+        "matmul_bwd_dx": bound((2 * m * n + n * k + m * k) * elt,
+                               2 * m * n * k, dt),
+        "matmul_bwd_dw": bound((m * k + 2 * m * n + n * k + n) * elt,
+                               2 * m * n * k, dt)}
+    row = {
+        "M": m, "K": k, "N": n, "dtype": "bfloat16", "act": "gelu",
+        "max_abs_err": errs, "limit_share": shares,
+        "fwd_ms": time_ms(fwd),
+        "dx_ms": time_ms(lambda: ops.matmul_bwd_dx(g, res, w, "gelu")),
+        "dw_ms": time_ms(lambda: ops.matmul_bwd_dw(x, g, res, "gelu",
+                                                   bias=b)),
+        "plain_fwd_ms": time_ms(lambda: ops.matmul_bias_act_reference(
+            x, w, b, "gelu", emit_z=True), iters=5, warmup=1),
+        "plain_dx_ms": time_ms(lambda: ops.matmul_bias_act_bwd_reference(
+            x, w, b, res, g, "gelu", needs=(True, False, False)),
+            iters=5, warmup=1),
+        "plain_dw_ms": time_ms(lambda: ops.matmul_bias_act_bwd_reference(
+            x, w, b, res, g, "gelu", needs=(False, True, True)),
+            iters=5, warmup=1),
+        "library_fwd_ms": time_ms(lambda: F.gelu(F.linear(x, w, b))),
+        "library_dx_ms": time_ms(lambda: torch.autograd.grad(
+            out, (xl,), g, retain_graph=True)),
+        "library_dw_ms": time_ms(lambda: torch.autograd.grad(
+            out, (wl, bl), g, retain_graph=True)),
+        # where the kernels' time goes: the same products with no
+        # activation, bias or z (no dZ to form), and cuBLAS's bare GEMMs
+        "noact_ms": {
+            "fwd": time_ms(lambda: ops.matmul_bias_act_fwd(x, w)),
+            "dx": time_ms(lambda: ops.matmul_bwd_dx(g, None, w)),
+            "dw": time_ms(lambda: ops.matmul_bwd_dw(x, g, None))},
+        "cublas_gemm_ms": {
+            "fwd": time_ms(lambda: torch.matmul(x, w.t())),
+            "dx": time_ms(lambda: torch.matmul(g, w)),
+            "dw": time_ms(lambda: torch.matmul(g.t(), x))},
+        "bounds": bounds}
+    del out
+    emit({"phase": "kernel_check", "kernel": "matmul_main_shape", **row})
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 3: BERT-base pretraining at full width
 # ---------------------------------------------------------------------------
 
@@ -474,12 +638,46 @@ MODEL_LOSS_ATOL, MODEL_GRAD_REL = 1e-4, 1e-4
 # the ulps of dQ grow as the bf16 backward carries them down); the
 # limits are 3x and more those readings.
 PAIR_LOSS_ATOL, PAIR_GRAD_REL = 1e-3, 2e-2
+# fused-epilogue FFN vs the default FFN in the bf16 train step.  The two
+# round at other places (the fused kernel applies gelu to the f32
+# pre-activation, the default path to its bf16 rounding), so every FFN
+# element differs by up to an ulp.  On the H100 (700 W): the first step's
+# loss 7.8e-5 apart (same parameters), then 7.8e-5, 5.3e-4, 8.6e-3 as
+# AdamW's first updates, ~lr * sign(g), turn near-zero gradient noise
+# into whole steps; step-1 master gradients 0.85-1.5% apart in relative
+# norm, while each bf16 step stands 1.2-1.8% from the same step in f32,
+# the fused one 0.90-0.98 times as far as the default.  Limits: the
+# first loss 1e-3, every loss 3e-2, gradients 5e-2 apart, and the fused
+# step at most 1.25 times as far from the f32 step as the default.
+FFN_STEPS = 4
+FFN_LOSS1_ATOL, FFN_LOSS_ATOL = 1e-3, 3e-2
+FFN_GRAD_REL, FFN_VS_F32 = 5e-2, 1.25
 
 
 def _grad_names(L):
     return ("bert.encoder.0.attn.qkv_proj.weight",
             "bert.encoder.%d.attn.qkv_proj.weight" % (L - 1),
             "bert.embeddings.word.weight")
+
+
+def _ffn_grad_names(L):
+    return _grad_names(L) + ("bert.encoder.0.fc1.weight",
+                             "bert.encoder.0.fc1.bias",
+                             "bert.encoder.%d.fc1.weight" % (L - 1))
+
+
+def _grad_rel(state_a, state_b, names, limit, tag):
+    """Relative norm of the difference of two first steps' master
+    gradients: from zero moments, Moment1 = (1 - beta1) * grad."""
+    errs = {}
+    for name in names:
+        ga, gb = (st["opt"][name]["Moment1"] for st in (state_a, state_b))
+        rel = ((ga - gb).norm() / gb.norm()).item()
+        errs[name] = rel
+        if not rel <= limit:
+            raise AssertionError("step-1 grad %s: %s relative error %g, "
+                                 "limit %g" % (name, tag, rel, limit))
+    return errs
 
 
 def flops_per_step(cfg, params, b, s, p):
@@ -523,13 +721,37 @@ def bert_loss_fn(model, batch):
                       batch["mlm_weights"], batch["nsp_labels"])
 
 
+class _env:
+    """Set (or, with None, remove) one environment variable for a block
+    and restore its old value after it, whatever happens inside."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        if self.value is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.old
+        return False
+
+
 def train_model_check(ptt):
     """Full-width BERT-base, dropout 0, one f32 forward and backward at
-    B=2, S=128, P=20 on the card (the flash kernels) and, with the same
-    weights and batch, on the CPU (the plain versions).  Row 0 pads its
-    last 40 keys through ``attention_mask`` and row 1 packs two segments
-    through ``segment_ids``, so the bias and segment paths run inside
-    the model."""
+    B=2, S=128, P=20 on the card (the kernels) and, with the same
+    weights and batch, on the CPU (the plain versions), once with the
+    default FFN and once with PADDLE_TPU_FUSED_FFN=1 (fc1 + gelu through
+    the fused-epilogue GEMM kernels, M = 256).  Row 0 pads its last 40
+    keys through ``attention_mask`` and row 1 packs two segments through
+    ``segment_ids``, so the bias and segment paths run inside the
+    model."""
     models, ops = ptt.models, ptt.ops
     cfg = models.BertConfig(**BERT_BASE, hidden_dropout_prob=0.0,
                             attention_probs_dropout_prob=0.0)
@@ -543,46 +765,55 @@ def train_model_check(ptt):
     L = cfg.num_hidden_layers
     names = ("bert.encoder.0.attn.qkv_proj.weight",
              "bert.encoder.%d.attn.qkv_proj.weight" % (L - 1),
-             "bert.embeddings.word.weight", "mlm_bias")
-    got = {}
-    for dev in ("cuda", "cpu"):
-        model = models.BertForPretraining(cfg, device=dev)
-        model.load_state_dict(weights)
-        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        params = dict(model.named_parameters())
-        ops.reset_launch_counts()
-        loss = bert_loss_fn(model, tb)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
-        got[dev] = (loss.item(), [g.cpu() for g in grads],
-                    ops.launch_counts())
-        del model, params, grads
-    (loss_c, grads_c, launches), (loss_h, grads_h, _) = got["cuda"], \
-        got["cpu"]
-    if not np.isfinite(loss_c) or abs(loss_c - loss_h) > MODEL_LOSS_ATOL:
-        raise AssertionError("BERT-base loss: card %r, CPU %r"
-                             % (loss_c, loss_h))
-    errs = {}
-    for name, gc, gh in zip(names, grads_c, grads_h):
-        scale = gh.abs().max().item()
-        err = (gc - gh).abs().max().item()
-        errs[name] = {"max_abs_err": err, "max_abs": scale}
-        if not torch.isfinite(gc).all() or err > MODEL_GRAD_REL * scale:
-            raise AssertionError("BERT-base grad %s: max err %g against "
-                                 "max |g| %g" % (name, err, scale))
+             "bert.embeddings.word.weight", "mlm_bias",
+             "bert.encoder.0.fc1.weight", "bert.encoder.%d.fc1.bias" % (L - 1))
     # B=2: 24 heads leave the card mostly idle, so the rule takes the pair
     fused = ops.attention._use_fused_bwd(
         b * cfg.num_attention_heads, s, s, D,
         torch.cuda.get_device_properties(0).multi_processor_count)
-    _expect_launches("card forward/backward", launches, {
-        "flash_fwd": L, "flash_bwd_fused": L if fused else 0,
-        "flash_bwd_dq": 0 if fused else L,
-        "flash_bwd_dkv": 0 if fused else L})
-    emit({"phase": "train_model_check", "B": b, "S": s, "P": p,
-          "backward": "fused" if fused else "pair",
-          "loss_card": loss_c, "loss_cpu": loss_h,
-          "loss_abs_err": abs(loss_c - loss_h), "loss_atol": MODEL_LOSS_ATOL,
-          "grad_rel_tol": MODEL_GRAD_REL, "grads": errs,
-          "launches": launches})
+    for fused_ffn in (False, True):
+        got = {}
+        with _env("PADDLE_TPU_FUSED_FFN", "1" if fused_ffn else None):
+            for dev in ("cuda", "cpu"):
+                model = models.BertForPretraining(cfg, device=dev)
+                model.load_state_dict(weights)
+                tb = {k: torch.from_numpy(v).to(dev)
+                      for k, v in batch.items()}
+                params = dict(model.named_parameters())
+                ops.reset_launch_counts()
+                loss = bert_loss_fn(model, tb)
+                grads = torch.autograd.grad(loss,
+                                            [params[n] for n in names])
+                got[dev] = (loss.item(), [g.cpu() for g in grads],
+                            ops.launch_counts())
+                del model, params, grads
+        (loss_c, grads_c, launches), (loss_h, grads_h, _) = got["cuda"], \
+            got["cpu"]
+        tag = "BERT-base%s" % (" fused FFN" if fused_ffn else "")
+        if not np.isfinite(loss_c) or abs(loss_c - loss_h) > MODEL_LOSS_ATOL:
+            raise AssertionError("%s loss: card %r, CPU %r"
+                                 % (tag, loss_c, loss_h))
+        errs = {}
+        for name, gc, gh in zip(names, grads_c, grads_h):
+            scale = gh.abs().max().item()
+            err = (gc - gh).abs().max().item()
+            errs[name] = {"max_abs_err": err, "max_abs": scale}
+            if not torch.isfinite(gc).all() or err > MODEL_GRAD_REL * scale:
+                raise AssertionError("%s grad %s: max err %g against "
+                                     "max |g| %g" % (tag, name, err, scale))
+        ffn = L if fused_ffn else 0
+        _expect_launches("card forward/backward (%s)" % tag, launches, {
+            "flash_fwd": L, "flash_bwd_fused": L if fused else 0,
+            "flash_bwd_dq": 0 if fused else L,
+            "flash_bwd_dkv": 0 if fused else L, "matmul_bias_act": ffn,
+            "matmul_bwd_dx": ffn, "matmul_bwd_dw": ffn})
+        emit({"phase": "train_model_check", "fused_ffn": fused_ffn,
+              "B": b, "S": s, "P": p,
+              "backward": "fused" if fused else "pair",
+              "loss_card": loss_c, "loss_cpu": loss_h,
+              "loss_abs_err": abs(loss_c - loss_h),
+              "loss_atol": MODEL_LOSS_ATOL, "grad_rel_tol": MODEL_GRAD_REL,
+              "grads": errs, "launches": launches})
 
 
 def _run_steps(step, state, batches, ids):
@@ -644,7 +875,8 @@ def train(ptt):
     launches = ops.launch_counts()
     _expect_launches("fused train run", launches, {
         "flash_fwd": L * TRAIN_STEPS, "flash_bwd_fused": L * TRAIN_STEPS,
-        "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "matmul_bias_act": 0,
+        "matmul_bwd_dx": 0, "matmul_bwd_dw": 0})
     peak_mem = torch.cuda.max_memory_allocated()
     fused_losses = warm_losses + losses
     if not np.isfinite(fused_losses).all():
@@ -660,18 +892,16 @@ def train(ptt):
     prof = device_profile(lambda: step(state, batches[0]))
     del state
 
-    os.environ["PADDLE_TPU_FLASH_FUSED_BWD"] = "0"
-    try:
+    with _env("PADDLE_TPU_FLASH_FUSED_BWD", "0"):
         ops.reset_launch_counts()
         _, pair_losses, pair_ms = _run_steps(step, state0, batches,
                                              list(range(PAIR_STEPS)))
         pair_launches = ops.launch_counts()
         pair_first, _ = step(state0, batches[0])
-    finally:
-        del os.environ["PADDLE_TPU_FLASH_FUSED_BWD"]
     _expect_launches("pair train run", pair_launches, {
         "flash_fwd": L * PAIR_STEPS, "flash_bwd_fused": 0,
-        "flash_bwd_dq": L * PAIR_STEPS, "flash_bwd_dkv": L * PAIR_STEPS})
+        "flash_bwd_dq": L * PAIR_STEPS, "flash_bwd_dkv": L * PAIR_STEPS,
+        "matmul_bias_act": 0, "matmul_bwd_dx": 0, "matmul_bwd_dw": 0})
     pair_loss_err = float(np.max(np.abs(
         np.subtract(pair_losses, fused_losses[:PAIR_STEPS]))))
     if not pair_loss_err <= PAIR_LOSS_ATOL:
@@ -680,17 +910,58 @@ def train(ptt):
     # one step's gradients, fused against pair: the first step from zero
     # moments leaves Moment1 = (1 - beta1) * grad, the f32 master grads
     fused_first, _ = step(state0, batches[0])
-    grad_errs = {}
-    for name in _grad_names(L):
-        gf, gp = (st["opt"][name]["Moment1"] for st in (fused_first,
-                                                          pair_first))
-        rel = ((gf - gp).norm() / gp.norm()).item()
-        grad_errs[name] = rel
-        if not rel <= PAIR_GRAD_REL:
-            raise AssertionError("step-1 grad %s: fused vs pair relative "
-                                 "error %g, limit %g" % (name, rel,
-                                                         PAIR_GRAD_REL))
-    del fused_first, pair_first
+    grad_errs = _grad_rel(fused_first, pair_first, _grad_names(L),
+                          PAIR_GRAD_REL, "fused vs pair")
+    del pair_first
+
+    # the fused-epilogue FFN: the same step from state0 with
+    # PADDLE_TPU_FUSED_FFN=1, its first FFN_STEPS losses held against the
+    # default run's on the same batches
+    with _env("PADDLE_TPU_FUSED_FFN", "1"):
+        ops.reset_launch_counts()
+        ffn_state, ffn_losses, ffn_ms = _run_steps(
+            step, state0, batches, list(range(FFN_STEPS)))
+        ffn_launches = ops.launch_counts()
+        ffn_prof = device_profile(lambda: step(ffn_state, batches[0]))
+        ffn_first, _ = step(state0, batches[0])
+    del ffn_state
+    _expect_launches("fused-FFN train run", ffn_launches, {
+        "flash_fwd": L * FFN_STEPS, "flash_bwd_fused": L * FFN_STEPS,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "matmul_bias_act": L * FFN_STEPS, "matmul_bwd_dx": L * FFN_STEPS,
+        "matmul_bwd_dw": L * FFN_STEPS})
+    if not np.isfinite(ffn_losses).all():
+        raise AssertionError("non-finite fused-FFN loss: %s" % ffn_losses)
+    ffn_loss_errs = np.abs(np.subtract(ffn_losses, fused_losses[:FFN_STEPS]))
+    ffn_loss_err = float(np.max(ffn_loss_errs))
+    if not (ffn_loss_errs[0] <= FFN_LOSS1_ATOL
+            and ffn_loss_err <= FFN_LOSS_ATOL):
+        raise AssertionError("fused-FFN run losses %s against the default "
+                             "run's %s" % (ffn_losses,
+                                           fused_losses[:FFN_STEPS]))
+    names = _ffn_grad_names(L)
+    ffn_grad_errs = _grad_rel(ffn_first, fused_first, names, FFN_GRAD_REL,
+                              "fused FFN vs default")
+    # the yardstick of both bf16 steps: the same first step in f32, from
+    # which the fused FFN's step may stand at most FFN_VS_F32 times as far
+    # as the default FFN's
+    f32_first, _ = ptt.distributed.ShardedTrainStep(
+        model, ptt.optimizer.AdamWOptimizer(learning_rate=1e-4,
+                                            weight_decay=0.01),
+        bert_loss_fn, mesh=None, zero_stage=0, amp=None)(state0, batches[0])
+    default_vs_f32 = _grad_rel(fused_first, f32_first, names, 1.0,
+                               "default bf16 vs f32")
+    ffn_vs_f32 = _grad_rel(ffn_first, f32_first, names, 1.0,
+                           "fused-FFN bf16 vs f32")
+    for name in names:
+        if not ffn_vs_f32[name] <= FFN_VS_F32 * default_vs_f32[name]:
+            raise AssertionError(
+                "step-1 grad %s: the fused-FFN bf16 step is %g from the f32 "
+                "step, the default's %g (limit %g times)"
+                % (name, ffn_vs_f32[name], default_vs_f32[name], FFN_VS_F32))
+    del fused_first, ffn_first, f32_first
+    ffn_timed = ffn_ms[1:]
+    ffn_mean_s = float(np.mean(ffn_timed)) / 1e3
 
     mean_s = float(np.mean(step_ms)) / 1e3
     emit({"phase": "train", "B": b, "S": s, "P": p, "amp": "bf16",
@@ -713,7 +984,26 @@ def train(ptt):
           "pair_grad_rel_limit": PAIR_GRAD_REL,
           "pair_launches": pair_launches})
     emit({"phase": "train_profile", "steps": 1, **prof})
-    return launches, pair_launches
+    emit({"phase": "train_fused_ffn", "B": b, "S": s, "P": p, "amp": "bf16",
+          "steps": FFN_STEPS, "step_ms": ffn_ms,
+          "step_ms_p50": float(np.percentile(ffn_timed, 50)),
+          "step_ms_p99": float(np.percentile(ffn_timed, 99)),
+          "tokens_per_s": b * s / ffn_mean_s,
+          "model_flops_share_of_989tf": flops / ffn_mean_s / PEAK_FLOPS[
+              torch.bfloat16],
+          "default_step_ms_p50": float(np.percentile(step_ms, 50)),
+          "default_tokens_per_s": b * s / mean_s,
+          "losses": ffn_losses,
+          "default_losses": fused_losses[:FFN_STEPS],
+          "vs_default_abs": ffn_loss_errs.tolist(),
+          "loss_atol": [FFN_LOSS1_ATOL, FFN_LOSS_ATOL],
+          "vs_default_step1_grad_rel": ffn_grad_errs,
+          "grad_rel_limit": FFN_GRAD_REL,
+          "step1_grad_rel_to_f32": {"fused_ffn": ffn_vs_f32,
+                                    "default": default_vs_f32},
+          "vs_f32_ratio_limit": FFN_VS_F32, "launches": ffn_launches})
+    emit({"phase": "train_profile_fused_ffn", "steps": 1, **ffn_prof})
+    return launches, pair_launches, ffn_launches
 
 
 # ---------------------------------------------------------------------------
@@ -758,6 +1048,8 @@ def serve(gen, model, reqs, **kw):
 
 
 KERNEL_CATEGORIES = (
+    ("matmul_fwd_", "matmul_bias_act"), ("matmul_dx_", "matmul_bwd_dx"),
+    ("matmul_dw_", "matmul_bwd_dw"),
     ("flash_fwd", "flash_fwd"),
     ("flash_bwd_fused", "flash_bwd_fused"),
     ("flash_bwd_dq", "flash_bwd_dq"),
@@ -968,8 +1260,10 @@ def main():
     main = check_flash_main_shape(ops)
     check_bwd_crossover(ops)
     dense_row, paged_row = check_decode(ops)
+    check_matmul(ops)
+    mm_main = check_matmul_main_shape(ops)
     train_model_check(ptt)
-    train_launches, pair_launches = train(ptt)
+    train_launches, pair_launches, ffn_launches = train(ptt)
     launches = run_engine(ptt)
 
     prefill = next(r for r in flash_rows
@@ -1021,6 +1315,27 @@ def main():
              source=src + "paged_attention.cu",
              replaces="paddle_tpu/ops/pallas/paged_attention.py:153",
              launches=launches["paged_attention"], **paged_row),
+    ]
+
+    # the fused-epilogue GEMM kernels at the FFN's shape (M = 30720, K =
+    # 768, N = 3072, bf16, gelu), launches over the fused-FFN train run
+    mm_err, mm_bounds = mm_main["max_abs_err"], mm_main["bounds"]
+
+    def mm_entry(name, source, line, max_abs_err, tag):
+        return dict(name=name, route="cuda", source=src + source,
+                    replaces="paddle_tpu/ops/pallas/matmul.py:" + line,
+                    launches=ffn_launches[name], max_abs_err=max_abs_err,
+                    ms=mm_main[tag + "_ms"],
+                    plain_ms=mm_main["plain_%s_ms" % tag],
+                    bound_ms=mm_bounds[name][0], bound_by=mm_bounds[name][1],
+                    library_ms=mm_main["library_%s_ms" % tag])
+
+    kernels += [
+        mm_entry("matmul_bias_act", "matmul_bias_act.cu", "200",
+                 max(mm_err["y"], mm_err["z"]), "fwd"),
+        mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"], "dx"),
+        mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
+                 max(mm_err["dw"], mm_err["dbias"]), "dw"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,9 @@ Covered so far: `models.TransformerLM` served through
 `generation.GenerationEngine` (bucketed flash prefill, paged and dense
 decode), and `models.BertForPretraining` trained by
 `distributed.ShardedTrainStep` under `optimizer.AdamWOptimizer` (flash
-forward and backward kernels).  See README "PyTorch/CUDA port".
+forward and backward kernels; with ``PADDLE_TPU_FUSED_FFN=1`` the FFN's
+fc1 + gelu through the fused-epilogue GEMM kernels,
+`nn.functional.fused_linear`).  See README "PyTorch/CUDA port".
 
 Device rule: every entry point takes ``device=``; with none given it is
 ``"cuda"``, and a box without a CUDA device raises (`device.resolve_device`)
@@ -21,7 +23,7 @@ CPU-only box and imports neither JAX nor `paddle_tpu`.
 
 import importlib
 
-_SUBMODULES = ("device", "distributed", "generation", "models",
+_SUBMODULES = ("device", "distributed", "generation", "models", "nn",
                "observability", "ops", "optimizer")
 
 __all__ = list(_SUBMODULES)

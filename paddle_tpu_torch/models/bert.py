@@ -9,10 +9,15 @@ NSP head.  `MultiHeadAttention` also carries the engine's prefill
 (``use_cache``) and single-token decode (``cache``) hooks, dense and f32
 paged.
 
-Not ported yet, and raising `NotImplementedError`: cross attention, the
-fused-epilogue FFN (``PADDLE_TPU_FUSED_FFN=1``: the ``matmul_bias_act``
-slice), chunked/verify attention (C > 1 query rows over a cache) and
-int8 pools (the rest of the generation engine).
+The reference's two environment knobs of `bench.py --autotune`:
+``PADDLE_TPU_FUSED_FFN=1`` runs the FFN's fc1 + gelu through the
+fused-epilogue GEMM (`nn.functional.fused_linear`);
+``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD`` materializes the head transposes
+around the flash op (the default BSHD reads strided views, no copy).
+
+Not ported yet, and raising `NotImplementedError`: cross attention,
+chunked/verify attention (C > 1 query rows over a cache) and int8 pools
+(the rest of the generation engine).
 
 State-dict keys match the JAX package (``bert.encoder.0.attn.qkv_proj
 .weight`` ...); the Linear weights are PyTorch's ``[out, in]``
@@ -29,6 +34,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..nn.functional import fused_linear
 from ..ops import nn_ops
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.decode_attention import decode_attention
@@ -67,7 +73,22 @@ class LayerNorm(nn.LayerNorm):
 
 
 def _fused_ffn_enabled():
+    """``PADDLE_TPU_FUSED_FFN=1`` routes the FFN's fc1 + gelu through the
+    fused-epilogue GEMM (`paddle_tpu/models/bert.py:23-29`)."""
     return os.getenv("PADDLE_TPU_FUSED_FFN") == "1"
+
+
+def _head_layout():
+    """``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD`` materializes the
+    [B,S,H,D] <-> [B,H,S,D] transposes around the flash op, the negative
+    control of `bench.py --autotune` (`paddle_tpu/models/bert.py:32-44`);
+    BSHD, the default, reads strided views of the QKV projection."""
+    v = os.getenv("PADDLE_TPU_BERT_HEAD_LAYOUT", "BSHD").upper()
+    if v not in ("BSHD", "BHSD"):
+        raise ValueError(
+            "PADDLE_TPU_BERT_HEAD_LAYOUT must be BSHD or BHSD, got %r"
+            % v)
+    return v
 
 
 class BertConfig:
@@ -147,9 +168,15 @@ class MultiHeadAttention(nn.Module):
                    for t in qkv.split(d, dim=2))
         if cache is not None:
             return self._decode_with_cache(q, k, v, cache)
+        layout = _head_layout()
+        qa, ka, va = q, k, v
+        if layout == "BHSD":
+            qa, ka, va = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         ctx = scaled_dot_product_attention(
-            q, k, v, bias=attn_bias, segment_ids=segment_ids,
-            scale=self.d_head ** -0.5, causal=causal, layout="BSHD")
+            qa, ka, va, bias=attn_bias, segment_ids=segment_ids,
+            scale=self.d_head ** -0.5, causal=causal, layout=layout)
+        if layout == "BHSD":
+            ctx = ctx.transpose(1, 2)
         out = self.dropout(self.out_proj(ctx.reshape(b, s, d)))
         if use_cache:
             return out, (k, v)
@@ -242,10 +269,12 @@ class TransformerEncoderLayer(nn.Module):
         h = self.ln1(x + self.attn(x, attn_bias=attn_bias,
                                    segment_ids=segment_ids))
         if _fused_ffn_enabled():
-            raise NotImplementedError(
-                "PADDLE_TPU_FUSED_FFN=1 (the fused bias+gelu GEMM, "
-                "matmul_bias_act) comes with the next slice of the port")
-        f = self.fc2(nn_ops.gelu(self.fc1(h)))
+            # the weights are read at call time, so functional_call's
+            # rebinding (ShardedTrainStep) reaches the kernel
+            f = self.fc2(fused_linear(h, self.fc1.weight, self.fc1.bias,
+                                      activation="gelu"))
+        else:
+            f = self.fc2(nn_ops.gelu(self.fc1(h)))
         return self.ln2(h + self.dropout(f))
 
 

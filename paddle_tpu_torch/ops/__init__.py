@@ -1,5 +1,6 @@
 """Operators with hand-written CUDA kernels (``csrc/``), each beside its
-plain PyTorch version, and the plain ops of the training path
+plain PyTorch version (flash attention, decode attention, the
+fused-epilogue GEMM), and the plain ops of the training path
 (`nn_ops`).  Each wrapper carries a ``launches`` count that
 grows by one per kernel launch and nowhere else."""
 
@@ -14,6 +15,14 @@ from .attention import (  # noqa: F401
     flash_fwd,
     normalize_segment_ids,
     scaled_dot_product_attention,
+)
+from .matmul import (  # noqa: F401
+    matmul_bias_act,
+    matmul_bias_act_bwd_reference,
+    matmul_bias_act_fwd,
+    matmul_bias_act_reference,
+    matmul_bwd_dw,
+    matmul_bwd_dx,
 )
 from .decode_attention import (  # noqa: F401
     decode_attention,
@@ -33,6 +42,9 @@ KERNEL_WRAPPERS = {
     "flash_bwd_fused": flash_bwd_fused,
     "decode_attention": decode_attention,
     "paged_attention": paged_decode_attention,
+    "matmul_bias_act": matmul_bias_act_fwd,
+    "matmul_bwd_dx": matmul_bwd_dx,
+    "matmul_bwd_dw": matmul_bwd_dw,
 }
 
 

@@ -127,11 +127,10 @@ def test_forward_logits_and_loss_match_jax(pair, mask, segs, positions):
     np.testing.assert_allclose(loss.item(), want_loss, **FWD_TOL)
 
 
-def test_one_step_gradients_of_every_parameter_match_jax(pair):
+def _check_one_step_grads(jm, tm, params, batch):
     """jax.grad of the reference's loss (its train step's grad function)
-    against autograd through the port, bias and segment paths on."""
-    jm, tm, params = pair
-    batch = _batch(8, mask=True, segs=True)
+    against autograd through the port: loss and every parameter's
+    gradient."""
     with dygraph.guard():
         step = jax_dist.ShardedTrainStep(
             jm, JaxAdamW(learning_rate=1e-4, weight_decay=0.01),
@@ -154,6 +153,13 @@ def test_one_step_gradients_of_every_parameter_match_jax(pair):
             want = want.T
         np.testing.assert_allclose(p.grad.numpy(), want, **GRAD_TOL,
                                    err_msg=name)
+
+
+def test_one_step_gradients_of_every_parameter_match_jax(pair):
+    """jax.grad of the reference's loss (its train step's grad function)
+    against autograd through the port, bias and segment paths on."""
+    jm, tm, params = pair
+    _check_one_step_grads(jm, tm, params, _batch(8, mask=True, segs=True))
 
 
 def test_every_key_lands_transposed_exactly_where_it_is_a_linear(pair):
@@ -208,14 +214,82 @@ def test_convert_legacy_qkv_state_dict_round_trips(pair):
         torch.testing.assert_close(fresh.state_dict()[k], v, atol=0, rtol=0)
 
 
-def test_fused_ffn_and_cross_attention_raise(pair, monkeypatch):
-    _, tm, _ = pair
-    tb = _t(_batch(2))
-    monkeypatch.setenv("PADDLE_TPU_FUSED_FFN", "1")
-    with pytest.raises(NotImplementedError, match="matmul_bias_act"):
-        tm(tb["input_ids"], tb["token_type_ids"], tb["position_ids"])
+def test_cross_attention_raises():
     with pytest.raises(NotImplementedError, match="cross attention"):
         models.MultiHeadAttention(models.BertConfig.tiny(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the reference's environment knobs: PADDLE_TPU_FUSED_FFN and
+# PADDLE_TPU_BERT_HEAD_LAYOUT (both read at call time, by both packages)
+# ---------------------------------------------------------------------------
+
+
+def _port_forward(tm, batch):
+    tb = _t(batch)
+    kw = {k: tb[k] for k in _MODEL_KEYS if k in tb}
+    with torch.no_grad():
+        logits, nsp = tm.eval()(tb["input_ids"], tb["token_type_ids"],
+                                tb["position_ids"], **kw)
+        loss = tm.loss(logits, nsp, tb["mlm_labels"], tb["mlm_weights"],
+                       tb["nsp_labels"])
+    return logits.numpy(), nsp.numpy(), loss.item()
+
+
+def test_fused_ffn_logits_loss_and_grads_match_jax(pair, monkeypatch):
+    """``PADDLE_TPU_FUSED_FFN=1``: the port's FFN runs fc1 + gelu through
+    `fused_linear` (on the CPU, the plain versions of the GEMM kernels),
+    the reference's through its ``matmul_bias_act`` op (on the CPU, the
+    naive composition)."""
+    jm, tm, params = pair
+    monkeypatch.setenv("PADDLE_TPU_FUSED_FFN", "1")
+    batch = _batch(9, mask=True, segs=True)
+    got, want = _port_forward(tm, batch), _jax_forward(jm, batch)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, **FWD_TOL)
+    _check_one_step_grads(jm, tm, params, _batch(10, mask=True, segs=True))
+
+
+def test_fused_ffn_equals_the_unfused_ffn(pair, monkeypatch):
+    _, tm, _ = pair
+    batch = _batch(11, mask=True)
+    runs = {}
+    for knob in ("0", "1"):
+        monkeypatch.setenv("PADDLE_TPU_FUSED_FFN", knob)
+        fwd = _port_forward(tm, batch)
+        tm.zero_grad()
+        _loss_fn(tm.train(), _t(batch)).backward()
+        runs[knob] = fwd, {n: p.grad.clone()
+                           for n, p in tm.named_parameters()}
+    for a, b in zip(runs["0"][0], runs["1"][0]):
+        np.testing.assert_allclose(a, b, **FWD_TOL)
+    for name, g in runs["0"][1].items():
+        torch.testing.assert_close(runs["1"][1][name], g, **GRAD_TOL)
+
+
+def test_bhsd_head_layout_matches_bshd_and_jax(pair, monkeypatch):
+    """``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD`` materializes the head
+    transposes around the flash op; the logits equal the default BSHD
+    run's and the reference's BHSD run's."""
+    jm, tm, _ = pair
+    batch = _batch(12, mask=True, segs=True)
+    default = _port_forward(tm, batch)
+    monkeypatch.setenv("PADDLE_TPU_BERT_HEAD_LAYOUT", "bhsd")
+    got, want = _port_forward(tm, batch), _jax_forward(jm, batch)
+    for a, b, c in zip(got, default, want):
+        np.testing.assert_allclose(a, b, **FWD_TOL)
+        np.testing.assert_allclose(a, c, **FWD_TOL)
+
+
+def test_bad_head_layout_raises_as_the_reference_does(pair, monkeypatch):
+    jm, tm, _ = pair
+    batch = _batch(13)
+    monkeypatch.setenv("PADDLE_TPU_BERT_HEAD_LAYOUT", "SBHD")
+    match = "PADDLE_TPU_BERT_HEAD_LAYOUT must be BSHD or BHSD, got 'SBHD'"
+    with pytest.raises(ValueError, match=match):
+        _jax_forward(jm, batch)
+    with pytest.raises(ValueError, match=match):
+        _port_forward(tm, batch)
 
 
 def test_config_matches_jax():

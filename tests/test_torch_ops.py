@@ -179,10 +179,12 @@ def test_paged_gather_and_reference_match_jax(bs):
 def test_launch_counters_reset():
     ops.flash_fwd.launches = 3
     ops.flash_bwd_fused.launches = 2
+    ops.matmul_bwd_dw.launches = 1
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "flash_bwd_fused": 0, "decode_attention": 0, "paged_attention": 0}
+        "flash_bwd_fused": 0, "decode_attention": 0, "paged_attention": 0,
+        "matmul_bias_act": 0, "matmul_bwd_dx": 0, "matmul_bwd_dw": 0}
 
 
 def test_build_targets_sm90a_from_the_checkout_sources():

@@ -188,6 +188,21 @@ def test_f32_loss_trajectory_and_final_params_match_jax():
         assert p.dtype == torch.float32
 
 
+def test_fused_ffn_f32_trajectory_and_final_params_match_jax(monkeypatch):
+    """``PADDLE_TPU_FUSED_FFN=1`` in both packages: the port's FFN runs
+    through `fused_linear` (its GEMM kernels' plain versions on the
+    CPU), the reference's through its ``matmul_bias_act`` op."""
+    monkeypatch.setenv("PADDLE_TPU_FUSED_FFN", "1")
+    jl, jp, tl, tp, tm = _run_both(None)
+    np.testing.assert_allclose(tl, jl, **STEP_TOL)
+    linear_weights = {n + ".weight" for n, m in tm.named_modules()
+                      if isinstance(m, nn.Linear)}
+    for name, p in tp.items():
+        want = jp[name].T if name in linear_weights else jp[name]
+        np.testing.assert_allclose(p.numpy(), want, **STEP_TOL,
+                                   err_msg=name)
+
+
 def test_bf16_amp_loss_matches_jax_at_the_bf16_policy():
     jl, _, tl, tp, _ = _run_both("bf16")
     np.testing.assert_allclose(tl, jl, atol=2e-2, rtol=2e-2)
