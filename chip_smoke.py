@@ -14,7 +14,12 @@ PADDLE_TPU_FUSED_FFN=1; trains it as `bench.py`'s flagship step does
 backward and the fused-epilogue FFN, with a profile of one step of each
 FFN; then serves a full-width TransformerLM through the paged generation
 engine and checks the streams against the port's sequential oracle and
-the dense engine.
+the dense engine; last, holds the 1x1 conv + BN + relu kernel against
+its plain version (f32/bf16, the Pallas experiment's shape, ResNet-50's
+eight conv0 shapes at B=128 and a ragged one) and times it there,
+checks full-width ResNet-50 eval on the card against the CPU, and
+serves B=128 224x224 batches through it in f32 and bf16 (16 kernel
+launches a forward), with a profile of one forward of each.
 
     python3 chip_smoke.py
 
@@ -1048,6 +1053,7 @@ def serve(gen, model, reqs, **kw):
 
 
 KERNEL_CATEGORIES = (
+    ("conv_bn_relu", "conv_bn_relu"),
     ("matmul_fwd_", "matmul_bias_act"), ("matmul_dx_", "matmul_bwd_dx"),
     ("matmul_dw_", "matmul_bwd_dw"),
     ("flash_fwd", "flash_fwd"),
@@ -1056,6 +1062,11 @@ KERNEL_CATEGORIES = (
     ("flash_bwd_dkv", "flash_bwd_dkv"),
     ("decode_paged", "paged_attention"),
     ("decode_dense", "decode_attention"),
+    ("bn_fw", "bn_affine"), ("batch_norm", "bn_affine"),
+    ("fprop", "conv_cudnn"), ("convolve", "conv_cudnn"),
+    ("conv2d", "conv_cudnn"), ("winograd", "conv_cudnn"),
+    ("nchwToNhwc", "layout_copy"), ("nhwcToNchw", "layout_copy"),
+    ("max_pool", "pool"),
     ("gemm", "matmul"), ("gemv", "matmul"), ("sm90_", "matmul"),
     ("cutlass", "matmul"), ("cublas", "matmul"), ("nvjet", "matmul"),
     ("sort", "sampling_sort"), ("Sort", "sampling_sort"),
@@ -1221,6 +1232,267 @@ def run_engine(ptt):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the 1x1 conv + BN + relu kernel and ResNet-50 eval
+# ---------------------------------------------------------------------------
+
+RESNET_B, RESNET_HW, RESNET_CLASSES = 128, 224, 1000
+RESNET_BATCHES, RESNET_WARMUP = 10, 2
+# bench.py:645's FLOP model: 4.089e9 an image forward, the published
+# ResNet-50 count (multiply-accumulates; `counted_flops_per_image`
+# counts 2 a multiply-add from the model's own shapes)
+RESNET_BENCH_FLOPS = 4.089e9
+# kernel 10's shapes at B = 128, 224: (batch, H = W, K = Cin, N = Cout,
+# launches a forward).  The experiment's own shape
+# (fused_conv_bn_relu_experiment.py:27), then every bottleneck conv0 of
+# ResNet-50 (stages at 56, 28, 14, 7; the first block of a stage sees the
+# previous stage's width at its own resolution)
+CONV_EXPERIMENT = (128, 56, 64, 256, 0)
+CONV_PATH = ((128, 56, 64, 64, 1), (128, 56, 256, 64, 2),
+             (128, 56, 256, 128, 1), (128, 28, 512, 128, 3),
+             (128, 28, 512, 256, 1), (128, 14, 1024, 256, 5),
+             (128, 14, 1024, 512, 1), (128, 7, 2048, 512, 2))
+CONV_RAGGED = (777, 200, 264)    # M, K, N: every edge of the tile masked
+# bf16 logits against the f32 model's, in relative norm: the repo's bf16
+# forward policy (2e-2); the CPU measured 5e-3 at B = 2 with the same
+# seeded weights
+RESNET_BF16_REL = 2e-2
+# card f32 logits against the CPU's, atol against their scale: cuDNN may
+# take Winograd or FFT algorithms for f32 convs, which round otherwise
+# than a direct sum, over 53 conv + BN layers; a wrong tile, fold or
+# edge is off by a whole term (>= 1e-2 of the scale)
+RESNET_CARD_VS_CPU = 1e-3
+
+
+def _bn_vectors(gen, n):
+    """Seeded BN gamma, beta, mean and var [n] f32 on the card."""
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+        n, device="cuda", generator=gen)
+    return (u(0.5, 1.5),
+            torch.randn(n, device="cuda", generator=gen) * 0.1,
+            torch.randn(n, device="cuda", generator=gen) * 0.1,
+            u(0.5, 2.0))
+
+
+def conv_bn_case(ops, gen, m, k, n, dt):
+    """Kernel 10 on one shape against its plain version on the same
+    inputs (bf16 upcast exactly).  Returns (error, limit share,
+    tensors)."""
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+    w = (torch.randn(n, k, device="cuda", generator=gen)
+         * (2.0 / k) ** 0.5).to(dt)
+    gamma, beta, mean, var = _bn_vectors(gen, n)
+    scale, shift = ops.fold_bn(gamma, beta, mean, var, 1e-5)
+    y = ops.conv1x1_bn_relu(x, w, scale, shift)
+    torch.cuda.synchronize()
+    xf, wf = upcast(x, w)
+    want = ops.conv1x1_bn_relu_reference(xf, wf, scale, shift)
+    err, share = compare("conv_bn_relu M=%d K=%d N=%d %s" % (
+        m, k, n, str(dt).replace("torch.", "")), y, want, gemm_tol(dt, want))
+    return err, share, dict(x=x, w=w, scale=scale, shift=shift,
+                            bn=(gamma, beta, mean, var))
+
+
+def check_conv_bn(ops):
+    """Kernel 10 against its plain version, f32 and bf16, at the
+    experiment's shape, the eight conv0 shapes of the path and a ragged
+    shape."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    shapes = [(b * hw * hw, k, n) for b, hw, k, n, _ in
+              (CONV_EXPERIMENT,) + CONV_PATH] + [CONV_RAGGED]
+    for dt in (torch.float32, torch.bfloat16):
+        for m, k, n in shapes:
+            err, share, _ = conv_bn_case(ops, gen, m, k, n, dt)
+            rows.append({"M": m, "K": k, "N": n,
+                         "dtype": str(dt).replace("torch.", ""),
+                         "max_abs_err": err, "limit_share": share})
+    emit({"phase": "conv_bn_check", "cases": len(rows),
+          "worst_limit_share": max(r["limit_share"] for r in rows),
+          "rows": rows})
+    return rows
+
+
+def conv_bn_work(m, k, n, dt):
+    """(bytes, flops) of kernel 10 at one shape: x, w, scale and shift
+    read once, y written once; 2 flops a multiply-add."""
+    elt = torch.tensor([], dtype=dt).element_size()
+    return (m * k + n * k + m * n) * elt + 2 * n * 4, 2 * m * n * k
+
+
+def check_conv_bn_main_shape(ops):
+    """Kernel 10 timed at the experiment's shape and at every conv0 shape
+    of the path, f32 and bf16, beside its plain version, the library's
+    same function (channels-last cuDNN F.conv2d, then F.batch_norm eval
+    and relu) and cuBLAS's bare GEMM of the same operands."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for b, hw, k, n, per_fwd in (CONV_EXPERIMENT,) + CONV_PATH:
+            m = b * hw * hw
+            err, share, t = conv_bn_case(ops, gen, m, k, n, dt)
+            x, w, scale, shift = t["x"], t["w"], t["scale"], t["shift"]
+            gamma, beta, mean, var = t["bn"]
+            x4 = x.view(b, hw, hw, k).permute(0, 3, 1, 2)   # channels-last
+            w4 = w.view(n, k, 1, 1)
+            bms, by = bound(*conv_bn_work(m, k, n, dt), dt)
+            rows.append({
+                "M": m, "K": k, "N": n, "dtype": str(dt).replace("torch.", ""),
+                "per_forward": per_fwd, "max_abs_err": err,
+                "limit_share": share,
+                "ms": time_ms(lambda: ops.conv1x1_bn_relu(x, w, scale,
+                                                          shift)),
+                "plain_ms": time_ms(lambda: ops.conv1x1_bn_relu_reference(
+                    x, w, scale, shift)),
+                "library_ms": time_ms(lambda: F.relu_(F.batch_norm(
+                    F.conv2d(x4, w4), mean, var, gamma, beta, False, 0.0,
+                    1e-5))),
+                "cublas_gemm_ms": time_ms(lambda: torch.matmul(x, w.t())),
+                "bound_ms": bms, "bound_by": by})
+            del x, w, x4, w4, t
+    emit({"phase": "conv_bn_main_shape", "rows": rows})
+    return rows
+
+
+def _resnet(ptt, dt, params):
+    model = ptt.models.resnet50(num_classes=RESNET_CLASSES, device="cuda",
+                                dtype=dt)
+    model.load_state_dict(ptt.models.from_jax_state_dict(params))
+    return model.eval()
+
+
+def resnet_model_check(ptt, params):
+    """Full-width ResNet-50 in f32 on the card against the same weights
+    on the CPU (plain versions), B = 2 at 224."""
+    x = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (2, 3, RESNET_HW, RESNET_HW)).astype(np.float32))
+    model = _resnet(ptt, torch.float32, params)
+    with torch.inference_mode():
+        got = model(x.cuda()).cpu()
+        cpu_model = ptt.models.resnet50(num_classes=RESNET_CLASSES,
+                                        device="cpu")
+        cpu_model.load_state_dict(model.state_dict())
+        want = cpu_model.eval()(x)
+    del model, cpu_model
+    if got.shape != (2, RESNET_CLASSES) or not torch.isfinite(got).all():
+        raise AssertionError("bad ResNet logits %s" % (tuple(got.shape),))
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, atol=RESNET_CARD_VS_CPU * scale,
+                               rtol=RESNET_CARD_VS_CPU)
+    emit({"phase": "resnet_model_check", "logits_shape": list(got.shape),
+          "card_vs_cpu_max_abs_err": err, "logit_scale": scale,
+          "atol": RESNET_CARD_VS_CPU * scale, "rtol": RESNET_CARD_VS_CPU})
+
+
+def _counted_flops(ptt, model, images):
+    """2 flops a multiply-add of every conv and the fc, from the shapes
+    one forward of ``images`` gives each layer."""
+    counted = [2 * model.fc.in_features * model.fc.out_features
+               * images.shape[0]]
+
+    def hook(mod, inp, out):
+        cout, cin, kh, kw = mod._conv.weight.shape
+        counted.append(2 * out.numel() * cin * kh * kw)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, ptt.models.ConvBNLayer)]
+    model(images)
+    for h in hooks:
+        h.remove()
+    return sum(counted)
+
+
+def resnet_eval(ptt, params):
+    """The serving path: ResNet-50 eval at B = 128, 224, f32 and bf16,
+    RESNET_WARMUP batches then RESNET_BATCHES timed (host clock around
+    each forward, ending in a synchronize).  Kernel 10 must launch 16
+    times a forward.  Returns ({dtype: launch counts}, {dtype: model},
+    the images)."""
+    ops = ptt.ops
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    images = torch.randn(RESNET_B, 3, RESNET_HW, RESNET_HW, device="cuda",
+                         generator=gen)
+    rows, launches, logits, models_ = {}, {}, {}, {}
+    n_conv0 = sum(p for *_, p in CONV_PATH)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        t0 = time.perf_counter()
+        model = _resnet(ptt, dt, params)
+        setup_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            flops_img = _counted_flops(ptt, model, images) / RESNET_B
+            for _ in range(RESNET_WARMUP):
+                logits[tag] = model(images)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            lat_ms = []
+            for _ in range(RESNET_BATCHES):
+                t0 = time.perf_counter()
+                out = model(images)
+                torch.cuda.synchronize()
+                lat_ms.append((time.perf_counter() - t0) * 1e3)
+            launches[tag] = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        _expect_launches("ResNet-50 %s eval" % tag, launches[tag], {
+            "conv_bn_relu": n_conv0 * RESNET_BATCHES, "matmul_bias_act": 0,
+            "flash_fwd": 0})
+        if out.shape != (RESNET_B, RESNET_CLASSES) \
+                or not torch.isfinite(out).all():
+            raise AssertionError("bad %s logits" % tag)
+        mean_s = float(np.mean(lat_ms)) / 1e3
+        rows[tag] = {
+            "setup_s": setup_s, "batch_ms": lat_ms,
+            "batch_ms_p50": float(np.percentile(lat_ms, 50)),
+            "batch_ms_p99": float(np.percentile(lat_ms, 99)),
+            "images_per_s": RESNET_B / mean_s,
+            "bench_flops_per_image": RESNET_BENCH_FLOPS,
+            "counted_flops_per_image": flops_img,
+            "bench_flops_share_of_peak": RESNET_BENCH_FLOPS * RESNET_B
+            / mean_s / PEAK_FLOPS[dt],
+            "counted_flops_share_of_peak": flops_img * RESNET_B / mean_s
+            / PEAK_FLOPS[dt],
+            "peak_tflops": PEAK_FLOPS[dt] / 1e12,
+            "peak_memory_bytes": peak,
+            "conv_bn_relu_launches_per_forward":
+                launches[tag]["conv_bn_relu"] / RESNET_BATCHES}
+        models_[tag] = model
+    hi, lo = logits["float32"], logits["bfloat16"].float()
+    rel = ((lo - hi).norm() / hi.norm()).item()
+    if not rel <= RESNET_BF16_REL:
+        raise AssertionError("bf16 logits %g from the f32 logits in "
+                             "relative norm (limit %g)" % (rel,
+                                                           RESNET_BF16_REL))
+    emit({"phase": "resnet_eval", "B": RESNET_B, "HW": RESNET_HW,
+          "classes": RESNET_CLASSES, "batches": RESNET_BATCHES,
+          "bf16_vs_f32_logits_rel": rel, "bf16_rel_limit": RESNET_BF16_REL,
+          **rows})
+    return launches, models_, images
+
+
+def resnet_profile(models_, images):
+    """`device_profile` of one forward of each dtype at B = 128."""
+    out = {}
+    with torch.inference_mode():
+        for tag, model in models_.items():
+            out[tag] = device_profile(lambda: model(images))
+    emit({"phase": "resnet_profile", "B": RESNET_B, **out})
+
+
+def run_resnet(ptt):
+    params = ptt.models.init_resnet_params(50, RESNET_CLASSES, seed=23,
+                                           bn_stats="random")
+    check_conv_bn(ptt.ops)
+    conv_rows = check_conv_bn_main_shape(ptt.ops)
+    resnet_model_check(ptt, params)
+    launches, models_, images = resnet_eval(ptt, params)
+    resnet_profile(models_, images)
+    return conv_rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1265,6 +1537,7 @@ def main():
     train_model_check(ptt)
     train_launches, pair_launches, ffn_launches = train(ptt)
     launches = run_engine(ptt)
+    conv_rows, resnet_launches = run_resnet(ptt)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -1337,6 +1610,35 @@ def main():
         mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
                  max(mm_err["dw"], mm_err["dbias"]), "dw"),
     ]
+
+    # the 1x1 conv + BN + relu kernel over one bf16 ResNet-50 forward at
+    # B = 128: each conv0 shape's time weighted by its launches a forward
+    # (16 in all); launches over the timed 10-batch bf16 eval run
+    path = [r for r in conv_rows if r["dtype"] == "bfloat16"
+            and r["per_forward"]]
+
+    def fwd_sum(key):
+        return sum(r[key] * r["per_forward"] for r in path)
+
+    work = [(conv_bn_work(r["M"], r["K"], r["N"], torch.bfloat16),
+             r["per_forward"]) for r in path]
+    t_bytes = sum(w[0] * n for w, n in work) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(w[1] * n for w, n in work) / PEAK_FLOPS[torch.bfloat16] * 1e3
+    keep = ("M", "K", "N", "dtype", "per_forward", "max_abs_err", "ms",
+            "plain_ms", "library_ms", "cublas_gemm_ms", "bound_ms",
+            "bound_by")
+    kernels.append(dict(
+        name="conv_bn_relu", route="cuda", source=src + "conv_bn_relu.cu",
+        replaces="benchmarks/fused_conv_bn_relu_experiment.py:32",
+        launches=resnet_launches["bfloat16"]["conv_bn_relu"],
+        max_abs_err=max(r["max_abs_err"] for r in path),
+        ms=fwd_sum("ms"), plain_ms=fwd_sum("plain_ms"),
+        bound_ms=fwd_sum("bound_ms"),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=fwd_sum("library_ms"), cublas_gemm_ms=fwd_sum(
+            "cublas_gemm_ms"),
+        f32_launches=resnet_launches["float32"]["conv_bn_relu"],
+        per_shape=[{k: r[k] for k in keep} for r in conv_rows]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ decode), and `models.BertForPretraining` trained by
 `distributed.ShardedTrainStep` under `optimizer.AdamWOptimizer` (flash
 forward and backward kernels; with ``PADDLE_TPU_FUSED_FFN=1`` the FFN's
 fc1 + gelu through the fused-epilogue GEMM kernels,
-`nn.functional.fused_linear`).  See README "PyTorch/CUDA port".
+`nn.functional.fused_linear`), and `models.resnet50` (and the rest of
+the ResNet family) served in eval mode, each bottleneck block's 1x1
+conv + BN + relu through one kernel (`ops.conv1x1_bn_relu`).  See
+README "PyTorch/CUDA port".
 
 Device rule: every entry point takes ``device=``; with none given it is
 ``"cuda"``, and a box without a CUDA device raises (`device.resolve_device`)

@@ -1,9 +1,10 @@
 """Parameters across the two packages, and seeded weights with no JAX.
 
 The JAX package's ``state_dict`` and this package's share their keys
-(``word.weight``, ``blocks.{i}.attn.qkv_proj.weight``, ...).  The one
-difference is the Linear weight: JAX stores ``[in, out]``, `nn.Linear`
-``[out, in]``.
+(``word.weight``, ``blocks.{i}.attn.qkv_proj.weight``,
+``blocks.{i}.conv0._bn._mean``, ...).  The one difference is the Linear
+weight: JAX stores ``[in, out]``, `nn.Linear` ``[out, in]``.  Conv
+weights (OIHW in both) and BatchNorm vectors land as they are.
 """
 
 from __future__ import annotations
@@ -11,12 +12,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state_dict", "init_bert_params", "init_params"]
+__all__ = ["from_jax_state_dict", "init_bert_params", "init_params",
+           "init_resnet_params"]
 
-# every Linear of the two model families (BERT's heads, the LM's blocks,
-# and the separate projections of pre-fusion BERT checkpoints)
+# every Linear of the model families (BERT's heads, the LM's blocks, the
+# separate projections of pre-fusion BERT checkpoints, ResNet's fc)
 _LINEARS = ("qkv_proj", "q_proj", "k_proj", "v_proj", "out_proj", "fc1",
-            "fc2", "pooler", "mlm_transform", "nsp")
+            "fc2", "pooler", "mlm_transform", "nsp", "fc")
 
 
 def _is_linear_weight(key):
@@ -103,4 +105,47 @@ def init_bert_params(cfg, seed=0):
     p.update(init.linear("mlm_transform", d, d))
     p.update(init.ln("mlm_ln"))
     p.update(init.linear("nsp", d, 2))
+    return p
+
+
+def init_resnet_params(depth=50, num_classes=1000, seed=0, in_channels=3,
+                       bn_stats="unit"):
+    """`ResNet` parameters in the JAX layout (the keys of
+    `paddle_tpu.models.ResNet(depth, num_classes).state_dict`), as numpy
+    float32, made from ``seed`` alone with no JAX: conv weights N(0,
+    sqrt(2 / fan_in)) as `fluid/dygraph/nn.py:60` Conv2D draws them, the
+    fc U(±1/sqrt(in)) with a zero bias.  BatchNorm: ``bn_stats="unit"``
+    gives gamma 1, beta 0, mean 0, var 1 (the reference's init);
+    ``"random"`` gives seeded non-trivial values (gamma U(0.5, 1.5),
+    beta N(0, 0.1), mean N(0, 0.1), var U(0.5, 2)), so a BN fold that
+    drops a term shows.  The keys and shapes are the port's model's,
+    built on the meta device."""
+    from .resnet import ResNet
+
+    if bn_stats not in ("unit", "random"):
+        raise ValueError("bn_stats must be 'unit' or 'random', got %r"
+                         % (bn_stats,))
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(v.shape) for k, v in ResNet(
+        depth, num_classes, in_channels, device="meta").state_dict().items()}
+    unit = {"weight": np.ones, "bias": np.zeros, "_mean": np.zeros,
+            "_variance": np.ones}
+    drawn = {"weight": lambda n: rng.uniform(0.5, 1.5, n),
+             "bias": lambda n: rng.standard_normal(n) * 0.1,
+             "_mean": lambda n: rng.standard_normal(n) * 0.1,
+             "_variance": lambda n: rng.uniform(0.5, 2.0, n)}
+    p = {}
+    for key, shape in shapes.items():
+        name = key.rsplit(".", 1)[1]
+        if key.endswith("._conv.weight"):
+            std = np.sqrt(2.0 / np.prod(shape[1:]))
+            val = rng.standard_normal(shape) * std
+        elif "._bn." in key:
+            val = (unit if bn_stats == "unit" else drawn)[name](shape[0])
+        elif key == "fc.weight":     # the JAX Linear's [in, out]
+            bound = 1.0 / np.sqrt(shape[1])
+            val = rng.uniform(-bound, bound, shape[::-1])
+        else:                        # fc.bias
+            val = np.zeros(shape)
+        p[key] = val.astype(np.float32)
     return p

@@ -1,8 +1,9 @@
 """Operators with hand-written CUDA kernels (``csrc/``), each beside its
 plain PyTorch version (flash attention, decode attention, the
-fused-epilogue GEMM), and the plain ops of the training path
-(`nn_ops`).  Each wrapper carries a ``launches`` count that
-grows by one per kernel launch and nowhere else."""
+fused-epilogue GEMM, the 1x1 conv + BN + relu), and the plain ops of
+the training and ResNet eval paths (`nn_ops`).  Each wrapper carries a
+``launches`` count that grows by one per kernel launch and nowhere
+else."""
 
 from .attention import (  # noqa: F401
     flash_attention,
@@ -23,6 +24,11 @@ from .matmul import (  # noqa: F401
     matmul_bias_act_reference,
     matmul_bwd_dw,
     matmul_bwd_dx,
+)
+from .conv_bn import (  # noqa: F401
+    conv1x1_bn_relu,
+    conv1x1_bn_relu_reference,
+    fold_bn,
 )
 from .decode_attention import (  # noqa: F401
     decode_attention,
@@ -45,6 +51,7 @@ KERNEL_WRAPPERS = {
     "matmul_bias_act": matmul_bias_act_fwd,
     "matmul_bwd_dx": matmul_bwd_dx,
     "matmul_bwd_dw": matmul_bwd_dw,
+    "conv_bn_relu": conv1x1_bn_relu,
 }
 
 

@@ -38,7 +38,8 @@ __all__ = ["KERNELS", "build", "build_dir", "dtype_code", "launch",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "decode_attention",
-           "paged_attention", "matmul_bias_act", "matmul_bwd")
+           "paged_attention", "matmul_bias_act", "matmul_bwd",
+           "conv_bn_relu")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,5 +1,6 @@
 // The GEMM scheme shared by the fused-epilogue matmul kernels
-// (matmul_bias_act.cu, matmul_bwd.cu): one templated tile GEMM
+// (matmul_bias_act.cu, matmul_bwd.cu) and the 1x1-conv + BN + relu
+// kernel (conv_bn_relu.cu): one templated tile GEMM
 //
 //   C[r][c] = sum_k A(r, k) B(c, k)        (f32 accumulation)
 //
@@ -15,7 +16,9 @@
 // the dY and residual tiles (the residual is z for gelu, y for relu and
 // tanh, absent for none) and never written to device memory.  The
 // forward adds the f32 bias and applies the activation to the f32
-// accumulator before its one writeback, and optionally writes z.  The
+// accumulator before its one writeback, and optionally writes z; with
+// the kBnRelu epilogue it applies max(acc * scale[c] + shift[c], 0)
+// instead (the folded eval-mode BatchNorm and relu, f32).  The
 // dW mode also sums dZ over M into dbias in the CTAs of column tile 0
 // (every M tile of a row tile passes through the same CTA, so no
 // atomics and no second pass: deterministic), as the reference sums it
@@ -56,8 +59,10 @@ namespace ptt {
 namespace gemm {
 
 enum Mode { kFwd = 0, kDx = 1, kDw = 2 };
-// activation codes shared with ops/matmul.py (`_ACT_CODES`)
-enum Act { kNone = 0, kRelu = 1, kTanh = 2, kGelu = 3, kGeluTanh = 4 };
+// activation codes shared with ops/matmul.py (`_ACT_CODES`); kBnRelu is
+// the forward's BN-affine + relu epilogue, launched by conv_bn_relu.cu
+enum Act { kNone = 0, kRelu = 1, kTanh = 2, kGelu = 3, kGeluTanh = 4,
+           kBnRelu = 5 };
 
 struct Args {
   const void* a;      // A: x (kFwd) or dY (kDx, kDw)
@@ -66,6 +71,8 @@ struct Args {
   void* c;            // y, dx or dw
   void* z;            // kFwd: the pre-activation output, or null
   const void* bias;   // kFwd: [N] or null
+  const float* scale; // kFwd with kBnRelu: [N] f32
+  const float* shift; // kFwd with kBnRelu: [N] f32
   void* dbias;        // kDw: [N] or null
   int rows, cols, depth;   // output rows / cols, contraction length
   long long lda, ldb, ldc;
@@ -133,14 +140,22 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   p[1] = b;
 }
 
+// The BN-affine + relu epilogue of one f32 accumulator in column c
+__device__ __forceinline__ float bn_relu(const Args& p, int c, float v) {
+  return fmaxf(v * p.scale[c] + p.shift[c], 0.f);
+}
+
 // The shared epilogue of both kernels for two neighbouring outputs
-// (r, c), (r, c + 1): bias, z and activation in the forward, a plain
-// store otherwise.
+// (r, c), (r, c + 1): bias, z and activation in the forward (or the
+// BN affine + relu), a plain store otherwise.
 template <typename T, int MODE, int ACT>
 __device__ __forceinline__ void epilogue2(const Args& p, int r, int c,
                                           float v0, float v1) {
   const long long o = static_cast<long long>(r) * p.ldc + c;
-  if (MODE == kFwd) {
+  if (MODE == kFwd && ACT == kBnRelu) {
+    v0 = bn_relu(p, c, v0);
+    v1 = bn_relu(p, c + 1, v1);
+  } else if (MODE == kFwd) {
     if (p.bias) {
       v0 += load_vec(p.bias, p.bias_dtype, c);
       v1 += load_vec(p.bias, p.bias_dtype, c + 1);
@@ -547,7 +562,9 @@ __device__ __forceinline__ void gemm_f32(const Args& p) {
         epilogue2<float, MODE, ACT>(p, r, c, acc[i][j], acc[i][j + 1]);
       } else if (c < p.cols) {  // an odd last column
         float v = acc[i][j];
-        if (MODE == kFwd) {
+        if (MODE == kFwd && ACT == kBnRelu) {
+          v = bn_relu(p, c, v);
+        } else if (MODE == kFwd) {
           if (p.bias) v += load_vec(p.bias, p.bias_dtype, c);
           if (p.z) static_cast<float*>(p.z)[static_cast<long long>(r) * p.ldc + c] = v;
           v = act_fwd<ACT>(v);
@@ -589,18 +606,21 @@ __device__ __forceinline__ void gemm_f32(const Args& p) {
 PTT_GEMM_KERNELS(kFwd, matmul_fwd)
 PTT_GEMM_KERNELS(kDx, matmul_dx)
 PTT_GEMM_KERNELS(kDw, matmul_dw)
+PTT_GEMM_KERNELS(kFwd, conv_bn_relu)
 #undef PTT_GEMM_KERNELS
 
 // the kernels of one mode only, so each library instantiates its own
 template <int MODE, int ACT>
 auto bf16_kernel() {
-  if constexpr (MODE == kFwd) return matmul_fwd_bf16<ACT>;
+  if constexpr (MODE == kFwd && ACT == kBnRelu) return conv_bn_relu_bf16<ACT>;
+  else if constexpr (MODE == kFwd) return matmul_fwd_bf16<ACT>;
   else if constexpr (MODE == kDx) return matmul_dx_bf16<ACT>;
   else return matmul_dw_bf16<ACT>;
 }
 template <int MODE, int ACT>
 auto f32_kernel() {
-  if constexpr (MODE == kFwd) return matmul_fwd_f32<ACT>;
+  if constexpr (MODE == kFwd && ACT == kBnRelu) return conv_bn_relu_f32<ACT>;
+  else if constexpr (MODE == kFwd) return matmul_fwd_f32<ACT>;
   else if constexpr (MODE == kDx) return matmul_dx_f32<ACT>;
   else return matmul_dw_f32<ACT>;
 }

@@ -81,6 +81,18 @@ def _port_fwd_grads(x, w, b, g, act, approx, dtype=torch.float32):
     return [t.detach().float().numpy() for t in res]
 
 
+def _truth_distances(x, w, b, act, approx, got, want):
+    """The failure message of the forward check: how far each side lies
+    from the same function in float64, so a failure names the side that
+    drifted."""
+    z = x.astype(np.float64) @ w.T.astype(np.float64)
+    if b is not None:
+        z = z + b
+    truth = port_mm._apply_act(torch.from_numpy(z), act, approx).numpy()
+    return ("y: max |port - f64| %.3g, max |pallas - f64| %.3g"
+            % (np.abs(got - truth).max(), np.abs(want - truth).max()))
+
+
 @pytest.mark.parametrize("act,approx", ACTS,
                          ids=["none", "relu", "tanh", "gelu", "gelu_tanh"])
 @pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
@@ -89,7 +101,9 @@ def test_forward_and_grads_match_the_pallas_kernels(act, approx, with_bias):
     b = b if with_bias else None
     want = _jax_fwd_vjp(x, w, b, g, act, approx)
     got = _port_fwd_grads(x, w, b, g, act, approx)
-    np.testing.assert_allclose(got[0], want[0], **FWD_TOL, err_msg="y")
+    np.testing.assert_allclose(got[0], want[0], **FWD_TOL,
+                               err_msg=_truth_distances(x, w, b, act, approx,
+                                                        got[0], want[0]))
     np.testing.assert_allclose(got[1], want[1], **GRAD_TOL, err_msg="dx")
     # the port's dW is [N, K]: the transpose of the reference's
     np.testing.assert_allclose(got[2], want[2].T, **GRAD_TOL, err_msg="dw")
