@@ -19,7 +19,17 @@ its plain version (f32/bf16, the Pallas experiment's shape, ResNet-50's
 eight conv0 shapes at B=128 and a ragged one) and times it there,
 checks full-width ResNet-50 eval on the card against the CPU, and
 serves B=128 224x224 batches through it in f32 and bf16 (16 kernel
-launches a forward), with a profile of one forward of each.
+launches a forward), with a profile of one forward of each; then holds
+the 1x1 conv + BN-statistics kernel against its plain version (f32/bf16,
+the experiment's shape, the twelve shapes of the ResNet-50 train step at
+B=128, a ragged one and a column whose mean is ~90 times its std, each
+launched twice for bitwise-equal statistics) and times it there over a
+step's 33 launches; runs the eval model under grad through kernel 10
+against its plain version; checks one f32 Momentum step of full-width
+ResNet-50 (B=4, 64x64) on the card against the CPU and against kernel
+11's plain version; and trains ResNet-50 as `bench.py:_bench_resnet`
+does (B=128, 224x224, bf16, ShardedTrainStep + Momentum(0.1, 0.9), 33
+kernel-11 launches a step), with a profile of one step.
 
     python3 chip_smoke.py
 
@@ -41,8 +51,13 @@ PADDLE_TPU_FLASH_ACC policy (2e-2 / 5e-2), which at S=512 is as large
 as the gradients themselves.  Two bf16 kernels against each other
 (fused vs pair): rtol 2^-6.  The GEMM kernels: rtol 2^-7 (bf16) or
 1e-5 (f32) with an atol set against the output's scale, widened for
-the bf16 backward's rounding of dZ (`gemm_tol`).  Dense vs paged decode
-bitwise; the model checks state theirs beside them.
+the bf16 backward's rounding of dZ (`gemm_tol`).  Kernel 11's mean and
+variance: within 1e-5 (f32) or 5e-5 (bf16) of (|mean| + std) and of the
+variance, against float64 sums of the f32 product (STATS_RTOL), and its
+cancellation case must put the one-pass form Σy²/M − μ² outside those
+limits, so that they would catch it.  Dense vs
+paged decode bitwise; the model checks state theirs beside them (the
+ResNet gradient checks on one run's relu decisions, `_relu_decisions`).
 Bounds: the larger of bytes / 3.35 TB/s and flops / peak, with the
 H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the flash kernels use f32
 FMA), 989 TFLOP/s bf16.
@@ -53,6 +68,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest.mock import patch
 
 import numpy as np
 import torch
@@ -1053,7 +1069,7 @@ def serve(gen, model, reqs, **kw):
 
 
 KERNEL_CATEGORIES = (
-    ("conv_bn_relu", "conv_bn_relu"),
+    ("conv_bn_relu", "conv_bn_relu"), ("conv_bn_stats", "conv_bn_stats"),
     ("matmul_fwd_", "matmul_bias_act"), ("matmul_dx_", "matmul_bwd_dx"),
     ("matmul_dw_", "matmul_bwd_dw"),
     ("flash_fwd", "flash_fwd"),
@@ -1063,7 +1079,8 @@ KERNEL_CATEGORIES = (
     ("decode_paged", "paged_attention"),
     ("decode_dense", "decode_attention"),
     ("bn_fw", "bn_affine"), ("batch_norm", "bn_affine"),
-    ("fprop", "conv_cudnn"), ("convolve", "conv_cudnn"),
+    ("fprop", "conv_cudnn"), ("dgrad", "conv_cudnn"),
+    ("wgrad", "conv_cudnn"), ("convolve", "conv_cudnn"),
     ("conv2d", "conv_cudnn"), ("winograd", "conv_cudnn"),
     ("nchwToNhwc", "layout_copy"), ("nhwcToNchw", "layout_copy"),
     ("max_pool", "pool"),
@@ -1073,6 +1090,7 @@ KERNEL_CATEGORIES = (
     ("layer_norm", "layer_norm"), ("GammaBeta", "layer_norm"),
     ("embedding", "embedding"),
     ("Memcpy", "copy"), ("Memset", "copy"), ("CatArray", "copy"),
+    ("direct_copy", "copy"), ("bfloat16_copy", "copy"),
     ("index", "kv_scatter_gather"), ("scatter", "kv_scatter_gather"),
     ("gather", "kv_scatter_gather"),
     ("distribution", "dropout_rng"),
@@ -1438,8 +1456,8 @@ def resnet_eval(ptt, params):
             launches[tag] = ops.launch_counts()
             peak = torch.cuda.max_memory_allocated()
         _expect_launches("ResNet-50 %s eval" % tag, launches[tag], {
-            "conv_bn_relu": n_conv0 * RESNET_BATCHES, "matmul_bias_act": 0,
-            "flash_fwd": 0})
+            "conv_bn_relu": n_conv0 * RESNET_BATCHES, "conv_bn_stats": 0,
+            "matmul_bias_act": 0, "flash_fwd": 0})
         if out.shape != (RESNET_B, RESNET_CLASSES) \
                 or not torch.isfinite(out).all():
             raise AssertionError("bad %s logits" % tag)
@@ -1490,7 +1508,438 @@ def run_resnet(ptt):
     resnet_model_check(ptt, params)
     launches, models_, images = resnet_eval(ptt, params)
     resnet_profile(models_, images)
-    return conv_rows, launches
+    del models_, images
+    return conv_rows, launches, params
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the 1x1 conv + BN-statistics kernel and ResNet-50 training
+# ---------------------------------------------------------------------------
+
+# kernel 11's shapes in one ResNet-50 train step at B = 128, 224: (M, K,
+# N, launches a step).  Every 1x1 stride-1 conv: each bottleneck's conv0
+# (the first block of a stage sees the previous stage's width at the
+# previous resolution) and conv2, and the first block's stride-1 short.
+CONV_STATS_PATH = ((401408, 64, 64, 1), (401408, 64, 256, 4),
+                   (401408, 256, 64, 2), (401408, 256, 128, 1),
+                   (100352, 128, 512, 4), (100352, 512, 128, 3),
+                   (100352, 512, 256, 1), (25088, 256, 1024, 6),
+                   (25088, 1024, 256, 5), (25088, 1024, 512, 1),
+                   (6272, 512, 2048, 3), (6272, 2048, 512, 2))
+CONV_STATS_PER_STEP = sum(n for *_, n in CONV_STATS_PATH)     # 33
+CONV_STATS_EXPERIMENT = (401408, 64, 256, 0)   # the experiment's shape
+CONV_STATS_CANCEL = (100352, 64, 256)  # column 0: |mean| ~ 90 std
+# the statistics against the plain version's (float64 sums of the f32
+# product): mean within rtol of (|mean| + std), var within rtol of var.
+# Both sides take them from an f32 product of the same operands (bf16
+# upcast exactly); they differ by the order of its sums over K and M.  In
+# f32 (FMA) that is ~1e-7 of the scale.  In bf16 the kernel's product
+# comes from the tensor cores, whose f32 sums round differently again,
+# ~2^-24 of the column mean an element: at |mean| ~ 90 std that moves
+# var by up to 6.4e-6 (the worst of all cases on an H100).  The limits,
+# 1e-5 in f32 and 5e-5 in bf16, sit far below the one-pass form's error
+# in the cancellation case (8.3e-4 and 4.3e-3), which the check requires.
+STATS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 5e-5}
+RESNET_TRAIN_STEPS, RESNET_TRAIN_WARMUP, RESNET_REPEAT_STEPS = 10, 2, 6
+# bench.py:_bench_resnet's FLOP model: 3 x 4.089e9 an image, a train step
+RESNET_TRAIN_FLOPS = 3 * RESNET_BENCH_FLOPS
+RESNET_TRAIN_LR, RESNET_TRAIN_MU = 0.1, 0.9
+# eval gradients through kernel 10 against its plain version on the
+# card: the repo's f32 gradient policy; only conv0's forward sums differ
+EVAL_GRAD_REL = 1e-4
+
+
+def stats_errors(mean, var, mean_ref, var_ref):
+    """(max |Δmean| / (|mean| + std), max |Δvar| / var) over the columns,
+    against the reference statistics."""
+    tiny = torch.finfo(torch.float32).tiny
+    std = var_ref.clamp_min(0).sqrt()
+    em = ((mean - mean_ref).abs() / (mean_ref.abs() + std + tiny)).max()
+    ev = ((var - var_ref).abs() / (var_ref + tiny)).max()
+    return em.item(), ev.item()
+
+
+def conv_stats_case(ops, gen, m, k, n, dt, cancel=False):
+    """Kernel 11 on one shape against its plain version on the same
+    inputs (bf16 upcast exactly): y to `gemm_tol`, the statistics to
+    STATS_RTOL, and a second launch's statistics bitwise equal to the
+    first's.  ``cancel``: x's column 0 is 1 and w[0, 0] is 128, so y's
+    column 0 has mean 128 and std ~1.4."""
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    w = torch.randn(n, k, device="cuda", generator=gen) * (2.0 / k) ** 0.5
+    if cancel:
+        x[:, 0] = 1.0
+        w[0, 0] = 128.0
+    x, w = x.to(dt), w.to(dt)
+    y, mean, var = ops.conv1x1_bn_stats(x, w)
+    _, mean2, var2 = ops.conv1x1_bn_stats(x, w)
+    torch.cuda.synchronize()
+    tag = "conv_bn_stats M=%d K=%d N=%d %s%s" % (
+        m, k, n, str(dt).replace("torch.", ""), " cancel" if cancel else "")
+    if not (torch.equal(mean, mean2) and torch.equal(var, var2)):
+        raise AssertionError("%s: two launches' statistics differ" % tag)
+    xf, wf = upcast(x, w)
+    y_ref, mean_ref, var_ref = ops.conv1x1_bn_stats_reference(xf, wf)
+    err, share = compare(tag + " y", y, y_ref, gemm_tol(dt, y_ref))
+    em, ev = stats_errors(mean, var, mean_ref, var_ref)
+    if not (em <= STATS_RTOL[dt] and ev <= STATS_RTOL[dt]
+            and torch.isfinite(mean).all() and torch.isfinite(var).all()):
+        raise AssertionError("%s: mean %g, var %g relative error (limit %g)"
+                             % (tag, em, ev, STATS_RTOL[dt]))
+    row = {"M": m, "K": k, "N": n, "dtype": str(dt).replace("torch.", ""),
+           "cancel": cancel, "max_abs_err": err, "limit_share": share,
+           "mean_rel_err": em, "var_rel_err": ev,
+           "stats_rtol": STATS_RTOL[dt], "stats_bitwise_repeat": True}
+    if cancel:   # what the one-pass form would give on the same product
+        acc = torch.matmul(xf, wf.t())
+        naive = acc.square().mean(0) - acc.mean(0).square()
+        row["col0_mean_over_std"] = (mean_ref[0] / var_ref[0].sqrt()).item()
+        row["naive_f32_var_rel_err_col0"] = (
+            (naive[0] - var_ref[0]).abs() / var_ref[0]).item()
+        del acc, naive
+        if not row["naive_f32_var_rel_err_col0"] > STATS_RTOL[dt]:
+            raise AssertionError(
+                "%s: the one-pass form is off by only %g, inside the limit "
+                "%g: the case cannot tell it from a right kernel"
+                % (tag, row["naive_f32_var_rel_err_col0"], STATS_RTOL[dt]))
+    return row, dict(x=x, w=w)
+
+
+def check_conv_bn_stats(ops):
+    """Kernel 11 against its plain version, f32 and bf16, at the
+    experiment's shape, the twelve shapes of the train path, a ragged
+    shape and the cancellation case."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = [(m, k, n) for m, k, n, _ in
+              (CONV_STATS_EXPERIMENT,) + CONV_STATS_PATH] + [CONV_RAGGED]
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for m, k, n in shapes:
+            rows.append(conv_stats_case(ops, gen, m, k, n, dt)[0])
+        rows.append(conv_stats_case(ops, gen, *CONV_STATS_CANCEL, dt,
+                                    cancel=True)[0])
+    emit({"phase": "conv_bn_stats_check", "cases": len(rows),
+          "worst_limit_share": max(r["limit_share"] for r in rows),
+          "worst_mean_rel_err": max(r["mean_rel_err"] for r in rows),
+          "worst_var_rel_err": max(r["var_rel_err"] for r in rows),
+          "rows": rows})
+    return rows
+
+
+def conv_stats_work(m, k, n, dt):
+    """(bytes, flops) of kernel 11 at one shape: x and w read once, y
+    written once, the f32 mean and var [N] written once; 2 flops a
+    multiply-add."""
+    elt = torch.tensor([], dtype=dt).element_size()
+    return (m * k + n * k + m * n) * elt + 2 * n * 4, 2 * m * n * k
+
+
+def check_conv_bn_stats_main_shape(ops):
+    """Kernel 11 timed at the experiment's shape and at each shape of the
+    train path, bf16 (the step's dtype), beside its plain version and
+    the library's same function (torch.matmul, then torch.var_mean of
+    the f32 upcast)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    dt = torch.bfloat16
+    rows = []
+    for m, k, n, per_step in (CONV_STATS_EXPERIMENT,) + CONV_STATS_PATH:
+        row, t = conv_stats_case(ops, gen, m, k, n, dt)
+        x, w = t["x"], t["w"]
+
+        def library():
+            y = torch.matmul(x, w.t())
+            return y, torch.var_mean(y.float(), dim=0, unbiased=False)
+
+        bms, by = bound(*conv_stats_work(m, k, n, dt), dt)
+        row.update({
+            "per_step": per_step,
+            "ms": time_ms(lambda: ops.conv1x1_bn_stats(x, w)),
+            "plain_ms": time_ms(
+                lambda: ops.conv1x1_bn_stats_reference(x, w)),
+            "library_ms": time_ms(library),
+            "cublas_gemm_ms": time_ms(lambda: torch.matmul(x, w.t())),
+            "bound_ms": bms, "bound_by": by})
+        rows.append(row)
+        del x, w, t
+    emit({"phase": "conv_bn_stats_main_shape", "dtype": "bfloat16",
+          "rows": rows})
+    return rows
+
+
+def resnet_loss_fn(model, batch):
+    """`bench.py:_bench_resnet`'s loss: the mean softmax cross entropy of
+    the logits against int32 labels [B, 1]."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    return nn_ops.softmax_with_cross_entropy(model(batch["image"]),
+                                             batch["label"]).mean()
+
+
+def _rel_errs(got, want):
+    """{name: max |got - want| / max |want|} over two dicts of tensors."""
+    out = {}
+    for name, w in want.items():
+        w = w.float().cpu()
+        out[name] = ((got[name].float().cpu() - w).abs().max()
+                     / w.abs().max().clamp_min(1e-30)).item()
+    return out
+
+
+def _check_rel(tag, errs, limit):
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= limit:
+        raise AssertionError("%s: %s off by %g of its scale (limit %g)"
+                             % (tag, worst, errs[worst], limit))
+    return {"worst": worst, "worst_rel": errs[worst], "tensors": len(errs)}
+
+
+class _relu_decisions:
+    """Record the mask (x > 0) of every `Tensor.relu_` in call order, or,
+    given the masks of another run, multiply by them instead, so that two
+    runs of the same model take the same branch at every relu.  A relu
+    whose input lies within rounding of zero otherwise takes one branch in
+    one run and the other in the other, and in train-mode ResNet-50 a
+    few such units move the gradients by up to a fifth of their scale
+    (`tools/resnet_grad_resolution.py`)."""
+
+    def __init__(self, force=None):
+        self.force, self.masks = force, []
+
+    def __enter__(self):
+        self.real = torch.Tensor.relu_
+        it = iter(self.force or ())
+
+        def relu_(t):
+            if self.force is not None:
+                return t.mul_(next(it).to(t.device, t.dtype))
+            self.masks.append(t > 0)
+            return self.real(t)
+
+        torch.Tensor.relu_ = relu_
+        return self
+
+    def __exit__(self, *exc):
+        torch.Tensor.relu_ = self.real
+        return False
+
+
+def resnet_eval_grad(ptt, params):
+    """The eval model under grad (ROADMAP Queue C 1): full-width
+    ResNet-50, f32, B = 2 at 224, the forward and a backward of the
+    logits against a fixed random projection on the card, once through
+    kernel 10 (16 launches, its autograd backward) and once with its
+    plain version in its place, on the kernel run's relu decisions
+    (`_relu_decisions`; conv0's from kernel 10's own output); every
+    parameter's gradient within EVAL_GRAD_REL of its scale."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 3, RESNET_HW, RESNET_HW)).astype(np.float32)).cuda()
+    proj = torch.from_numpy(rng.standard_normal(
+        (2, RESNET_CLASSES)).astype(np.float32)).cuda()
+    model = _resnet(ptt, torch.float32, params)
+    kernel, conv0 = ptt.ops.conv1x1_bn_relu, []
+
+    def recording(x2d, w2d, scale, shift):
+        y = kernel(x2d, w2d, scale, shift)
+        conv0.append(y > 0)
+        return y
+
+    def plain(x2d, w2d, scale, shift):   # kernel 10's plain version
+        acc = torch.matmul(x2d.float(), w2d.float().t())
+        return ((acc * scale + shift) * conv0.pop(0)).to(x2d.dtype)
+
+    grads, launches, relus = {}, {}, _relu_decisions()
+    for tag, fn, dec in (("kernel", recording, relus),
+                         ("plain", plain, None)):
+        dec = dec or _relu_decisions(force=relus.masks)
+        model.zero_grad(set_to_none=True)
+        ptt.ops.reset_launch_counts()
+        with patch.object(ptt.ops, "conv1x1_bn_relu", fn), dec:
+            (model(x) * proj).sum().backward()
+        torch.cuda.synchronize()
+        launches[tag] = ptt.ops.launch_counts()
+        grads[tag] = {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()}
+    del model
+    _expect_launches("ResNet-50 eval under grad", launches["kernel"], {
+        "conv_bn_relu": sum(p for *_, p in CONV_PATH), "conv_bn_stats": 0})
+    _expect_launches("ResNet-50 eval under grad, plain", launches["plain"],
+                     {"conv_bn_relu": 0})
+    worst = _check_rel("eval grads, kernel 10 vs its plain version",
+                       _rel_errs(grads["kernel"], grads["plain"]),
+                       EVAL_GRAD_REL)
+    emit({"phase": "resnet_eval_grad", "B": 2, "HW": RESNET_HW,
+          "grads": worst, "rel_limit": EVAL_GRAD_REL,
+          "launches": launches["kernel"]})
+
+
+def _resnet_train_step(ptt, model, amp=None, lr=None):
+    return ptt.distributed.ShardedTrainStep(
+        model, ptt.optimizer.MomentumOptimizer(
+            learning_rate=RESNET_TRAIN_LR if lr is None else lr,
+            momentum=RESNET_TRAIN_MU),
+        resnet_loss_fn, mesh=None, zero_stage=0, amp=amp)
+
+
+def resnet_train_model_check(ptt):
+    """Full-width ResNet-50 (1000 classes), f32, B = 4 at 64x64, one
+    Momentum(0.01, 0.9) step on the card (kernel 11 on the 33 1x1
+    stride-1 convs) and on the CPU with the same weights: the loss, every
+    gradient (the step's first Velocity), every new parameter and every
+    running statistic within RESNET_CARD_VS_CPU of its scale.  The same
+    step on the card with kernel 11's plain version in its place is held
+    to the kernel's step at the same limit.  Both other runs take the
+    card run's relu decisions (`_relu_decisions`): train-mode ResNet-50
+    at initialization amplifies rounding over its 16 blocks.  The
+    numbers are emitted before the limits are applied."""
+    params = ptt.models.init_resnet_params(50, RESNET_CLASSES, seed=29,
+                                           bn_stats="random")
+    rng = np.random.RandomState(7)
+    batch = {
+        "image": rng.standard_normal((4, 3, 64, 64)).astype(np.float32),
+        "label": rng.randint(0, RESNET_CLASSES, (4, 1)).astype(np.int32)}
+    runs, relus = {}, _relu_decisions()
+    for tag, dev, fn in (
+            ("card", "cuda", ptt.ops.conv1x1_bn_stats),
+            ("card_plain", "cuda", ptt.ops.conv1x1_bn_stats_reference),
+            ("cpu", "cpu", ptt.ops.conv1x1_bn_stats)):
+        model = ptt.models.resnet50(num_classes=RESNET_CLASSES, device=dev)
+        model.load_state_dict(ptt.models.from_jax_state_dict(params))
+        step = _resnet_train_step(ptt, model, lr=0.01)
+        ptt.ops.reset_launch_counts()
+        dec = relus if tag == "card" else _relu_decisions(force=relus.masks)
+        with patch.object(ptt.ops, "conv1x1_bn_stats", fn), dec:
+            state, loss = step(step.init(), batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[tag] = (loss.item(), {
+            "grads": {n: st["Velocity"] for n, st in state["opt"].items()},
+            "params": state["params"], "running_stats": state["buffers"]},
+            ptt.ops.launch_counts())
+        del model, step, state
+
+    def errs(a, b):
+        out = {"loss_abs_err": abs(runs[a][0] - runs[b][0])}
+        for kind in ("grads", "params", "running_stats"):
+            e = _rel_errs(runs[a][1][kind], runs[b][1][kind])
+            worst = max(e, key=e.get)
+            out[kind] = {"worst": worst, "worst_rel": e[worst]}
+            if kind == "grads":
+                out["bn_grads_worst_rel"] = max(
+                    v for n, v in e.items() if "._bn." in n)
+        return out
+
+    vs_cpu, vs_plain = errs("card", "cpu"), errs("card", "card_plain")
+    loss_c, loss_h = runs["card"][0], runs["cpu"][0]
+    launches = runs["card"][2]
+    emit({"phase": "resnet_train_model_check", "B": 4, "HW": 64,
+          "classes": RESNET_CLASSES, "loss_card": loss_c,
+          "loss_cpu": loss_h,
+          "card_vs_cpu": vs_cpu, "card_vs_card_plain": vs_plain,
+          "rel_limit": RESNET_CARD_VS_CPU,
+          "launches": launches})
+    _expect_launches("ResNet-50 train step (B=4, 64x64)", launches, {
+        "conv_bn_stats": CONV_STATS_PER_STEP, "conv_bn_relu": 0})
+    _expect_launches("ResNet-50 train step, plain", runs["card_plain"][2],
+                     {"conv_bn_stats": 0})
+    if not (np.isfinite(loss_c) and vs_cpu["loss_abs_err"]
+            <= RESNET_CARD_VS_CPU * abs(loss_h)):
+        raise AssertionError("ResNet-50 train loss: card %r, CPU %r"
+                             % (loss_c, loss_h))
+    for tag, res in (("card vs CPU", vs_cpu),
+                     ("kernel 11 vs its plain version", vs_plain)):
+        for kind in ("grads", "params", "running_stats"):
+            if not res[kind]["worst_rel"] <= RESNET_CARD_VS_CPU:
+                raise AssertionError(
+                    "ResNet-50 train step %s: %s %s off by %g of its scale "
+                    "(limit %g)" % (tag, kind, res[kind]["worst"],
+                                    res[kind]["worst_rel"],
+                                    RESNET_CARD_VS_CPU))
+
+
+def resnet_train(ptt):
+    """`bench.py:_bench_resnet`'s step on the port: ResNet-50, 1000
+    classes, B = 128, 224x224 f32 images and int32 labels [B, 1] (two
+    batches from RandomState(0), as bench.py:651-656 makes them),
+    Momentum(0.1, 0.9), ShardedTrainStep(zero_stage=0, amp="bf16").
+    RESNET_TRAIN_WARMUP steps, then RESNET_TRAIN_STEPS timed with CUDA
+    events; kernel 11 must launch 33 times a step; the losses must be
+    finite and fall over RESNET_REPEAT_STEPS on one repeated batch.
+    Returns (launches, the step, a state, the batches)."""
+    models, ops = ptt.models, ptt.ops
+    t0 = time.perf_counter()
+    model = models.resnet50(num_classes=RESNET_CLASSES, device="cuda")
+    model.load_state_dict(models.from_jax_state_dict(
+        models.init_resnet_params(50, RESNET_CLASSES, seed=31)))
+    step = _resnet_train_step(ptt, model, amp="bf16")
+    state0 = step.init()
+    rng = np.random.RandomState(0)
+    batches = [step.place_batch({
+        "image": rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW).astype(
+            np.float32),
+        "label": rng.randint(0, RESNET_CLASSES, (RESNET_B, 1)).astype(
+            np.int32)}) for _ in range(2)]
+    setup_s = time.perf_counter() - t0
+
+    state, warm_losses, _ = _run_steps(step, state0, batches,
+                                       list(range(RESNET_TRAIN_WARMUP)))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, step_ms = _run_steps(
+        step, state, batches, [n % 2 for n in range(RESNET_TRAIN_STEPS)])
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    _expect_launches("ResNet-50 train run", launches, {
+        "conv_bn_stats": CONV_STATS_PER_STEP * RESNET_TRAIN_STEPS,
+        "conv_bn_relu": 0, "matmul_bias_act": 0, "flash_fwd": 0})
+    all_losses = warm_losses + losses
+    if not np.isfinite(all_losses).all():
+        raise AssertionError("non-finite ResNet training loss: %s"
+                             % all_losses)
+    _, repeat_losses, _ = _run_steps(step, state0, batches,
+                                     [0] * RESNET_REPEAT_STEPS)
+    if not (np.isfinite(repeat_losses).all()
+            and repeat_losses[-1] < repeat_losses[0]):
+        raise AssertionError("the ResNet loss did not fall on one repeated "
+                             "batch: %s" % repeat_losses)
+    moved = max((state["buffers"][k] - state0["buffers"][k]).abs().max()
+                .item() for k in state0["buffers"])
+    if not moved > 0:
+        raise AssertionError("the running statistics never moved")
+    mean_s = float(np.mean(step_ms)) / 1e3
+    emit({"phase": "resnet_train", "B": RESNET_B, "HW": RESNET_HW,
+          "classes": RESNET_CLASSES, "amp": "bf16",
+          "optimizer": "Momentum(%g, %g)" % (RESNET_TRAIN_LR,
+                                             RESNET_TRAIN_MU),
+          "setup_s": setup_s, "steps": RESNET_TRAIN_STEPS,
+          "step_ms": step_ms,
+          "step_ms_p50": float(np.percentile(step_ms, 50)),
+          "step_ms_p99": float(np.percentile(step_ms, 99)),
+          "images_per_s": RESNET_B / mean_s,
+          "host_wall_images_per_s": RESNET_B * RESNET_TRAIN_STEPS / wall_s,
+          "bench_flops_per_image": RESNET_TRAIN_FLOPS,
+          "bench_flops_share_of_989tf": RESNET_TRAIN_FLOPS * RESNET_B
+          / mean_s / PEAK_FLOPS[torch.bfloat16],
+          "peak_memory_bytes": peak_mem, "losses": all_losses,
+          "repeat_batch_losses": repeat_losses,
+          "running_stats_max_move": moved,
+          "conv_bn_stats_launches_per_step":
+              launches["conv_bn_stats"] / RESNET_TRAIN_STEPS,
+          "launches": launches})
+    return launches, step, state, batches
+
+
+def run_resnet_train(ptt, params):
+    stats_rows = check_conv_bn_stats(ptt.ops)
+    main_rows = check_conv_bn_stats_main_shape(ptt.ops)
+    resnet_eval_grad(ptt, params)
+    resnet_train_model_check(ptt)
+    launches, step, state, batches = resnet_train(ptt)
+    emit({"phase": "resnet_train_profile", "B": RESNET_B, "steps": 1,
+          **device_profile(lambda: step(state, batches[0]))})
+    return stats_rows, main_rows, launches
 
 
 def main():
@@ -1537,7 +1986,9 @@ def main():
     train_model_check(ptt)
     train_launches, pair_launches, ffn_launches = train(ptt)
     launches = run_engine(ptt)
-    conv_rows, resnet_launches = run_resnet(ptt)
+    conv_rows, resnet_launches, resnet_params = run_resnet(ptt)
+    stats_rows, stats_main, train_launches11 = run_resnet_train(
+        ptt, resnet_params)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -1639,6 +2090,35 @@ def main():
             "cublas_gemm_ms"),
         f32_launches=resnet_launches["float32"]["conv_bn_relu"],
         per_shape=[{k: r[k] for k in keep} for r in conv_rows]))
+
+    # the 1x1 conv + BN-statistics kernel over one bf16 ResNet-50 train
+    # step at B = 128: each shape's time weighted by its launches a step
+    # (33 in all); launches over the 10 timed steps
+    path11 = [r for r in stats_main if r["per_step"]]
+
+    def step_sum(key):
+        return sum(r[key] * r["per_step"] for r in path11)
+
+    work = [(conv_stats_work(r["M"], r["K"], r["N"], torch.bfloat16),
+             r["per_step"]) for r in path11]
+    t_bytes = sum(w[0] * n for w, n in work) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(w[1] * n for w, n in work) / PEAK_FLOPS[torch.bfloat16] * 1e3
+    keep11 = ("M", "K", "N", "per_step", "max_abs_err", "mean_rel_err",
+              "var_rel_err", "ms", "plain_ms", "library_ms",
+              "cublas_gemm_ms", "bound_ms", "bound_by")
+    kernels.append(dict(
+        name="conv_bn_stats", route="cuda", source=src + "conv_bn_stats.cu",
+        replaces="benchmarks/fused_conv_bn_relu_experiment.py:141",
+        launches=train_launches11["conv_bn_stats"],
+        max_abs_err=max(r["max_abs_err"] for r in path11),
+        ms=step_sum("ms"), plain_ms=step_sum("plain_ms"),
+        bound_ms=step_sum("bound_ms"),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=step_sum("library_ms"),
+        cublas_gemm_ms=step_sum("cublas_gemm_ms"),
+        stats_max_rel_err=max(max(r["mean_rel_err"], r["var_rel_err"])
+                              for r in stats_rows),
+        per_shape=[{k: r[k] for k in keep11} for r in stats_main]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

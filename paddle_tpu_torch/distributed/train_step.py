@@ -5,9 +5,16 @@ Counterpart of `paddle_tpu/distributed/train_step.py`
 (`FunctionalOptimizer` :60, `ShardedTrainStep` :182) at one device and
 ``zero_stage=0``; meshes, ZeRO stages 1-3, gradient accumulation and
 remat come with the multi-GPU slice and raise here.  The contract is the
-reference's: ``init()`` returns ``{"params", "opt", "step"}`` and
-``step(state, batch)`` returns ``(new_state, loss)``; the model's own
+reference's: ``init()`` returns ``{"params", "buffers", "opt", "step"}``
+and ``step(state, batch)`` returns ``(new_state, loss)``; the model's own
 parameters are not modified, the state carries the trained ones.
+
+* The model's buffers (BatchNorm's running statistics) ride in the
+  state and come back updated: each step runs the model on copies of
+  the state's buffers, which its train-mode forward updates in place,
+  and returns the copies.  Neither the model nor the input state
+  changes.  (The reference carries them in ``params`` with zero
+  gradients and throws the op's update away, `train_step.py:394-410`.)
 
 * The user's ``loss_fn(model, batch)`` runs with the model's parameters
   rebound to the state's (`torch.func.functional_call` over a module
@@ -15,9 +22,11 @@ parameters are not modified, the state carries the trained ones.
   module code.
 * ``amp="bf16"`` (`train_step.py:424-438`): f32 master parameters are
   cast to bf16 for the step; the cast is differentiable, so the
-  gradients reach the masters as f32 for the update.  Batch entries keep
-  their dtypes (integer ids, f32 loss weights).  This is not
-  `torch.autocast`, which casts per op by its own lists.
+  gradients reach the masters as f32 for the update.  The buffers stay
+  f32 (the reference casts them too, but only to read them for an
+  update it discards).  Batch entries keep their dtypes (integer ids,
+  f32 loss weights).  This is not `torch.autocast`, which casts per op
+  by its own lists.
 * Dropout draws from one `torch.Generator` per step seeded from
   ``(seed, step)`` (as `generation.sampling.stream_generator` seeds its
   noise), so a step's noise depends on nothing else.
@@ -30,23 +39,24 @@ import torch
 from torch import nn
 
 from ..models.bert import Dropout
-from ..optimizer import AdamOptimizer
 
 __all__ = ["FunctionalOptimizer", "ShardedTrainStep"]
 
 
 class FunctionalOptimizer:
     """The reference's adapter from an optimizer to a pure update over
-    ``{name: tensor}`` dicts: per-parameter state slots (``Moment1``,
-    ``Moment2``, ``Beta1Pow``, ``Beta2Pow``) and the optimizer's op
-    applied to the list of all parameters."""
+    ``{name: tensor}`` dicts: per-parameter state slots (Adam's
+    ``Moment1``, ``Moment2``, ``Beta1Pow``, ``Beta2Pow``; Momentum's
+    ``Velocity``) and the optimizer's op applied to the list of all
+    parameters."""
 
     def __init__(self, optimizer):
-        if not isinstance(optimizer, AdamOptimizer):
+        if not hasattr(optimizer, "op"):
             raise NotImplementedError(
-                "FunctionalOptimizer: the port has Adam and AdamW; got %s"
-                % type(optimizer).__name__)
+                "FunctionalOptimizer: the port has Adam, AdamW and "
+                "Momentum; got %s" % type(optimizer).__name__)
         self._opt = optimizer
+        self.slots = tuple(slot for slot, _ in optimizer.slots)
         self.attrs = optimizer.attrs()
 
     @property
@@ -54,17 +64,17 @@ class FunctionalOptimizer:
         return self._opt.learning_rate
 
     def init_state(self, params):
-        """Zero f32 moments and beta-power scalars ``[1]`` at beta1 and
-        beta2, per parameter."""
+        """Per parameter, each slot in f32: zeros shaped (and laid out)
+        like the parameter, or a ``[1]`` scalar at its attribute's value
+        (Adam's beta powers start at beta1 and beta2)."""
         state = {}
         for name, p in params.items():
-            kw = dict(dtype=torch.float32, device=p.device)
             state[name] = {
-                "Moment1": torch.zeros(p.shape, **kw),
-                "Moment2": torch.zeros(p.shape, **kw),
-                "Beta1Pow": torch.full((1,), self.attrs["beta1"], **kw),
-                "Beta2Pow": torch.full((1,), self.attrs["beta2"], **kw),
-            }
+                slot: torch.zeros_like(p, dtype=torch.float32)
+                if init is None else torch.full(
+                    (1,), self.attrs[init], dtype=torch.float32,
+                    device=p.device)
+                for slot, init in self._opt.slots}
         return state
 
     @torch.no_grad()
@@ -73,7 +83,7 @@ class FunctionalOptimizer:
         tensors, the inputs are left as they are.  The optimizer's op
         runs once over the lists of all parameters."""
         names = list(params)
-        slots = ("Moment1", "Moment2", "Beta1Pow", "Beta2Pow")
+        slots = self.slots
         p_out, *new = self._opt.op(
             [params[n] for n in names], [grads[n] for n in names], lr,
             *([state[n][s] for n in names] for s in slots), **self.attrs)
@@ -137,12 +147,14 @@ class ShardedTrainStep:
         self.device = next(model.parameters()).device
 
     def init(self):
-        """Copies of the model's parameters (the f32 masters), the
-        optimizer state and the step counter."""
+        """Copies of the model's parameters (the f32 masters) and buffers,
+        the optimizer state and the step counter."""
         params = {name: p.detach().clone()
                   for name, p in self.model.named_parameters()}
-        return {"params": params, "opt": self.fopt.init_state(params),
-                "step": 0}
+        buffers = {name: b.detach().clone()
+                   for name, b in self.model.named_buffers()}
+        return {"params": params, "buffers": buffers,
+                "opt": self.fopt.init_state(params), "step": 0}
 
     def place_batch(self, batch):
         """Move a host batch (numpy arrays or tensors) to the step's
@@ -165,14 +177,17 @@ class ShardedTrainStep:
         step = int(state["step"])
         masters = {k: v.detach().requires_grad_()
                    for k, v in state["params"].items()}
+        # the forward updates these copies in place (running statistics)
+        buffers = {k: v.detach().clone() for k, v in state["buffers"].items()}
         gen = _step_generator(self.seed, step, self.device)
         for m in self._dropouts:
             m.generator = gen
         self.model.train()
         try:
             with torch.enable_grad():
-                run = {"model." + k: v
-                       for k, v in self._compute_params(masters).items()}
+                run = {"model." + k: v for k, v in (
+                    *self._compute_params(masters).items(),
+                    *buffers.items())}
                 loss = torch.func.functional_call(
                     self._loss_module, run, (batch,)).float()
                 names = list(masters)
@@ -188,5 +203,5 @@ class ShardedTrainStep:
         new_params, new_opt = self.fopt.apply(
             {k: v.detach() for k, v in masters.items()}, grads,
             state["opt"], lr)
-        return ({"params": new_params, "opt": new_opt, "step": step + 1},
-                loss.detach())
+        return ({"params": new_params, "buffers": buffers, "opt": new_opt,
+                 "step": step + 1}, loss.detach())

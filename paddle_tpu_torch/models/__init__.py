@@ -1,5 +1,5 @@
 """Models of the port: BERT pretraining, the decoder-only
-`TransformerLM`, the blocks they share, and the ResNet family (eval)."""
+`TransformerLM`, the blocks they share, and the ResNet family."""
 
 from .bert import (  # noqa: F401
     BertConfig,
@@ -15,6 +15,7 @@ from .convert import (  # noqa: F401
     init_bert_params,
     init_params,
     init_resnet_params,
+    train_state_from_jax,
 )
 from .resnet import (  # noqa: F401
     BasicBlock,

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_jax_state_dict", "init_bert_params", "init_params",
-           "init_resnet_params"]
+           "init_resnet_params", "train_state_from_jax"]
 
 # every Linear of the model families (BERT's heads, the LM's blocks, the
 # separate projections of pre-fusion BERT checkpoints, ResNet's fc)
@@ -36,6 +36,37 @@ def from_jax_state_dict(np_dict):
             arr = arr.T
         out[key] = torch.from_numpy(np.array(arr, order="C", copy=True))
     return out
+
+
+def train_state_from_jax(model, jax_state):
+    """A JAX `ShardedTrainStep` state (``{"params", "opt", "step"}``, its
+    arrays anything `np.asarray` takes) as the port's step state for
+    ``model``: the entries that are the model's parameters go to
+    ``params`` and their optimizer slots to ``opt``, the others (the
+    running statistics, which the reference keeps in ``params``) to
+    ``buffers``; each laid out, typed and placed as the model's own
+    tensor, Linear weights and their slots transposed."""
+    own = dict(model.named_parameters())
+    bufs = dict(model.named_buffers())
+    jp = jax_state["params"]
+
+    def like(ref, key, val, dtype=None):
+        return torch.empty_like(ref, dtype=dtype).copy_(
+            from_jax_state_dict({key: val})[key])
+
+    def slot(k, v):
+        if np.shape(v) == np.shape(jp[k]):      # shaped like the parameter
+            return like(own[k], k, v, torch.float32)
+        return torch.tensor(np.asarray(v), dtype=torch.float32,
+                            device=own[k].device)
+
+    return {"params": {k: like(own[k], k, v) for k, v in jp.items()
+                       if k in own},
+            "buffers": {k: like(bufs[k], k, v) for k, v in jp.items()
+                        if k in bufs},
+            "opt": {k: {name: slot(k, v) for name, v in slots.items()}
+                    for k, slots in jax_state["opt"].items() if k in own},
+            "step": int(np.asarray(jax_state["step"]))}
 
 
 class _Init:

@@ -1,11 +1,14 @@
-"""ResNet family, eval mode: the image classifier the port serves.
+"""ResNet family: the image classifier the port serves and trains.
 
 Counterpart of `paddle_tpu.models.resnet` with its module names, so the
 two ``state_dict``s share their keys (``stem._conv.weight``,
-``blocks.{i}.conv0._bn._mean``, ``fc.weight``, ...; `convert.py`
-transposes ``fc.weight``): conv7x7/2 + BN + relu, a 3x3/2 max pool,
-four stages of bottleneck (ResNet-50/101/152) or basic (ResNet-18/34)
-blocks, a global mean pool and the fc.
+``blocks.{i}.conv0._bn._mean``, ...; `convert.py` transposes
+``fc.weight``): conv7x7/2 + BN + relu, a 3x3/2 max pool, four stages of
+bottleneck (ResNet-50/101/152) or basic (ResNet-18/34) blocks, a global
+mean pool and the fc.  BatchNorm's ``weight`` and ``bias`` (γ, β) are
+parameters and ``_mean`` and ``_variance`` buffers, as the reference's
+(`fluid/dygraph/nn.py:154-166`): ResNet-50 has 161 parameters among its
+267 ``state_dict`` entries.
 
 * The input is NCHW ``[B, C, H, W]`` whatever ``data_format`` says; it
   is cast to the weights' dtype and turned channels-last once at entry
@@ -13,20 +16,31 @@ blocks, a global mean pool and the fc.
   runs in `torch.channels_last` memory.  ``data_format="NCHW"`` computes
   the same function in the same trunk (the reference then runs NCHW
   end to end).
-* Each bottleneck block's ``conv0`` (1x1, stride 1, relu) runs through
-  the hand-written 1x1-conv + BN + relu kernel
-  (`ops.conv1x1_bn_relu`): its channels-last input viewed as ``[B·H·W,
-  Cin]`` and its weight as ``[Cout, Cin]``, neither copied, the BN
-  folded into an f32 scale and shift (`ops.fold_bn`).  The other convs
-  (the stem, the 3x3s, ``conv2`` and ``short``) carry no activation or
-  are not 1x1, as in the reference outside any Pallas kernel: they are
-  `F.conv2d` followed by `nn_ops.batch_norm_eval`.
+* **Eval** (``.eval()``): each bottleneck block's ``conv0`` (1x1, stride
+  1, relu) runs through the hand-written 1x1-conv + BN + relu kernel
+  (`ops.conv1x1_bn_relu`, 16 launches a ResNet-50 forward): its
+  channels-last input viewed as ``[B·H·W, Cin]`` and its weight as
+  ``[Cout, Cin]``, neither copied, the BN folded into an f32 scale and
+  shift (`ops.fold_bn`).  The other convs are `F.conv2d` followed by
+  `nn_ops.batch_norm_eval`.  The forward is differentiable, so it needs
+  no `torch.no_grad()`.
+* **Train** (``.train()``): BatchNorm takes batch statistics
+  (`nn_ops.batch_norm_train`) and writes its running statistics back in
+  place, as the reference's dygraph `BatchNorm.forward` does
+  (`fluid/dygraph/nn.py:193-195`).  Every 1x1, stride-1 conv (each
+  bottleneck's ``conv0`` and ``conv2``, and the first block's stride-1
+  ``short``: 33 launches a ResNet-50 forward) runs through the
+  hand-written 1x1-conv + BN-statistics kernel (`ops.conv1x1_bn_stats`)
+  on the same views, and the BN normalizes with its statistics.  The
+  other convs (the stem, the 3x3s, the strided ``short``s; all of
+  ResNet-18/34's) are `F.conv2d` and the BN takes its statistics from
+  the conv's output.  The reference runs these convs in XLA, outside
+  any Pallas kernel.
 * ``dtype=torch.bfloat16`` makes the conv and fc weights, and so the
-  activations, bf16; BatchNorm's statistics and affine stay f32 buffers
-  and the BN computes in f32, as the reference's ``is_test`` branch.
-* Eval only: a forward in training mode raises `NotImplementedError`
-  (batch statistics, running-statistic updates and the backward come
-  with the ResNet training slice).
+  activations, bf16; BatchNorm's four vectors stay f32 and its
+  statistics and affine are formed in f32.  Under
+  `ShardedTrainStep(amp="bf16")` the step casts the f32 masters, γ and
+  β among them, to bf16 and keeps the running statistics f32.
 """
 
 from __future__ import annotations
@@ -42,16 +56,6 @@ from ..ops import nn_ops
 __all__ = ["BasicBlock", "BottleneckBlock", "ConvBNLayer", "ResNet",
            "resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]
 
-_TRAIN_MSG = ("the port's ResNet runs in eval mode only: BatchNorm's batch "
-              "statistics, the running-statistic updates and the backward "
-              "come with the ResNet training slice; call .eval()")
-
-
-def _check_eval(module):
-    if module.training:
-        raise NotImplementedError(_TRAIN_MSG)
-
-
 class _Conv2D(nn.Module):
     """A bias-free Conv2D's weight ``[Cout, Cin, k, k]`` (OIHW), kept in
     channels-last memory as the trunk's activations are."""
@@ -64,21 +68,27 @@ class _Conv2D(nn.Module):
 
 
 class _BatchNorm(nn.Module):
-    """BatchNorm's eval state, as f32 buffers whatever the trunk's dtype:
-    ``weight`` (gamma), ``bias`` (beta), ``_mean``, ``_variance``."""
+    """BatchNorm's state in f32 whatever the trunk's dtype: the
+    parameters ``weight`` (γ) and ``bias`` (β), the running-statistic
+    buffers ``_mean`` and ``_variance``."""
 
     def __init__(self, ch, device):
         super().__init__()
-        for name, val in (("weight", 1.0), ("bias", 0.0), ("_mean", 0.0),
-                          ("_variance", 1.0)):
-            self.register_buffer(name, torch.full(
-                (ch,), val, dtype=torch.float32, device=device))
+
+        def full(val):
+            return torch.full((ch,), val, dtype=torch.float32, device=device)
+
+        self.weight = nn.Parameter(full(1.0))
+        self.bias = nn.Parameter(full(0.0))
+        self.register_buffer("_mean", full(0.0))
+        self.register_buffer("_variance", full(1.0))
 
 
 class ConvBNLayer(nn.Module):
-    """Conv2D (no bias, padding (k - 1) // 2) + eval BatchNorm + an
-    optional relu.  A 1x1, stride-1 layer with ``act="relu"`` is one
-    launch of the conv + BN + relu kernel."""
+    """Conv2D (no bias, padding (k - 1) // 2) + BatchNorm + an optional
+    relu.  A 1x1, stride-1 layer is one launch of the conv + BN-statistics
+    kernel in train mode, and with ``act="relu"`` one launch of the conv +
+    BN + relu kernel in eval mode."""
 
     def __init__(self, in_ch, out_ch, filter_size, stride=1, act=None,
                  device=None, dtype=torch.float32):
@@ -90,26 +100,51 @@ class ConvBNLayer(nn.Module):
         self._stride = stride
         self._padding = (filter_size - 1) // 2
         self._act = act
-        self._fused = filter_size == 1 and stride == 1 and act == "relu"
+        self._pointwise = filter_size == 1 and stride == 1
+        self._fused = self._pointwise and act == "relu"
         self._conv = _Conv2D(in_ch, out_ch, filter_size, device, dtype)
         self._bn = _BatchNorm(out_ch, device)
 
+    def _rows(self, x):
+        """The channels-last x and the 1x1 weight as the kernels' 2-D
+        views: ``[B·H·W, Cin]`` and ``[Cout, Cin]``."""
+        c = x.shape[1]
+        weight = self._conv.weight
+        return (x.permute(0, 2, 3, 1).view(-1, c),
+                weight.view(weight.shape[0], c))
+
+    @staticmethod
+    def _image(y2d, like):
+        b, _, h, w = like.shape
+        return y2d.view(b, h, w, -1).permute(0, 3, 1, 2)
+
+    def _conv2d(self, x):
+        return F.conv2d(x, self._conv.weight, None, self._stride,
+                        self._padding)
+
     def forward(self, x):
-        _check_eval(self)
         bn = self._bn
-        if self._fused:
-            b, c, h, w = x.shape
-            weight = self._conv.weight
+        if self.training:
+            stats = None
+            if self._pointwise:
+                y2d, mean, var = ops.conv1x1_bn_stats(*self._rows(x))
+                y, stats = self._image(y2d, x), (mean, var)
+            else:
+                y = self._conv2d(x)
+            y, mean_out, var_out = nn_ops.batch_norm_train(
+                y, bn.weight, bn.bias, bn._mean, bn._variance,
+                batch_stats=stats)
+            with torch.no_grad():
+                bn._mean.copy_(mean_out)
+                bn._variance.copy_(var_out)
+        elif self._fused:
             scale, shift = ops.fold_bn(bn.weight, bn.bias, bn._mean,
                                        bn._variance, nn_ops.BN_EPS)
-            y = ops.conv1x1_bn_relu(x.permute(0, 2, 3, 1).view(-1, c),
-                                    weight.view(weight.shape[0], c),
-                                    scale, shift)
-            return y.view(b, h, w, -1).permute(0, 3, 1, 2)
-        y = F.conv2d(x, self._conv.weight, None, self._stride,
-                     self._padding)
-        y = nn_ops.batch_norm_eval(y, bn.weight, bn.bias, bn._mean,
-                                   bn._variance)
+            return self._image(ops.conv1x1_bn_relu(*self._rows(x), scale,
+                                                   shift), x)
+        else:
+            y = nn_ops.batch_norm_eval(self._conv2d(x), bn.weight, bn.bias,
+                                       bn._mean, bn._variance)
         return y.relu_() if self._act == "relu" else y
 
 
@@ -167,7 +202,8 @@ class ResNet(nn.Module):
     ``[B, in_channels, H, W]`` -> logits ``[B, num_classes]`` in the
     weights' dtype.  Weights are uninitialized until a ``state_dict``
     is loaded (`convert.from_jax_state_dict` of the JAX model's, or of
-    `convert.init_resnet_params`)."""
+    `convert.init_resnet_params`); BatchNorm's start at γ 1, β 0, mean
+    0, var 1."""
 
     def __init__(self, depth=50, num_classes=1000, in_channels=3,
                  data_format="NHWC", device=None, dtype=torch.float32):
@@ -196,7 +232,6 @@ class ResNet(nn.Module):
         self.fc = nn.Linear(in_ch, num_classes, **kw)
 
     def forward(self, images):
-        _check_eval(self)
         w = self.stem._conv.weight
         x = images.to(device=w.device, dtype=w.dtype,
                       memory_format=torch.channels_last)

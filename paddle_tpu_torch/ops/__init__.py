@@ -1,7 +1,8 @@
 """Operators with hand-written CUDA kernels (``csrc/``), each beside its
 plain PyTorch version (flash attention, decode attention, the
-fused-epilogue GEMM, the 1x1 conv + BN + relu), and the plain ops of
-the training and ResNet eval paths (`nn_ops`).  Each wrapper carries a
+fused-epilogue GEMM, the 1x1 conv + eval BN + relu, the 1x1 conv + BN
+statistics), and the plain ops of the training and ResNet paths
+(`nn_ops`).  Each wrapper carries a
 ``launches`` count that grows by one per kernel launch and nowhere
 else."""
 
@@ -28,6 +29,8 @@ from .matmul import (  # noqa: F401
 from .conv_bn import (  # noqa: F401
     conv1x1_bn_relu,
     conv1x1_bn_relu_reference,
+    conv1x1_bn_stats,
+    conv1x1_bn_stats_reference,
     fold_bn,
 )
 from .decode_attention import (  # noqa: F401
@@ -52,6 +55,7 @@ KERNEL_WRAPPERS = {
     "matmul_bwd_dx": matmul_bwd_dx,
     "matmul_bwd_dw": matmul_bwd_dw,
     "conv_bn_relu": conv1x1_bn_relu,
+    "conv_bn_stats": conv1x1_bn_stats,
 }
 
 

@@ -39,7 +39,7 @@ __all__ = ["KERNELS", "build", "build_dir", "dtype_code", "launch",
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_fused", "decode_attention",
            "paged_attention", "matmul_bias_act", "matmul_bwd",
-           "conv_bn_relu")
+           "conv_bn_relu", "conv_bn_stats")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -142,6 +142,12 @@ def launch(lib_name, fn_name, argtypes, *args):
     if rc != 0:
         raise RuntimeError("%s: CUDA launch failed with error %d (%s)"
                            % (fn_name, rc, lib.cuda_error_string(rc).decode()))
+
+
+def query(lib_name, fn_name, argtypes, *args):
+    """The int that the host function ``fn_name`` of kernel library
+    ``lib_name`` returns (a size, not a CUDA error)."""
+    return _launcher(lib_name, fn_name, argtypes)[0](*args)
 
 
 def dtype_code(t):

@@ -1,6 +1,6 @@
 // The GEMM scheme shared by the fused-epilogue matmul kernels
-// (matmul_bias_act.cu, matmul_bwd.cu) and the 1x1-conv + BN + relu
-// kernel (conv_bn_relu.cu): one templated tile GEMM
+// (matmul_bias_act.cu, matmul_bwd.cu) and the 1x1-conv + BN kernels
+// (conv_bn_relu.cu, conv_bn_stats.cu): one templated tile GEMM
 //
 //   C[r][c] = sum_k A(r, k) B(c, k)        (f32 accumulation)
 //
@@ -18,7 +18,12 @@
 // forward adds the f32 bias and applies the activation to the f32
 // accumulator before its one writeback, and optionally writes z; with
 // the kBnRelu epilogue it applies max(acc * scale[c] + shift[c], 0)
-// instead (the folded eval-mode BatchNorm and relu, f32).  The
+// instead (the folded eval-mode BatchNorm and relu, f32); with the
+// kStats epilogue it stores the accumulator as it is and writes the
+// CTA's per-column (mean, M2) of its valid rows of the f32 accumulator,
+// the tile's mean first and then the squares about it (two passes over
+// the registers, so no sum of squares cancels), to a partials buffer
+// that a second launch merges (conv_bn_stats.cu).  The
 // dW mode also sums dZ over M into dbias in the CTAs of column tile 0
 // (every M tile of a row tile passes through the same CTA, so no
 // atomics and no second pass: deterministic), as the reference sums it
@@ -60,9 +65,10 @@ namespace gemm {
 
 enum Mode { kFwd = 0, kDx = 1, kDw = 2 };
 // activation codes shared with ops/matmul.py (`_ACT_CODES`); kBnRelu is
-// the forward's BN-affine + relu epilogue, launched by conv_bn_relu.cu
+// the forward's BN-affine + relu epilogue, launched by conv_bn_relu.cu;
+// kStats the forward's BN-statistics epilogue, launched by conv_bn_stats.cu
 enum Act { kNone = 0, kRelu = 1, kTanh = 2, kGelu = 3, kGeluTanh = 4,
-           kBnRelu = 5 };
+           kBnRelu = 5, kStats = 6 };
 
 struct Args {
   const void* a;      // A: x (kFwd) or dY (kDx, kDw)
@@ -74,6 +80,8 @@ struct Args {
   const float* scale; // kFwd with kBnRelu: [N] f32
   const float* shift; // kFwd with kBnRelu: [N] f32
   void* dbias;        // kDw: [N] or null
+  float* stats;       // kFwd with kStats: [2][row tiles][N] f32 partials,
+                      // the tiles' means, then their M2s
   int rows, cols, depth;   // output rows / cols, contraction length
   long long lda, ldb, ldc;
   int bias_dtype;     // DType of bias / dbias
@@ -388,6 +396,56 @@ __device__ __forceinline__ void mma_slice(const __nv_bfloat16* As,
   }
 }
 
+// kStats: partial (mean, M2) of each column over the CTA's valid rows,
+// written at row tile blockIdx.y.  Column c's 128 rows lie in 16
+// threads (warp row wr, lane group g; 8 rows each), whose sums meet in
+// shared memory and are added in a fixed order: deterministic.
+__device__ __forceinline__ void tile_stats(const Args& p,
+                                           const float (&acc)[4][4][4],
+                                           unsigned char* smem_raw, int row0,
+                                           int col0) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp >> 2, wc = warp & 3, g = lane >> 2, q = lane & 3;
+  const int nrows = min(BM, p.rows - row0);
+  float* red = reinterpret_cast<float*>(smem_raw);  // [16][BN]
+  float* mean = red + 16 * BN;                      // [BN]
+  __syncthreads();  // every warp is done with the operand ring
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {  // the sum, then the squares
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = wc * 32 + ni * 8 + q * 2 + j;
+        const float m = pass ? mean[c] : 0.f;
+        float s = 0.f;
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (wr * 64 + mi * 16 + g + h * 8 < nrows) {
+              const float d = acc[mi][ni][2 * h + j] - m;
+              s += pass ? d * d : d;
+            }
+        red[(wr * 8 + g) * BN + c] = s;
+      }
+    __syncthreads();
+    if (tid < BN) {
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) t += red[i * BN + tid];
+      if (pass == 0) {
+        mean[tid] = t / nrows;
+      } else if (col0 + tid < p.cols) {
+        const long long o = static_cast<long long>(blockIdx.y) * p.cols + col0 + tid;
+        p.stats[o] = mean[tid];
+        p.stats[static_cast<long long>(gridDim.y) * p.cols + o] = t;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 template <int MODE, int ACT>
 __device__ __forceinline__ void gemm_bf16(const Args& p) {
   using G = Geo<MODE>;
@@ -463,6 +521,8 @@ __device__ __forceinline__ void gemm_bf16(const Args& p) {
           epilogue2<__nv_bfloat16, MODE, ACT>(p, r, c, acc[mi][ni][2 * h],
                                               acc[mi][ni][2 * h + 1]);
       }
+  if constexpr (MODE == kFwd && ACT == kStats)
+    tile_stats(p, acc, smem_raw, row0, col0);
 
   if (sum) {  // uniform over the CTA
     __syncthreads();
@@ -488,6 +548,47 @@ __device__ __forceinline__ void gemm_bf16(const Args& p) {
 namespace simt {
 
 constexpr int BM = 64, BK = 16, NT = 256, LD = BM + 4;
+
+// kStats, as tc::tile_stats: column c's 64 rows lie in the 16 threads
+// of one tx (4 rows each); `red` and `mean` reuse the operand tiles,
+// which the mainloop's last barrier has freed.
+__device__ __forceinline__ void tile_stats(const Args& p,
+                                           const float (&acc)[4][4],
+                                           float (*red)[LD], float* mean,
+                                           int row0, int col0) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int nrows = min(BM, p.rows - row0);
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx * 4 + j;
+      const float m = pass ? mean[c] : 0.f;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (ty * 4 + i < nrows) {
+          const float d = acc[i][j] - m;
+          s += pass ? d * d : d;
+        }
+      red[ty][c] = s;
+    }
+    __syncthreads();
+    if (tid < BM) {
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < NT / 16; ++i) t += red[i][tid];
+      if (pass == 0) {
+        mean[tid] = t / nrows;
+      } else if (col0 + tid < p.cols) {
+        const long long o = static_cast<long long>(blockIdx.y) * p.cols + col0 + tid;
+        p.stats[o] = mean[tid];
+        p.stats[static_cast<long long>(gridDim.y) * p.cols + o] = t;
+      }
+    }
+    __syncthreads();
+  }
+}
 
 template <int MODE, int ACT>
 __device__ __forceinline__ void gemm_f32(const Args& p) {
@@ -573,6 +674,8 @@ __device__ __forceinline__ void gemm_f32(const Args& p) {
       }
     }
   }
+  if constexpr (MODE == kFwd && ACT == kStats)
+    tile_stats(p, acc, As, &Bs[0][0], row0, col0);
 
   if (sum) {  // uniform over the CTA
     red[tid / BM][tid % BM] = bsum;
@@ -607,12 +710,14 @@ PTT_GEMM_KERNELS(kFwd, matmul_fwd)
 PTT_GEMM_KERNELS(kDx, matmul_dx)
 PTT_GEMM_KERNELS(kDw, matmul_dw)
 PTT_GEMM_KERNELS(kFwd, conv_bn_relu)
+PTT_GEMM_KERNELS(kFwd, conv_bn_stats)
 #undef PTT_GEMM_KERNELS
 
 // the kernels of one mode only, so each library instantiates its own
 template <int MODE, int ACT>
 auto bf16_kernel() {
   if constexpr (MODE == kFwd && ACT == kBnRelu) return conv_bn_relu_bf16<ACT>;
+  else if constexpr (MODE == kFwd && ACT == kStats) return conv_bn_stats_bf16<ACT>;
   else if constexpr (MODE == kFwd) return matmul_fwd_bf16<ACT>;
   else if constexpr (MODE == kDx) return matmul_dx_bf16<ACT>;
   else return matmul_dw_bf16<ACT>;
@@ -620,6 +725,7 @@ auto bf16_kernel() {
 template <int MODE, int ACT>
 auto f32_kernel() {
   if constexpr (MODE == kFwd && ACT == kBnRelu) return conv_bn_relu_f32<ACT>;
+  else if constexpr (MODE == kFwd && ACT == kStats) return conv_bn_stats_f32<ACT>;
   else if constexpr (MODE == kFwd) return matmul_fwd_f32<ACT>;
   else if constexpr (MODE == kDx) return matmul_dx_f32<ACT>;
   else return matmul_dw_f32<ACT>;

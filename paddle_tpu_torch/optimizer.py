@@ -1,10 +1,11 @@
-"""Adam and AdamW with the reference's conventions.
+"""Adam, AdamW and Momentum with the reference's conventions.
 
-Counterparts of `paddle_tpu/fluid/optimizer.py` `AdamOptimizer` /
-`AdamWOptimizer` (:362, :423), which hold the hyperparameters, and of
-the ``adam`` / ``adamw`` op lowerings that update one parameter
-(`fluid/ops/optimizer_ops.py:69-113`).  They differ from
-`torch.optim.AdamW`, so they are written out here:
+Counterparts of `paddle_tpu/fluid/optimizer.py` `MomentumOptimizer` /
+`AdamOptimizer` / `AdamWOptimizer` (:300, :362, :423), which hold the
+hyperparameters, and of the ``momentum`` / ``adam`` / ``adamw`` op
+lowerings that update one parameter (`fluid/ops/optimizer_ops.py:31-52`,
+`:69-113`).  Adam differs from `torch.optim.AdamW`, so it is written out
+here:
 
 * the beta-power accumulators start at beta1 and beta2 (not at 1) and
   are multiplied by beta after each update;
@@ -14,21 +15,28 @@ the ``adam`` / ``adamw`` op lowerings that update one parameter
 * AdamW's decay ``- lr * coeff * p_old`` is decoupled, applied to every
   parameter, from the parameter before this step's Adam update.
 
-`distributed.FunctionalOptimizer` carries the state and applies the ops
-to all parameters at once.  Plain tensor ops in f32, no kernel: each
-step of the formula is one multi-tensor (`torch._foreach_*`) call over
-the parameter list, in the reference's order of operations, so a
-step costs a few launches per formula step instead of ~23 per
-parameter.  Only ``lr_t * m1`` runs per parameter: each parameter has
-its own ``[1]`` beta powers, which the multi-tensor ops cannot
-broadcast.
+Momentum keeps a velocity ``v = mu v + g`` and steps ``p -= lr v``, or
+with Nesterov ``p -= (g + mu v) lr`` (the new v in both).
+
+Each optimizer names its op and its per-parameter state slots
+(``slots``: the reference's `_STATE_SLOTS`, with each slot's initial
+value: zeros shaped like the parameter, or a ``[1]`` scalar at an
+attribute's value); `distributed.FunctionalOptimizer` carries the state
+and applies the op to all parameters at once.  Plain tensor ops in f32,
+no kernel: each step of the formula is one multi-tensor
+(`torch._foreach_*`) call over the parameter list, in the reference's
+order of operations, so a step costs a few launches per formula step
+instead of ~23 per parameter.  Only Adam's ``lr_t * m1`` runs per
+parameter: each parameter has its own ``[1]`` beta powers, which the
+multi-tensor ops cannot broadcast.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["AdamOptimizer", "AdamWOptimizer", "adam", "adamw"]
+__all__ = ["AdamOptimizer", "AdamWOptimizer", "MomentumOptimizer", "adam",
+           "adamw", "momentum"]
 
 
 def _one_minus(xs):
@@ -76,8 +84,43 @@ def adamw(p, g, lr, m1, m2, b1p, b2p, beta1=0.9, beta2=0.999,
     return ([a.to(x.dtype) for a, x in zip(p_out, p)],) + out[1:]
 
 
+def momentum(p, g, lr, v, mu=0.9, use_nesterov=False):
+    """The ``momentum`` op over lists of parameters and their velocities:
+    ``(p_out, v_out)``, each a list, from ``v = mu v + g`` and ``p = p −
+    lr v`` (Nesterov: ``p = p − (g + mu v) lr``), in f32."""
+    g = [x.float() for x in g]
+    v_out = torch._foreach_mul(v, mu)
+    torch._foreach_add_(v_out, g)
+    if use_nesterov:
+        upd = torch._foreach_mul(v_out, mu)
+        torch._foreach_add_(upd, g)
+        torch._foreach_mul_(upd, lr)
+    else:
+        upd = torch._foreach_mul(v_out, lr)
+    p_out = torch._foreach_sub([x.float() for x in p], upd)
+    return [a.to(x.dtype) for a, x in zip(p_out, p)], v_out
+
+
+class MomentumOptimizer:
+    op = staticmethod(momentum)
+    # (slot, None for zeros like the parameter, or the attribute whose
+    # value a [1] scalar starts at)
+    slots = (("Velocity", None),)
+
+    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False):
+        self.learning_rate = learning_rate
+        self.momentum = float(momentum)
+        self.use_nesterov = bool(use_nesterov)
+
+    def attrs(self):
+        """The op's hyperparameters, as keyword arguments."""
+        return {"mu": self.momentum, "use_nesterov": self.use_nesterov}
+
+
 class AdamOptimizer:
     op = staticmethod(adam)
+    slots = (("Moment1", None), ("Moment2", None), ("Beta1Pow", "beta1"),
+             ("Beta2Pow", "beta2"))
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8):

@@ -185,7 +185,7 @@ def test_launch_counters_reset():
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         "flash_bwd_fused": 0, "decode_attention": 0, "paged_attention": 0,
         "matmul_bias_act": 0, "matmul_bwd_dx": 0, "matmul_bwd_dw": 0,
-        "conv_bn_relu": 0}
+        "conv_bn_relu": 0, "conv_bn_stats": 0}
 
 
 def test_build_targets_sm90a_from_the_checkout_sources():

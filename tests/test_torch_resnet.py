@@ -1,5 +1,7 @@
-"""`paddle_tpu_torch.models` ResNet (eval) held against
-`paddle_tpu.models` on the CPU.
+"""`paddle_tpu_torch.models` ResNet held against `paddle_tpu.models`
+on the CPU: eval logits, the parameter and key layout, the kernel
+wrappers each mode calls, and eval gradients.  (Training:
+`test_torch_resnet_train.py`.)
 
 ResNet-50 and ResNet-18 at 10 classes, with seeded weights and seeded
 non-trivial BatchNorm statistics (`init_resnet_params(bn_stats=
@@ -12,7 +14,9 @@ x max |logit|, rtol 1e-5).  The two frameworks sum each conv in another
 order and the port folds every BatchNorm into one affine, so each layer
 adds f32 rounding differences of ~1e-7 of its scale; over 53 conv + BN
 layers the logits measured 1.1e-6 (ResNet-50) and 9e-7 (ResNet-18) of
-their scale.
+their scale.  Eval gradients through the kernel-10 wrapper against
+autograd of its plain composition: 1e-5 of their scale (the same f32
+forward; the wrapper's hand-written backward against autograd's).
 """
 
 import numpy as np
@@ -145,10 +149,84 @@ def test_bf16_keeps_batch_norm_in_f32_and_follows_the_f32_logits(params):
     assert rel < 5e-2, rel
 
 
-def test_train_mode_forward_raises(params):
-    m = _port_model(18, params[18]).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        m(torch.from_numpy(_images()))
+def test_batch_norm_weight_and_bias_are_parameters_as_in_the_reference():
+    """γ and β train (161 parameters in ResNet-50, as the JAX model's
+    trainable ones); the running statistics are buffers; the 267
+    ``state_dict`` keys are unchanged."""
+    port = models.resnet50(num_classes=N_CLASSES, device="cpu")
+    with dygraph.guard():
+        jm = _jax_model(50)
+        trainable = {k for k, v in jm.state_dict().items()
+                     if not v.stop_gradient}
+        keys = set(jm.state_dict())
+    params = dict(port.named_parameters())
+    assert len(params) == 161 and set(params) == trainable
+    assert {n for n, _ in port.named_buffers()} == keys - trainable
+    assert len(port.state_dict()) == 267 and set(port.state_dict()) == keys
+    bn = port.blocks[0].conv0._bn
+    assert isinstance(bn.weight, torch.nn.Parameter)
+    assert not isinstance(bn._mean, torch.nn.Parameter)
+
+
+@pytest.mark.parametrize("depth,stats_calls", [(50, 33), (18, 0)])
+def test_train_mode_forward_runs_the_stats_kernel_on_every_1x1_stride1_conv(
+        params, monkeypatch, depth, stats_calls):
+    """Train mode runs (the eval-only raise is gone): one
+    `ops.conv1x1_bn_stats` call per 1x1 stride-1 conv (each bottleneck's
+    conv0 and conv2, the first block's short: 33 in ResNet-50, none in
+    ResNet-18), no call of the eval kernel's wrapper; the running
+    statistics move."""
+    calls = {"stats": [], "relu": 0}
+    real = ops.conv1x1_bn_stats
+
+    def counting(x2d, w2d):
+        calls["stats"].append((tuple(x2d.shape), tuple(w2d.shape)))
+        return real(x2d, w2d)
+
+    def eval_kernel(*a):
+        calls["relu"] += 1
+
+    monkeypatch.setattr(ops, "conv1x1_bn_stats", counting)
+    monkeypatch.setattr(ops, "conv1x1_bn_relu", eval_kernel)
+    m = _port_model(depth, params[depth]).train()
+    before = m.stem._bn._mean.clone()
+    out = m(torch.from_numpy(_images(hw=64)))
+    assert out.shape == (2, N_CLASSES) and torch.isfinite(out).all()
+    assert len(calls["stats"]) == stats_calls and calls["relu"] == 0
+    if depth == 50:
+        assert calls["stats"][0] == ((2 * 16 * 16, 64), (64, 64))
+        assert calls["stats"][-1] == ((2 * 2 * 2, 512), (2048, 512))
+    assert not torch.equal(m.stem._bn._mean, before)
+
+
+def test_eval_forward_under_grad_backpropagates_through_the_kernel_wrapper(
+        params, monkeypatch):
+    """No `no_grad` needed in eval mode: the 16 kernel-10 calls are
+    differentiable, and every parameter's gradient equals the one
+    autograd gives the plain composition in their place."""
+    x = torch.from_numpy(_images(seed=5, hw=64))
+    proj = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, N_CLASSES)).astype(np.float32))
+
+    def grads():
+        m = _port_model(50, params[50])
+        (m(x) * proj).sum().backward()
+        return {n: p.grad for n, p in m.named_parameters()}
+
+    got = grads()
+
+    def plain(x2d, w2d, scale, shift):
+        acc = torch.matmul(x2d.float(), w2d.float().t())
+        return torch.relu(acc * scale + shift).to(x2d.dtype)
+
+    monkeypatch.setattr(ops, "conv1x1_bn_relu", plain)
+    want = grads()
+    assert len(got) == 161
+    for name, g in got.items():
+        scale = want[name].abs().max().item()
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                   atol=1e-5 * scale, rtol=1e-5,
+                                   err_msg=name)
 
 
 def test_bad_arguments_raise():

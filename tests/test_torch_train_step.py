@@ -1,6 +1,7 @@
-"""`paddle_tpu_torch.optimizer` and `distributed.ShardedTrainStep` held
-against the JAX package's `FunctionalOptimizer` and `ShardedTrainStep`
-on the CPU, on the same numpy parameters, gradients and batches.
+"""`paddle_tpu_torch.optimizer` (Adam, AdamW, Momentum with and without
+Nesterov) and `distributed.ShardedTrainStep` held against the JAX
+package's `FunctionalOptimizer` and `ShardedTrainStep` on the CPU, on
+the same numpy parameters, gradients and batches.
 
 Tolerances: the optimizer state after 3 steps atol 1e-6 (rtol 1e-6),
 the same f32 formulas evaluated in another order; the tiny BERT's f32
@@ -34,7 +35,7 @@ B, S, P = 4, 16, 4
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kind", ["adamw", "adam"])
+@pytest.mark.parametrize("kind", ["adamw", "adam", "momentum", "nesterov"])
 def test_optimizer_state_after_three_steps_matches_jax(kind):
     rng = np.random.default_rng(0)
     shapes = {"w": (5, 3), "b": (3,), "e": (7, 2)}
@@ -45,9 +46,15 @@ def test_optimizer_state_after_three_steps_matches_jax(kind):
     if kind == "adamw":
         ours = optimizer.AdamWOptimizer(learning_rate=0.01, weight_decay=0.1)
         theirs = jax_opt.AdamWOptimizer(learning_rate=0.01, weight_decay=0.1)
-    else:
+    elif kind == "adam":
         ours = optimizer.AdamOptimizer(learning_rate=0.01, epsilon=1e-6)
         theirs = jax_opt.AdamOptimizer(learning_rate=0.01, epsilon=1e-6)
+    else:
+        nesterov = kind == "nesterov"
+        ours = optimizer.MomentumOptimizer(learning_rate=0.01, momentum=0.9,
+                                           use_nesterov=nesterov)
+        theirs = jax_opt.MomentumOptimizer(learning_rate=0.01, momentum=0.9,
+                                           use_nesterov=nesterov)
     jf = jax_dist.train_step.FunctionalOptimizer(theirs)
     tf = distributed.FunctionalOptimizer(ours)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
@@ -91,6 +98,42 @@ def test_list_op_equals_the_per_parameter_formula_bitwise():
         want = (po, m1o, m2o, b1p[i] * 0.9, b2p[i] * 0.999)
         for w, out in zip(want, got):
             assert torch.equal(out[i], w)
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_momentum_list_op_equals_the_per_parameter_formula_bitwise(nesterov):
+    """`optimizer.momentum` over parameter lists keeps the reference's
+    order of operations (`optimizer_ops.py:45-51`): ``v = mu v + g``,
+    then ``p - lr v`` or ``p - (g + mu v) lr``."""
+    gen = torch.Generator().manual_seed(1)
+    shapes = [(5, 3), (7,), (64, 32)]
+    p, g, v = ([torch.randn(s, generator=gen) for s in shapes]
+               for _ in range(3))
+    p_out, v_out = optimizer.momentum(p, g, 0.1, v, mu=0.9,
+                                      use_nesterov=nesterov)
+    for i in range(3):
+        vo = 0.9 * v[i] + g[i]
+        po = p[i] - (g[i] + 0.9 * vo) * 0.1 if nesterov else p[i] - 0.1 * vo
+        assert torch.equal(v_out[i], vo)
+        assert torch.equal(p_out[i], po)
+
+
+def test_functional_optimizer_slots_follow_the_optimizer():
+    """Momentum carries one ``Velocity`` shaped and laid out like its
+    parameter; Adam its two moments and two ``[1]`` beta powers; an
+    optimizer the port lacks raises."""
+    w = torch.zeros(4, 3, 2, 2).contiguous(memory_format=torch.channels_last)
+    st = distributed.FunctionalOptimizer(
+        optimizer.MomentumOptimizer(0.1)).init_state({"w": w})
+    assert list(st["w"]) == ["Velocity"]
+    assert st["w"]["Velocity"].is_contiguous(
+        memory_format=torch.channels_last)
+    st = distributed.FunctionalOptimizer(
+        optimizer.AdamOptimizer(beta1=0.8)).init_state({"w": w})
+    assert list(st["w"]) == ["Moment1", "Moment2", "Beta1Pow", "Beta2Pow"]
+    assert st["w"]["Beta1Pow"].tolist() == [pytest.approx(0.8)]
+    with pytest.raises(NotImplementedError, match="Momentum"):
+        distributed.FunctionalOptimizer(torch.optim.SGD([w], lr=0.1))
 
 
 def test_optimizer_conventions_differ_from_torch_adamw():
