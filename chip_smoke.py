@@ -3,7 +3,9 @@
 each against its plain PyTorch version (the flash forward and its three
 backward kernels over f32/bf16, S in {128, 512, 1024}, causal or not,
 with a padding bias and segment ids that leave a dead row, and at the
-training step's own shape; the decode kernels at serving shapes; the
+training step's own shape, the fused backward launched twice for
+bitwise-equal gradients; the bf16 forward at head dim 128 too; the
+decode kernels at serving shapes; the
 fused-epilogue GEMM forward, dX and dW + dbias over f32/bf16, five
 activations, bias or not, z emitted or not, a ragged shape and the
 BERT FFN's own shape); times the fused against the pair backward over
@@ -44,8 +46,10 @@ Float32 products run in full f32 (TF32 off for matmul and cuDNN).
 Tolerances: each kernel is held against its plain version run in f32
 on the same inputs (bf16 inputs upcast exactly).  f32 kernels: atol
 1e-5 / rtol 1e-4 (the sums run in another order), gradients 1e-4.  bf16
-flash kernels compute in f32 and round each output once, so an output
-is off by at most half a bf16 ulp, 2^-8 of its value: the limit is
+flash kernels compute in f32 (the tensor-core forward and fused
+backward take each operand they form, P and dS, as two bf16 halves,
+flash_tc.cuh) and round each output once, so an output is off by
+little more than half a bf16 ulp, 2^-8 of its value: the limit is
 rtol 2^-7 (that bound doubled) plus atol 1e-5, far inside the repo's
 PADDLE_TPU_FLASH_ACC policy (2e-2 / 5e-2), which at S=512 is as large
 as the gradients themselves.  Two bf16 kernels against each other
@@ -59,8 +63,9 @@ limits, so that they would catch it.  Dense vs
 paged decode bitwise; the model checks state theirs beside them (the
 ResNet gradient checks on one run's relu decisions, `_relu_decisions`).
 Bounds: the larger of bytes / 3.35 TB/s and flops / peak, with the
-H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the flash kernels use f32
-FMA), 989 TFLOP/s bf16.
+H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the f32 kernels use FMA),
+989 TFLOP/s bf16 (the bf16 kernels' tensor cores; the bf16 flash pair,
+still on FMA, is held to it too).
 """
 
 import json
@@ -144,10 +149,12 @@ def check_flash(ops):
     rows = []
     cases = [(s, dt, False) for dt in (torch.float32, torch.bfloat16)
              for s in (8, 200, 512, 1024)]
-    cases.append((1024, torch.float32, True))   # QKV column slices
+    # QKV column slices (row stride 3 H D), as BERT passes them
+    cases += [(1024, torch.float32, True), (512, torch.bfloat16, True)]
     for s, dt, strided in cases:
         if strided:
-            qkv = torch.randn(1, s, 3 * H * D, device="cuda", generator=gen)
+            qkv = torch.randn(1, s, 3 * H * D, device="cuda",
+                              generator=gen).to(dt)
             q, k, v = (t.view(1, s, H, D) for t in qkv.split(H * D, dim=2))
         else:
             q, k, v = (torch.randn(1, s, H, D, device="cuda", generator=gen,
@@ -177,6 +184,65 @@ def check_flash(ops):
             "bound_ms": bms, "bound_by": by})
     emit({"phase": "kernel_check", "kernel": "flash_fwd", "B": 1, "H": H,
           "D": D, "causal": True, "cases": rows})
+    return rows
+
+
+def check_flash_d128(ops):
+    """The bf16 forward at head dim 128 (its own wgmma path: m64n128 for
+    P V, two 64-column chunks a tile) at B=2, H=12: S = 200 and 512,
+    causal and not, and S=512 masked (padding bias + segment ids with a
+    dead row); o and lse against the f32 plain version, timed beside
+    SDPA."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d, b = 128, 2
+    rows = []
+    cases = [(s, causal, False) for s in (200, 512) for causal in (False,
+                                                                    True)]
+    cases.append((512, False, True))
+    for s, causal, masked in cases:
+        q, k, v = (torch.randn(b, s, H, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        bias = segs = None
+        if masked:
+            bias = torch.zeros(b, 1, 1, s, device="cuda")
+            bias[0, :, :, s - s // 4:] = -1e4
+            kseg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+            kseg[1, s // 2:] = 1
+            qseg = kseg.clone()
+            qseg[1, 3] = 7
+            segs = (qseg, kseg)
+        kw = dict(bias=bias, segment_ids=segs, scale=d ** -0.5,
+                  causal=causal)
+        name = "D=128 S=%d causal=%s masked=%s" % (s, causal, masked)
+        o, lse = ops.flash_fwd(q, k, v, with_lse=True, **kw)
+        o_ref, lse_ref = ops.flash_attention_reference(*upcast(q, k, v),
+                                                       **kw)
+        torch.cuda.synchronize()
+        err, share = compare(name + " o", o, o_ref, TOL[torch.bfloat16])
+        lse_err, lse_share = compare(name + " lse", lse, lse_ref, LSE_TOL)
+        if masked and (o[1, 3].abs().max().item() or
+                       (lse.view(b, H, s)[1, :, 3] != NEG_INF).any()):
+            raise AssertionError("%s: the dead row is not dead" % name)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes = 4 * b * s * H * d * 2 + b * H * s * 4
+        bms, by = bound(nbytes, 4 * b * H * _visible_pairs(s, s, causal) * d,
+                        torch.bfloat16)
+        rows.append({
+            "S": s, "causal": causal, "masked": masked, "max_abs_err": err,
+            "limit_share": share, "lse_max_abs_err": lse_err,
+            "lse_limit_share": lse_share,
+            "ms": time_ms(lambda: ops.flash_fwd(q, k, v, with_lse=True,
+                                                **kw)),
+            "plain_ms": time_ms(lambda: ops.flash_attention_reference(
+                q, k, v, **kw), iters=5, warmup=1),
+            "library_ms": None if masked else time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=d ** -0.5)),
+            "bound_ms": bms, "bound_by": by})
+    emit({"phase": "kernel_check", "kernel": "flash_fwd_d128", "B": b,
+          "H": H, "D": d, "dtype": "bfloat16", "cases": rows})
     return rows
 
 
@@ -304,7 +370,14 @@ def flash_train_case(ops, gen, b, s, dt, causal, masked):
     if fits:
         fused = ops.flash_bwd_fused(q, k, v, o, do, lse, bias_grad=masked,
                                     **kw)
+        again = ops.flash_bwd_fused(q, k, v, o, do, lse, bias_grad=masked,
+                                    **kw)
         torch.cuda.synchronize()
+        bitwise = all(a is None or torch.equal(a, b_)
+                      for a, b_ in zip(fused, again))
+        if not bitwise:
+            raise AssertionError("%s: two launches of the fused backward "
+                                 "differ" % name)
         for tag, got, ref, other in zip(("dq", "dk", "dv", "dbias"), fused,
                                         want, pair):
             if got is not None:
@@ -321,7 +394,7 @@ def flash_train_case(ops, gen, b, s, dt, causal, masked):
     row = {
         "B": b, "S": s, "dtype": str(dt).replace("torch.", ""),
         "causal": causal, "masked": masked, "max_abs_err": errs,
-        "limit_share": shares,
+        "limit_share": shares, "fused_bitwise": bitwise if fits else None,
         "fwd_ms": time_ms(lambda: ops.flash_fwd(q, k, v, with_lse=True,
                                                 **kw)),
         "dq_ms": time_ms(lambda: ops.flash_bwd_dq(q, k, v, o, do, lse, **kw)),
@@ -365,22 +438,47 @@ def check_flash_main_shape(ops):
     gen = torch.Generator(device="cuda").manual_seed(5)
     row = flash_train_case(ops, gen, TRAIN_B, TRAIN_S, torch.bfloat16,
                            False, False)
+    row["fused_bitwise_with_dbias"] = fused_bitwise(ops, gen)
     emit({"phase": "kernel_check", "kernel": "flash_main_shape", **row})
     return row
 
 
+def fused_bitwise(ops, gen):
+    """Two launches of the fused backward at the training step's shape
+    with a padding bias that needs a gradient: dQ, dK, dV and dbias must
+    be equal bit for bit (a fixed order of sums, no atomics).  The
+    unmasked launches are compared in `flash_train_case`."""
+    b, s = TRAIN_B, TRAIN_S
+    q, k, v, do = (torch.randn(b, s, H, D, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    bias = torch.zeros(b, 1, 1, s, device="cuda")
+    bias[::2, :, :, s - s // 4:] = -1e4
+    o, lse = ops.flash_fwd(q, k, v, bias=bias, with_lse=True)
+    first = ops.flash_bwd_fused(q, k, v, o, do, lse, bias=bias,
+                                bias_grad=True)
+    second = ops.flash_bwd_fused(q, k, v, o, do, lse, bias=bias,
+                                 bias_grad=True)
+    torch.cuda.synchronize()
+    same = {tag: torch.equal(a, b_) for tag, a, b_ in
+            zip(("dq", "dk", "dv", "dbias"), first, second)}
+    if not all(same.values()):
+        raise AssertionError("fused backward, B=60 S=512 with dbias: two "
+                             "launches differ: %s" % same)
+    return same
+
+
 def check_bwd_crossover(ops):
-    """Fused against pair backward at S=512 (and 128) over B*H around
-    the SM count, bf16, no mask: each one's ms and what
-    `_use_fused_bwd` picks, so the dispatch rule is read against the
-    card.  Times only; the kernels' values are checked above."""
+    """Fused against pair backward at S=512, 448 and 128 over B*H from
+    one 12-head sequence to past the SM count, bf16, no mask: each one's
+    ms and what `_use_fused_bwd` picks, which must be the faster.  Times
+    only; the kernels' values are checked above."""
     from paddle_tpu_torch.ops.attention import _use_fused_bwd
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
-    for b, s in ((2, 512), (10, 512), (11, 512), (12, 512), (22, 512),
-                 (60, 512), (2, 128), (60, 128)):
+    for b, s in ((1, 512), (2, 512), (10, 512), (11, 512), (12, 512),
+                 (22, 512), (60, 512), (1, 448), (2, 128), (60, 128)):
         q, k, v, do = (torch.randn(b, s, H, D, device="cuda", generator=gen)
                        .to(torch.bfloat16) for _ in range(4))
         o, lse = ops.flash_fwd(q, k, v, with_lse=True)
@@ -391,7 +489,7 @@ def check_bwd_crossover(ops):
 
         fused_ms = time_ms(lambda: ops.flash_bwd_fused(q, k, v, o, do, lse))
         pair_ms = time_ms(pair)
-        rule = _use_fused_bwd(b * H, s, s, D, sms)
+        rule = _use_fused_bwd(b * H, s, s, D, sms, torch.bfloat16)
         faster = "fused" if fused_ms < pair_ms else "pair"
         rows.append({"B": b, "S": s, "BH": b * H, "fused_ms": fused_ms,
                      "pair_ms": pair_ms, "rule": "fused" if rule else "pair",
@@ -400,6 +498,9 @@ def check_bwd_crossover(ops):
                                           - min(fused_ms, pair_ms))})
     emit({"phase": "bwd_crossover", "sms": sms, "H": H, "D": D,
           "dtype": "bfloat16", "cases": rows})
+    if any(r["rule"] != r["faster"] for r in rows):
+        raise AssertionError("the bf16 dispatch rule does not pick the "
+                             "faster backward in every case: %s" % rows)
     return rows
 
 
@@ -791,7 +892,8 @@ def train_model_check(ptt):
     # B=2: 24 heads leave the card mostly idle, so the rule takes the pair
     fused = ops.attention._use_fused_bwd(
         b * cfg.num_attention_heads, s, s, D,
-        torch.cuda.get_device_properties(0).multi_processor_count)
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        torch.float32)
     for fused_ffn in (False, True):
         got = {}
         with _env("PADDLE_TPU_FUSED_FFN", "1" if fused_ffn else None):
@@ -1004,7 +1106,9 @@ def train(ptt):
           "pair_vs_fused_step1_grad_rel": grad_errs,
           "pair_grad_rel_limit": PAIR_GRAD_REL,
           "pair_launches": pair_launches})
-    emit({"phase": "train_profile", "steps": 1, **prof})
+    emit({"phase": "train_profile", "steps": 1,
+          "flash_ms": sum(v[0] for k, v in prof["by_category_ms"].items()
+                          if k.startswith("flash")), **prof})
     emit({"phase": "train_fused_ffn", "B": b, "S": s, "P": p, "amp": "bf16",
           "steps": FFN_STEPS, "step_ms": ffn_ms,
           "step_ms_p50": float(np.percentile(ffn_timed, 50)),
@@ -1964,7 +2068,8 @@ def main():
     paths = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "Function properties" in ln]
              for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": build_s,
           "libraries": {k: str(v) for k, v in paths.items()},
@@ -1977,6 +2082,7 @@ def main():
 
     ops = ptt.ops
     flash_rows = check_flash(ops)
+    d128_rows = check_flash_d128(ops)
     check_flash_train(ops)
     main = check_flash_main_shape(ops)
     check_bwd_crossover(ops)
@@ -2013,6 +2119,9 @@ def main():
                          train_launches["flash_fwd"], err["o"],
                          main["fwd_ms"], main["plain_fwd_ms"],
                          main["library_fwd_ms"]),
+             d128=[{k: r[k] for k in ("S", "causal", "masked", "ms",
+                                      "library_ms", "bound_ms",
+                                      "max_abs_err")} for r in d128_rows],
              engine_prefill={"launches": launches["flash_fwd"],
                              **{k: prefill[k] for k in (
                                  "S", "dtype", "max_abs_err", "ms",

@@ -8,7 +8,8 @@ custom VJP).  The kernels:
 
 * ``flash_fwd`` (``csrc/flash_fwd.cu``): O, and the row LSE the
   backward needs, with an additive row bias, segment ids and causal
-  masking;
+  masking (bf16 on the tensor cores through TMA, which needs 16-byte
+  aligned bases and strides; f32 on FMA);
 * ``flash_bwd_dq`` / ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``): the
   row-parallel dQ and the column-parallel dK/dV(/dbias) pair;
 * ``flash_bwd_fused`` (``csrc/flash_bwd_fused.cu``): dQ, dK, dV and
@@ -21,12 +22,14 @@ the forward without the LSE, as the engine's prefill does.
 
 Backward dispatch (`_use_fused_bwd`): the fused kernel when it fits
 (D = 64 and Sq, Sk <= 512: its dQ accumulator for every query row fits
-one CTA's shared memory) and its one CTA per head fills the card's
-waves well enough to beat the pair's finer grid; otherwise the dQ +
-dK/dV pair.  ``PADDLE_TPU_FLASH_FUSED_BWD=0`` selects the pair
-everywhere, the reference's own knob
-(`paddle_tpu/ops/pallas/attention.py:781`).  CPU tensors take one plain
-backward (`flash_attention_bwd_reference`), whatever the rule says.
+one CTA's shared memory) and, in f32, when by its tile-step count it
+beats the pair's finer grid (both kernels on FMA: it needs B*H to fill
+the card's waves); in bf16 wherever it fits (it runs on the tensor
+cores and the pair on FMA); otherwise the dQ + dK/dV pair.
+``PADDLE_TPU_FLASH_FUSED_BWD=0`` selects the pair everywhere, the
+reference's own knob (`paddle_tpu/ops/pallas/attention.py:781`).  CPU
+tensors take one plain backward (`flash_attention_bwd_reference`),
+whatever the rule says.
 """
 
 from __future__ import annotations
@@ -47,9 +50,10 @@ __all__ = ["flash_attention", "flash_attention_bwd",
 NEG_INF = -1e30
 _LAYOUTS = ("BHSD", "BSHD")
 FUSED_MAX_S = 512
-# Time of one fused 64 x 64 tile step over the pair's dQ step plus its
-# dK/dV step (the fused step shares s, p and dp): 0.85 on the H100 at
-# B=60, S=512, bf16 (chip_smoke.py's flash_main_shape times).
+# f32: the time of one fused 64 x 64 tile step over the pair's dQ step
+# plus its dK/dV step, both kernels on FMA (the fused step shares s, p
+# and dp): chip_smoke.py's flash_main_shape times on the H100 at B=60,
+# S=512, taken when both dtypes still ran the FMA kernels.
 FUSED_STEP_COST = 0.85
 
 
@@ -227,6 +231,14 @@ def _check_cuda(q, k, v, layout, **more):
     if d not in (64, 128):
         raise ValueError("flash_attention: head dim must be 64 or 128, "
                          "got %d" % d)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)) + tuple(more.items()):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(
+                    "flash_attention: the bf16 kernels load 16-byte rows "
+                    "(TMA, cp.async): %s needs a 16-byte-aligned base and "
+                    "strides that are multiples of 8 elements, got strides "
+                    "%s" % (name, t.stride()))
     return b, h, sq, sk, d
 
 
@@ -422,22 +434,29 @@ def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _use_fused_bwd(bh, sq, sk, d, sms):
-    """The backward schedule for ``bh`` = B*H heads on a card of ``sms``
-    SMs: fused when it fits (`_fits_fused`) and is the faster by the
-    tile-step count, unless ``PADDLE_TPU_FLASH_FUSED_BWD=0``.
+def _use_fused_bwd(bh, sq, sk, d, sms, dtype):
+    """The backward schedule for ``bh`` = B*H heads of ``dtype`` on a card
+    of ``sms`` SMs: fused when it fits (`_fits_fused`), unless
+    ``PADDLE_TPU_FLASH_FUSED_BWD=0``, and in f32 only when it is the
+    faster by the tile-step count.
 
-    Both schedules put one CTA on an SM and walk 64 x 64 tiles.  With
-    ``nt`` = ceil(Sk / 64), the fused grid is one CTA per head doing
-    nt^2 steps, so it takes ceil(bh / sms) * nt^2 fused steps; each pair
-    kernel is ceil(Sq / 64) CTAs per head doing nt steps, so the pair
-    takes ceil(bh * ceil(Sq / 64) / sms) * nt steps of dQ plus dK/dV.
-    A fused step costs FUSED_STEP_COST of the pair's.  So the fused
-    kernel wins at a full card (B=60, H=12: 720 heads, 6 waves of 132)
-    and loses where its last wave is mostly empty (B=2: 24 heads)."""
+    bf16: the fused kernel runs on the tensor cores and the pair on FMA;
+    it was the faster at every B*H and S that chip_smoke.py's
+    bwd_crossover times, down to a single 12-head sequence.
+
+    f32: both schedules put one CTA on an SM and walk the score tiles in
+    64 x 64 steps.  With ``nt`` = ceil(Sk / 64), the fused grid is one
+    CTA per head doing nt^2 steps, so it takes ceil(bh / sms) * nt^2
+    fused steps; each pair kernel is ceil(Sq / 64) CTAs per head doing
+    nt steps, so the pair takes ceil(bh * ceil(Sq / 64) / sms) * nt steps
+    of dQ plus dK/dV.  A fused step costs FUSED_STEP_COST of the pair's.
+    So the fused kernel wins at a full card (B=60, H=12: 720 heads, 6
+    waves of 132) and loses where its last wave is mostly empty."""
     if (not _fits_fused(sq, sk, d)
             or os.getenv("PADDLE_TPU_FLASH_FUSED_BWD", "1") == "0"):
         return False
+    if dtype == torch.bfloat16:
+        return True
     nt, mt = -(-sk // 64), -(-sq // 64)
     fused = -(-bh // sms) * nt * nt * FUSED_STEP_COST
     pair = -(-bh * mt // sms) * nt
@@ -457,7 +476,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, bias=None, segment_ids=None,
         return _plain_bwd(q, k, v, o, do, lse, bias, segment_ids, scale,
                           causal, layout, bias_grad)
     b, h, sq, sk, d = _dims(q, k, layout)
-    if _use_fused_bwd(b * h, sq, sk, d, _sm_count(q.device)):
+    if _use_fused_bwd(b * h, sq, sk, d, _sm_count(q.device), q.dtype):
         return flash_bwd_fused(q, k, v, o, do, lse, bias, segment_ids, scale,
                                causal, layout, bias_grad)
     dq, delta = flash_bwd_dq(q, k, v, o, do, lse, bias, segment_ids, scale,

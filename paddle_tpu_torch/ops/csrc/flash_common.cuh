@@ -2,15 +2,18 @@
 // flash_bwd.cu, flash_bwd_fused.cu): the parameter block the Python
 // wrapper fills (ops/attention.py `FlashParams` mirrors it field for
 // field), the tile shape, tile loads from strided (batch, seq, head)
-// views, the score mask, and the register-tile products every kernel is
-// built from.
+// views, the score mask, and the register-tile products of the f32 FMA
+// kernels.
 //
-// Tile scheme (all three kernels): 256 threads as a 16 x 16 grid
-// (ty, tx).  A 64 x 64 score tile is owned as 4 x 4 registers per
-// thread: rows ty + 16 i, columns tx + 16 j.  A 64 x D output tile is
-// owned as rows ty + 16 i, columns tx + 16 c (c < D / 16).  Operand
-// tiles are staged in shared memory as f32 with rows padded by one word
-// against bank conflicts.
+// Tile scheme of the FMA kernels (the f32 forward and fused backward,
+// and the dQ + dK/dV pair in both dtypes; the bf16 forward and fused
+// backward run on the tensor cores, flash_tc.cuh, and share only the
+// parameter block, the masks and the row statistics here): 256 threads
+// as a 16 x 16 grid (ty, tx).  A 64 x 64 score tile is owned as 4 x 4
+// registers per thread: rows ty + 16 i, columns tx + 16 j.  A 64 x D
+// output tile is owned as rows ty + 16 i, columns tx + 16 c (c < D /
+// 16).  Operand tiles are staged in shared memory as f32 with rows
+// padded by one word against bank conflicts.
 #pragma once
 
 #include "common.cuh"
@@ -111,8 +114,10 @@ __device__ __forceinline__ void load_query_segs(int* qseg_s, const Params& p,
 // The masked, scaled score of (query row, key col), as
 // `attention.py:_apply_masks` builds it: bias added, then segment,
 // causal (bottom-right, coff = Sk - Sq) and range masks to NEG_INF.
-// `kc` and `qr` index the staged key and query mask operands.  A row at
-// or past Sq is masked too, so the backward's padded rows get P = 0.
+// `kc` and `qr` index the key and query mask operands, staged tiles or
+// (the bf16 forward) global rows; they are read only for a (row, col)
+// inside (Sq, Sk).  A row at or past Sq is masked too, so the backward's
+// padded rows get P = 0.
 //
 // MASKED is a template flag, true when the call has a bias or segment
 // ids: the kernels are instantiated both ways and the launcher picks
@@ -125,7 +130,7 @@ __device__ __forceinline__ float score(float dot, const Params& p, int row,
                                        const int* qseg_s, int qr) {
   float s = dot * p.scale;
   bool ok = row < p.Sq && col < p.Sk;
-  if (MASKED) {
+  if (MASKED && ok) {
     if (p.bias) s += bias_s[kc];
     if (p.qseg) ok = ok && qseg_s[qr] == kseg_s[kc];
   }

@@ -59,6 +59,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "tc_common.cuh"
 
 namespace ptt {
 namespace gemm {
@@ -181,6 +182,10 @@ __device__ __forceinline__ void epilogue2(const Args& p, int r, int c,
 
 namespace tc {
 
+// smem_u32, cp_async16, cp_async_commit, cp_async_wait, ldsm_x4,
+// ldsm_x4_t, mma: tc_common.cuh
+using namespace ::ptt::tcore;
+
 constexpr int BM = 128, BN = 128, BK = 32, NT = 256;
 constexpr int KM_LD = BK + 8;     // K-major tile [128][40]
 constexpr int MN_LD = BM + 8;     // MN-major tile [32][136]
@@ -245,46 +250,6 @@ __device__ __forceinline__ float dz_of(float g, __nv_bfloat16 r,
     if (u < TAB_HALF) return g * tab[(bits >> 15) * TAB_HALF + u];
   }
   return act_bwd<ACT>(g, __bfloat162float(r));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !ok
-__device__ __forceinline__ void cp_async16(void* s, const void* g, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(s)),
-               "l"(g), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Thread's 16-byte chunk i of a tile: its shared offset and its (row,

@@ -216,7 +216,27 @@ def test_wrappers_agree_with_the_reference_on_cpu():
 
 
 def test_backward_dispatch_rule_and_knob(monkeypatch):
-    use = functools.partial(port_attention._use_fused_bwd, sms=132)
+    """bf16: the tensor-core fused kernel beats the FMA pair at every B*H
+    and S that chip_smoke.py's bwd_crossover times, a mostly empty last
+    wave and a single 12-head sequence included, so it is taken wherever
+    it fits."""
+    use = functools.partial(port_attention._use_fused_bwd, sms=132,
+                            dtype=torch.bfloat16)
+    for bh in (12, 24, 120, 132, 144, 264, 720):
+        assert use(bh, 512, 512, 64), bh
+        assert use(bh, 448, 448, 64), bh
+    assert use(720, 128, 128, 64) and use(24, 128, 128, 64)
+    assert not use(720, 513, 512, 64) and not use(720, 512, 1024, 64)
+    assert not use(720, 128, 128, 128)      # the fused kernel is D=64 only
+    monkeypatch.setenv("PADDLE_TPU_FLASH_FUSED_BWD", "0")
+    assert not use(720, 512, 512, 64)
+
+
+def test_backward_dispatch_rule_keeps_f32_choices(monkeypatch):
+    """f32: both kernels on FMA, the rule as before the bf16 fused kernel
+    moved to the tensor cores."""
+    use = functools.partial(port_attention._use_fused_bwd, sms=132,
+                            dtype=torch.float32)
     # S=512 on 132 SMs: the fused kernel where its waves are full
     for bh in (120, 132, 264, 720):
         assert use(bh, 512, 512, 64), bh
@@ -224,7 +244,7 @@ def test_backward_dispatch_rule_and_knob(monkeypatch):
         assert not use(bh, 512, 512, 64), bh
     assert use(720, 128, 128, 64) and not use(24, 128, 128, 64)
     assert not use(720, 513, 512, 64) and not use(720, 512, 1024, 64)
-    assert not use(720, 128, 128, 128)      # the fused kernel is D=64 only
+    assert not use(720, 128, 128, 128)
     monkeypatch.setenv("PADDLE_TPU_FLASH_FUSED_BWD", "0")
     assert not use(720, 512, 512, 64)
 
