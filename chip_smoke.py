@@ -3,9 +3,10 @@
 each against its plain PyTorch version (the flash forward and its three
 backward kernels over f32/bf16, S in {128, 512, 1024}, causal or not,
 with a padding bias and segment ids that leave a dead row, and at the
-training step's own shape, the fused backward launched twice for
-bitwise-equal gradients; the bf16 forward at head dim 128 too; the
-decode kernels at serving shapes; the
+training step's own shape, the fused backward and the dQ + dK/dV pair
+each launched twice for bitwise-equal gradients; the bf16 forward at
+head dim 128 too, and the pair at head dim 128 over f32/bf16, S in
+{512, 1024}; the decode kernels at serving shapes; the
 fused-epilogue GEMM forward, dX and dW + dbias over f32/bf16, five
 activations, bias or not, z emitted or not, a ragged shape and the
 BERT FFN's own shape); times the fused against the pair backward over
@@ -48,11 +49,11 @@ on the same inputs (bf16 inputs upcast exactly).  f32 kernels: atol
 1e-5 / rtol 1e-4 (the sums run in another order), gradients 1e-4.  bf16
 flash kernels compute in f32 (the tensor-core forward and fused
 backward take each operand they form, P and dS, as two bf16 halves,
-flash_tc.cuh) and round each output once, so an output is off by
-little more than half a bf16 ulp, 2^-8 of its value: the limit is
-rtol 2^-7 (that bound doubled) plus atol 1e-5, far inside the repo's
-PADDLE_TPU_FLASH_ACC policy (2e-2 / 5e-2), which at S=512 is as large
-as the gradients themselves.  Two bf16 kernels against each other
+flash_tc.cuh; the pair likewise) and round each output once, so an
+output is off by little more than half a bf16 ulp, 2^-8 of its value:
+the limit is rtol 2^-7 (that bound doubled) plus atol 1e-5, far inside
+the repo's PADDLE_TPU_FLASH_ACC policy (2e-2 / 5e-2), which at S=512
+is as large as the gradients themselves.  Two bf16 kernels against each other
 (fused vs pair): rtol 2^-6.  The GEMM kernels: rtol 2^-7 (bf16) or
 1e-5 (f32) with an atol set against the output's scale, widened for
 the bf16 backward's rounding of dZ (`gemm_tol`).  Kernel 11's mean and
@@ -64,8 +65,7 @@ paged decode bitwise; the model checks state theirs beside them (the
 ResNet gradient checks on one run's relu decisions, `_relu_decisions`).
 Bounds: the larger of bytes / 3.35 TB/s and flops / peak, with the
 H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the f32 kernels use FMA),
-989 TFLOP/s bf16 (the bf16 kernels' tensor cores; the bf16 flash pair,
-still on FMA, is held to it too).
+989 TFLOP/s bf16 (the bf16 kernels' tensor cores).
 """
 
 import json
@@ -254,18 +254,18 @@ def _visible_pairs(sq, sk, causal):
     return sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
 
 
-def flash_bounds(b, s, dtype, causal, masked):
+def flash_bounds(b, s, dtype, causal, masked, d=D):
     """{kernel: (bound_ms, bound_by)} of the four flash kernels at
-    [b, s, H, D]: each input read once and each output written once over
+    [b, s, H, d]: each input read once and each output written once over
     3.35 TB/s, against the products the function needs (forward 2: QK^T
     and PV; dQ 3: S, dP, dS K; dK/dV 4: S, dP, P^T dO, dS^T Q; fused 5)
     of 2 flops per visible (query, key, d) over the dtype's peak."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    x = b * s * H * D * elt                 # one q/k/v/o/do-sized tensor
+    x = b * s * H * d * elt                 # one q/k/v/o/do-sized tensor
     row = b * H * s * 4                     # lse or delta, f32
     mask = (b * s * 4 + 2 * b * s * 4) if masked else 0   # bias, segs
     dbias = b * H * s * 4 if masked else 0
-    pairs = b * H * _visible_pairs(s, s, causal) * D
+    pairs = b * H * _visible_pairs(s, s, causal) * d
     return {
         "flash_fwd": bound(4 * x + row + mask, 4 * pairs, dtype),
         "flash_bwd_dq": bound(6 * x + 2 * row + mask, 6 * pairs, dtype),
@@ -319,15 +319,16 @@ def _library_attention(q, k, v, do, bias, segs, causal, scale):
     return time_ms(fwd), bwd_ms, time_ms(fwd_bwd)
 
 
-def flash_train_case(ops, gen, b, s, dt, causal, masked):
+def flash_train_case(ops, gen, b, s, dt, causal, masked, d=D):
     """One shape of the training kernels against their plain versions:
-    the forward with its LSE, the dQ + dK/dV pair and (where it fits)
-    the fused backward, each held against the plain version on the same
-    inputs, the fused held against the pair; then every one timed.
-    ``masked``: row 0 pads its last quarter of keys with a -1e4 bias
-    (which needs a gradient), row 1 packs two segments, and its query 3
-    has a segment id no key has: a dead row."""
-    q, k, v, do = (torch.randn(b, s, H, D, device="cuda", generator=gen)
+    the forward with its LSE, the dQ + dK/dV pair (its delta too,
+    launched twice for bitwise-equal outputs) and (where it fits: D = 64,
+    S <= 512) the fused backward, each held against the plain version on
+    the same inputs, the fused held against the pair; then every one
+    timed.  ``masked``: row 0 pads its last quarter of keys with a -1e4
+    bias (which needs a gradient), row 1 packs two segments, and its
+    query 3 has a segment id no key has: a dead row."""
+    q, k, v, do = (torch.randn(b, s, H, d, device="cuda", generator=gen)
                    .to(dt) for _ in range(4))
     bias = segs = None
     if masked:
@@ -338,10 +339,10 @@ def flash_train_case(ops, gen, b, s, dt, causal, masked):
         qseg = kseg.clone()
         qseg[1, 3] = 7
         segs = (qseg, kseg)
-    scale = D ** -0.5
+    scale = d ** -0.5
     kw = dict(bias=bias, segment_ids=segs, scale=scale, causal=causal)
-    name = "S=%d %s causal=%s masked=%s" % (
-        s, str(dt).replace("torch.", ""), causal, masked)
+    name = "D=%d S=%d %s causal=%s masked=%s" % (
+        d, s, str(dt).replace("torch.", ""), causal, masked)
 
     errs, shares = {}, {}
 
@@ -362,11 +363,20 @@ def flash_train_case(ops, gen, b, s, dt, causal, masked):
     dk, dv, db = ops.flash_bwd_dkv(q, k, v, o, do, lse, delta,
                                    bias_grad=masked, **kw)
     pair = (dq, dk, dv, db)
+    dq2, delta2 = ops.flash_bwd_dq(q, k, v, o, do, lse, **kw)
+    again = (dq2,) + ops.flash_bwd_dkv(q, k, v, o, do, lse, delta,
+                                       bias_grad=masked, **kw)
     torch.cuda.synchronize()
     for tag, got, ref in zip(("dq", "dk", "dv", "dbias"), pair, want):
         if got is not None:
             check("pair_" + tag, got, ref, GRAD_TOL[dt])
-    fits = s <= 512
+    check("pair_delta", delta, (do.float() * o.float()).sum(-1)
+          .transpose(1, 2).reshape(b * H, s), TOL[torch.float32])
+    pair_bitwise = torch.equal(delta, delta2) and all(
+        a is None or torch.equal(a, b_) for a, b_ in zip(pair, again))
+    if not pair_bitwise:
+        raise AssertionError("%s: two launches of the pair differ" % name)
+    fits = s <= 512 and d == 64
     if fits:
         fused = ops.flash_bwd_fused(q, k, v, o, do, lse, bias_grad=masked,
                                     **kw)
@@ -394,7 +404,8 @@ def flash_train_case(ops, gen, b, s, dt, causal, masked):
     row = {
         "B": b, "S": s, "dtype": str(dt).replace("torch.", ""),
         "causal": causal, "masked": masked, "max_abs_err": errs,
-        "limit_share": shares, "fused_bitwise": bitwise if fits else None,
+        "D": d, "limit_share": shares, "pair_bitwise": pair_bitwise,
+        "fused_bitwise": bitwise if fits else None,
         "fwd_ms": time_ms(lambda: ops.flash_fwd(q, k, v, with_lse=True,
                                                 **kw)),
         "dq_ms": time_ms(lambda: ops.flash_bwd_dq(q, k, v, o, do, lse, **kw)),
@@ -409,7 +420,7 @@ def flash_train_case(ops, gen, b, s, dt, causal, masked):
             iters=5, warmup=1),
         "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd,
         "library_fwd_bwd_ms": lib_fwd_bwd,
-        "bounds": flash_bounds(b, s, dt, causal, masked)}
+        "bounds": flash_bounds(b, s, dt, causal, masked, d)}
     return row
 
 
@@ -431,6 +442,19 @@ def check_flash_train(ops):
     return rows
 
 
+def check_flash_bwd_d128(ops):
+    """The pair at head dim 128 (the fused kernel takes D = 64 only):
+    B=2, H=12, S = 512 and 1024, causal and not, masked (bias + segments
+    with a dead row), bf16 and f32, through `flash_train_case`."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = [flash_train_case(ops, gen, 2, s, dt, causal, True, d=128)
+            for dt in (torch.bfloat16, torch.float32) for s in (512, 1024)
+            for causal in (False, True)]
+    emit({"phase": "kernel_check", "kernel": "flash_bwd_d128", "H": H,
+          "D": 128, "cases": rows})
+    return rows
+
+
 def check_flash_main_shape(ops):
     """The four kernels at the training step's own shape (B=60, S=512,
     bf16, no mask, not causal): errors against the plain versions and
@@ -438,31 +462,41 @@ def check_flash_main_shape(ops):
     gen = torch.Generator(device="cuda").manual_seed(5)
     row = flash_train_case(ops, gen, TRAIN_B, TRAIN_S, torch.bfloat16,
                            False, False)
-    row["fused_bitwise_with_dbias"] = fused_bitwise(ops, gen)
+    row["bitwise_with_dbias"] = bitwise_with_dbias(ops, gen)
     emit({"phase": "kernel_check", "kernel": "flash_main_shape", **row})
     return row
 
 
-def fused_bitwise(ops, gen):
-    """Two launches of the fused backward at the training step's shape
-    with a padding bias that needs a gradient: dQ, dK, dV and dbias must
-    be equal bit for bit (a fixed order of sums, no atomics).  The
-    unmasked launches are compared in `flash_train_case`."""
+def bitwise_with_dbias(ops, gen):
+    """Two launches of the fused backward and of each pair kernel at the
+    training step's shape with a padding bias that needs a gradient:
+    dQ, dK, dV, dbias (and the pair's delta) must be equal bit for bit
+    (a fixed order of sums, no atomics).  The unmasked launches are
+    compared in `flash_train_case`."""
     b, s = TRAIN_B, TRAIN_S
     q, k, v, do = (torch.randn(b, s, H, D, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(4))
     bias = torch.zeros(b, 1, 1, s, device="cuda")
     bias[::2, :, :, s - s // 4:] = -1e4
     o, lse = ops.flash_fwd(q, k, v, bias=bias, with_lse=True)
-    first = ops.flash_bwd_fused(q, k, v, o, do, lse, bias=bias,
-                                bias_grad=True)
-    second = ops.flash_bwd_fused(q, k, v, o, do, lse, bias=bias,
-                                 bias_grad=True)
-    torch.cuda.synchronize()
-    same = {tag: torch.equal(a, b_) for tag, a, b_ in
-            zip(("dq", "dk", "dv", "dbias"), first, second)}
-    if not all(same.values()):
-        raise AssertionError("fused backward, B=60 S=512 with dbias: two "
+    kw = dict(bias=bias, bias_grad=True)
+
+    def pair():
+        dq, delta = ops.flash_bwd_dq(q, k, v, o, do, lse, bias=bias)
+        return (dq, delta) + ops.flash_bwd_dkv(q, k, v, o, do, lse, delta,
+                                               **kw)
+
+    same = {}
+    for name, run, tags in (
+            ("fused", lambda: ops.flash_bwd_fused(q, k, v, o, do, lse, **kw),
+             ("dq", "dk", "dv", "dbias")),
+            ("pair", pair, ("dq", "delta", "dk", "dv", "dbias"))):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        same[name] = {tag: torch.equal(a, b_) for tag, a, b_ in
+                      zip(tags, first, second)}
+    if not all(all(v.values()) for v in same.values()):
+        raise AssertionError("flash backward, B=60 S=512 with dbias: two "
                              "launches differ: %s" % same)
     return same
 
@@ -470,8 +504,13 @@ def fused_bitwise(ops, gen):
 def check_bwd_crossover(ops):
     """Fused against pair backward at S=512, 448 and 128 over B*H from
     one 12-head sequence to past the SM count, bf16, no mask: each one's
-    ms and what `_use_fused_bwd` picks, which must be the faster.  Times
-    only; the kernels' values are checked above."""
+    ms and what `_use_fused_bwd` picks, which must be the faster.  Each
+    is timed as `flash_attention_bwd` runs it: the fused kernel's
+    wrapper, or the pair's two launches from one parameter block
+    (`flash_attention_bwd` under PADDLE_TPU_FLASH_FUSED_BWD=0), over
+    50 calls: where the host's time for a call exceeds the card's, the
+    host's jitter sets the reading.  Times only; the kernels' values are
+    checked above."""
     from paddle_tpu_torch.ops.attention import _use_fused_bwd
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -483,12 +522,11 @@ def check_bwd_crossover(ops):
                        .to(torch.bfloat16) for _ in range(4))
         o, lse = ops.flash_fwd(q, k, v, with_lse=True)
 
-        def pair():
-            _, delta = ops.flash_bwd_dq(q, k, v, o, do, lse)
-            ops.flash_bwd_dkv(q, k, v, o, do, lse, delta)
-
-        fused_ms = time_ms(lambda: ops.flash_bwd_fused(q, k, v, o, do, lse))
-        pair_ms = time_ms(pair)
+        fused_ms = time_ms(lambda: ops.flash_bwd_fused(q, k, v, o, do, lse),
+                           iters=50)
+        with _env("PADDLE_TPU_FLASH_FUSED_BWD", "0"):
+            pair_ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do,
+                                                              lse), iters=50)
         rule = _use_fused_bwd(b * H, s, s, D, sms, torch.bfloat16)
         faster = "fused" if fused_ms < pair_ms else "pair"
         rows.append({"B": b, "S": s, "BH": b * H, "fused_ms": fused_ms,
@@ -2084,6 +2122,7 @@ def main():
     flash_rows = check_flash(ops)
     d128_rows = check_flash_d128(ops)
     check_flash_train(ops)
+    bwd_d128_rows = check_flash_bwd_d128(ops)
     main = check_flash_main_shape(ops)
     check_bwd_crossover(ops)
     dense_row, paged_row = check_decode(ops)
@@ -2111,6 +2150,14 @@ def main():
                     bound_ms=bounds[name][0], bound_by=bounds[name][1],
                     library_ms=library_ms)
 
+    def d128_bwd(ms, tags):
+        """A pair kernel's bf16 cases at D = 128: ms, the largest error
+        of ``tags``, and SDPA's whole backward beside them."""
+        return [dict(S=r["S"], causal=r["causal"], ms=r[ms],
+                     library_bwd_ms=r["library_bwd_ms"],
+                     max_abs_err=max(r["max_abs_err"][t] for t in tags))
+                for r in bwd_d128_rows if r["dtype"] == "bfloat16"]
+
     # the flash kernels at the training step's shape (B=60, S=512, bf16),
     # launches over the timed train run (the pair's over its own run);
     # the backward kernels' library yardstick is SDPA's whole backward
@@ -2127,14 +2174,16 @@ def main():
                                  "S", "dtype", "max_abs_err", "ms",
                                  "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}}),
-        flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
-                    pair_launches["flash_bwd_dq"], err["pair_dq"],
-                    main["dq_ms"], main["plain_bwd_ms"],
-                    main["library_bwd_ms"]),
-        flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
-                    pair_launches["flash_bwd_dkv"],
-                    max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
-                    main["plain_bwd_ms"], main["library_bwd_ms"]),
+        dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
+                         pair_launches["flash_bwd_dq"], err["pair_dq"],
+                         main["dq_ms"], main["plain_bwd_ms"],
+                         main["library_bwd_ms"]),
+             d128=d128_bwd("dq_ms", ("pair_dq", "pair_delta"))),
+        dict(flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
+                         pair_launches["flash_bwd_dkv"],
+                         max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
+                         main["plain_bwd_ms"], main["library_bwd_ms"]),
+             d128=d128_bwd("dkv_ms", ("pair_dk", "pair_dv"))),
         flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
                     train_launches["flash_bwd_fused"],
                     max(err["fused_dq"], err["fused_dk"], err["fused_dv"]),

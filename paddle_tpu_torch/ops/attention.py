@@ -11,7 +11,9 @@ custom VJP).  The kernels:
   masking (bf16 on the tensor cores through TMA, which needs 16-byte
   aligned bases and strides; f32 on FMA);
 * ``flash_bwd_dq`` / ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``): the
-  row-parallel dQ and the column-parallel dK/dV(/dbias) pair;
+  row-parallel dQ and the column-parallel dK/dV(/dbias) pair (bf16 on
+  the tensor cores through cp.async, which needs 16-byte aligned bases
+  and strides; f32 on FMA);
 * ``flash_bwd_fused`` (``csrc/flash_bwd_fused.cu``): dQ, dK, dV and
   dbias in one launch for short rows.
 
@@ -22,10 +24,9 @@ the forward without the LSE, as the engine's prefill does.
 
 Backward dispatch (`_use_fused_bwd`): the fused kernel when it fits
 (D = 64 and Sq, Sk <= 512: its dQ accumulator for every query row fits
-one CTA's shared memory) and, in f32, when by its tile-step count it
-beats the pair's finer grid (both kernels on FMA: it needs B*H to fill
-the card's waves); in bf16 wherever it fits (it runs on the tensor
-cores and the pair on FMA); otherwise the dQ + dK/dV pair.
+one CTA's shared memory) and when, by a count of waves and tile steps
+over the card's SMs, it beats the pair's finer grid (it needs B*H to
+fill the card's waves); otherwise the dQ + dK/dV pair.
 ``PADDLE_TPU_FLASH_FUSED_BWD=0`` selects the pair everywhere, the
 reference's own knob (`paddle_tpu/ops/pallas/attention.py:781`).  CPU
 tensors take one plain backward (`flash_attention_bwd_reference`),
@@ -55,6 +56,18 @@ FUSED_MAX_S = 512
 # and dp): chip_smoke.py's flash_main_shape times on the H100 at B=60,
 # S=512, taken when both dtypes still ran the FMA kernels.
 FUSED_STEP_COST = 0.85
+# bf16, both schedules on the tensor cores at one CTA an SM: the time of
+# a wave in fused tile steps (128 keys x 64 queries), fitted to the
+# bf16 times of a grid of B (1-60) and S (128-512) at H=12 on the
+# H100 (NVIDIA H100 80GB HBM3, 700 W): a fused wave is FUSED_WAVE_BF16
+# steps plus its CTA's ceil(Sk/128) * ceil(Sq/64); a wave of either pair
+# kernel PAIR_WAVE_BF16[0] plus PAIR_WAVE_BF16[1] a 64-row tile it walks;
+# the pair takes at least PAIR_MIN_BF16 steps, the host's time for its
+# two launches (~0.064 ms).  A fused step reads 0.0051 ms, a fused wave
+# at S=512 0.177 ms.
+FUSED_WAVE_BF16 = 2.7
+PAIR_WAVE_BF16 = (2.0, 0.43)
+PAIR_MIN_BF16 = 12.5
 
 
 class FlashParams(ctypes.Structure):
@@ -202,9 +215,10 @@ def flash_attention_bwd_reference(q, k, v, bias, segment_ids, o, do, lse,
 
 def _bsh_strides(t, layout):
     """(batch, seq, head) element strides of a 4-D tensor."""
+    st = t.stride()
     if layout == "BSHD":
-        return t.stride(0), t.stride(1), t.stride(2)
-    return t.stride(0), t.stride(2), t.stride(1)
+        return st[0], st[1], st[2]
+    return st[0], st[2], st[1]
 
 
 def _check_cuda(q, k, v, layout, **more):
@@ -287,8 +301,8 @@ def _params(q, k, v, bias, segment_ids, scale, causal, layout, **ptrs):
             continue
         setattr(p, name, t.data_ptr())
         if t.dim() == 4:
-            setattr(p, "do_s" if name == "dout" else name + "_s",
-                    (ctypes.c_longlong * 3)(*_bsh_strides(t, layout)))
+            getattr(p, "do_s" if name == "dout" else name + "_s")[:] = (
+                _bsh_strides(t, layout))
     return p, keep
 
 
@@ -339,6 +353,31 @@ def _dbias_out(db, q, k, layout):
     return db.reshape(b, h, 1, sk)
 
 
+def _pair_launch(q, k, v, o, do, lse, delta, bias, segment_ids, scale,
+                 causal, layout, bias_grad, dq, dkv):
+    """Launch the pair's ``dq`` and/or ``dkv`` kernel, in that order, from
+    one parameter block on CUDA tensors.  ``delta`` None: the dQ kernel
+    writes it into a new buffer.  Returns ``(outputs, delta, dbias
+    buffer)``, outputs a dict of dq / dk / dv."""
+    b, h, sq, _, _ = _check_cuda(q, k, v, layout, o=o, do=do)
+    rows = dict(lse=lse) if delta is None else dict(lse=lse, delta=delta)
+    _check_rows(q.device, b * h, sq, **rows)
+    if delta is None:
+        delta = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
+    out = _bwd_outputs(q, k, v, (("dq",) if dq else ())
+                       + (("dk", "dv") if dkv else ()))
+    db = _dbias_buffer(q, k, layout, bias_grad and dkv)
+    p, _keep = _params(q, k, v, bias, segment_ids, scale, causal, layout,
+                       o=o, dout=do, lse=lse, delta=delta, dbias=db, **out)
+    if dq:
+        _launch("flash_bwd_dq", "flash_bwd", q, p)
+        flash_bwd_dq.launches += 1
+    if dkv:
+        _launch("flash_bwd_dkv", "flash_bwd", q, p)
+        flash_bwd_dkv.launches += 1
+    return out, delta, (None if db is None else _dbias_out(db, q, k, layout))
+
+
 def flash_bwd_dq(q, k, v, o, do, lse, bias=None, segment_ids=None,
                  scale=None, causal=False, layout="BSHD"):
     """The row-parallel dQ kernel: ``(dq, delta)`` with delta =
@@ -352,14 +391,9 @@ def flash_bwd_dq(q, k, v, o, do, lse, bias=None, segment_ids=None,
                  ).sum(dim=-1).reshape(b * h, sq)
         return _plain_bwd(q, k, v, o, do, lse, bias, segment_ids, scale,
                           causal, layout, False)[0], delta
-    b, h, sq, _, _ = _check_cuda(q, k, v, layout, o=o, do=do)
-    _check_rows(q.device, b * h, sq, lse=lse)
-    delta = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
-    out = _bwd_outputs(q, k, v, ("dq",))
-    p, _keep = _params(q, k, v, bias, segment_ids, scale, causal, layout,
-                       o=o, dout=do, lse=lse, delta=delta, **out)
-    _launch("flash_bwd_dq", "flash_bwd", q, p)
-    flash_bwd_dq.launches += 1
+    out, delta, _ = _pair_launch(q, k, v, o, do, lse, None, bias,
+                                 segment_ids, scale, causal, layout, False,
+                                 dq=True, dkv=False)
     return out["dq"], delta
 
 
@@ -373,16 +407,10 @@ def flash_bwd_dkv(q, k, v, o, do, lse, delta, bias=None, segment_ids=None,
     if not q.is_cuda:
         return _plain_bwd(q, k, v, o, do, lse, bias, segment_ids, scale,
                           causal, layout, bias_grad)[1:]
-    b, h, sq, _, _ = _check_cuda(q, k, v, layout, o=o, do=do)
-    _check_rows(q.device, b * h, sq, lse=lse, delta=delta)
-    out = _bwd_outputs(q, k, v, ("dk", "dv"))
-    db = _dbias_buffer(q, k, layout, bias_grad)
-    p, _keep = _params(q, k, v, bias, segment_ids, scale, causal, layout,
-                       o=o, dout=do, lse=lse, delta=delta, dbias=db, **out)
-    _launch("flash_bwd_dkv", "flash_bwd", q, p)
-    flash_bwd_dkv.launches += 1
-    return out["dk"], out["dv"], (None if db is None
-                                  else _dbias_out(db, q, k, layout))
+    out, _, db = _pair_launch(q, k, v, o, do, lse, delta, bias, segment_ids,
+                              scale, causal, layout, bias_grad, dq=False,
+                              dkv=True)
+    return out["dk"], out["dv"], db
 
 
 def flash_bwd_fused(q, k, v, o, do, lse, bias=None, segment_ids=None,
@@ -437,12 +465,20 @@ def _sm_count(device):
 def _use_fused_bwd(bh, sq, sk, d, sms, dtype):
     """The backward schedule for ``bh`` = B*H heads of ``dtype`` on a card
     of ``sms`` SMs: fused when it fits (`_fits_fused`), unless
-    ``PADDLE_TPU_FLASH_FUSED_BWD=0``, and in f32 only when it is the
-    faster by the tile-step count.
+    ``PADDLE_TPU_FLASH_FUSED_BWD=0``, and only when it is the faster by
+    a count of waves and tile steps.
 
-    bf16: the fused kernel runs on the tensor cores and the pair on FMA;
-    it was the faster at every B*H and S that chip_smoke.py's
-    bwd_crossover times, down to a single 12-head sequence.
+    bf16: both schedules run on the tensor cores, one CTA an SM.  The
+    fused grid is one CTA a head, so it takes ceil(bh / sms) waves of
+    FUSED_WAVE_BF16 + ceil(Sk / 128) * ceil(Sq / 64) steps; the pair's
+    grids are 4x finer at S=512 (a CTA a 128-row tile: dQ ceil(Sq / 128)
+    CTAs a head walking ceil(Sk / 64) key tiles, dK/dV ceil(Sk / 128)
+    walking ceil(Sq / 64) query tiles), each wave costing
+    PAIR_WAVE_BF16, and at least PAIR_MIN_BF16 for its two launches.
+    So the fused kernel wins where its waves are full (B=60, H=12: 720
+    heads; B=10-11 at S=512) or the work is small (S <= 256 at B <= 4),
+    and the pair where the fused kernel's last wave is mostly empty (B=1-2
+    and 12-16 at S=512).
 
     f32: both schedules put one CTA on an SM and walk the score tiles in
     64 x 64 steps.  With ``nt`` = ceil(Sk / 64), the fused grid is one
@@ -456,7 +492,12 @@ def _use_fused_bwd(bh, sq, sk, d, sms, dtype):
             or os.getenv("PADDLE_TPU_FLASH_FUSED_BWD", "1") == "0"):
         return False
     if dtype == torch.bfloat16:
-        return True
+        p0, p1 = PAIR_WAVE_BF16
+        fused = -(-bh // sms) * (FUSED_WAVE_BF16
+                                 + -(-sk // 128) * -(-sq // 64))
+        pair = (-(-bh * -(-sq // 128) // sms) * (p0 + p1 * -(-sk // 64))
+                + -(-bh * -(-sk // 128) // sms) * (p0 + p1 * -(-sq // 64)))
+        return fused <= max(pair, PAIR_MIN_BF16)
     nt, mt = -(-sk // 64), -(-sq // 64)
     fused = -(-bh // sms) * nt * nt * FUSED_STEP_COST
     pair = -(-bh * mt // sms) * nt
@@ -479,11 +520,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, bias=None, segment_ids=None,
     if _use_fused_bwd(b * h, sq, sk, d, _sm_count(q.device), q.dtype):
         return flash_bwd_fused(q, k, v, o, do, lse, bias, segment_ids, scale,
                                causal, layout, bias_grad)
-    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, bias, segment_ids, scale,
-                             causal, layout)
-    dk, dv, db = flash_bwd_dkv(q, k, v, o, do, lse, delta, bias, segment_ids,
-                               scale, causal, layout, bias_grad)
-    return dq, dk, dv, db
+    out, _, db = _pair_launch(q, k, v, o, do, lse, None, bias, segment_ids,
+                              scale, causal, layout, bias_grad, dq=True,
+                              dkv=True)
+    return out["dq"], out["dk"], out["dv"], db
 
 
 # ---------------------------------------------------------------------------

@@ -173,6 +173,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 using namespace ptt::tcore;
 using ptt::hopper::c_to_a;
+using ptt::hopper::load_rows;
 using ptt::hopper::split2;
 using bf16 = __nv_bfloat16;
 
@@ -184,21 +185,6 @@ constexpr int QS = 32;     // queries of the score sub-tile a warp holds
 constexpr int tc_smem_bytes(int sq_pad) {
   return sq_pad * D * 4 + (KT + 4 * QT + 2 * KT) * LDT * 2 + 3 * MAX_S * 4 +
          2 * KT * 4;
-}
-
-// rows [row0, row0 + rows) of a strided [S, 64] bf16 slice into a padded
-// shared tile, 16 bytes a copy, rows at or past S as zeros
-template <int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long ss, int row0, int S) {
-#pragma unroll
-  for (int i = 0; i < ROWS * 8 / NT; ++i) {
-    const int id = threadIdx.x + i * NT;
-    const int r = id / 8, c = (id % 8) * 8;
-    const int row = row0 + r;
-    const bool ok = row < S;
-    cp_async16(dst + r * LDT + c, ok ? src + row * ss + c : src, ok);
-  }
 }
 
 // dQ accumulator element (r, c): columns swizzled by row against bank
@@ -246,22 +232,15 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_fused_tc(const Params p) {
     const int m_start =
         p.causal ? max(0, n0 - (Sk - Sq)) / QT * QT : 0;
     __syncthreads();  // the previous key tile's readers are done
-    load_rows<KT>(Ks, kb, p.k_s[1], n0, Sk);
-    load_rows<KT>(Vst, vb, p.v_s[1], n0, Sk);
+    load_rows<KT, D>(Ks, kb, p.k_s[1], n0, Sk);
+    load_rows<KT, D>(Vst, vb, p.v_s[1], n0, Sk);
     cp_async_commit();
     if (m_start < Sq) {
-      load_rows<QT>(QdO, qb, p.q_s[1], m_start, Sq);
-      load_rows<QT>(QdO + QT * LDT, dob, p.do_s[1], m_start, Sq);
+      load_rows<QT, D>(QdO, qb, p.q_s[1], m_start, Sq);
+      load_rows<QT, D>(QdO + QT * LDT, dob, p.do_s[1], m_start, Sq);
     }
     cp_async_commit();
-    if (MASKED)
-      for (int r = threadIdx.x; r < KT; r += NT) {
-        const int col = n0 + r;
-        const bool ok = col < Sk;
-        if (p.bias)
-          bias_s[r] = ok ? p.bias[b * p.bias_sb + h * p.bias_sh + col] : 0.f;
-        if (p.kseg) kseg_s[r] = ok ? p.kseg[b * Sk + col] : 0;
-      }
+    if (MASKED) load_key_masks(bias_s, kseg_s, p, b, h, n0, KT);
     cp_async_wait<0>();
     __syncthreads();
 
@@ -289,8 +268,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_fused_tc(const Params p) {
       __syncthreads();  // this tile has landed; the other stage is free
       if (m0 + QT < Sq) {
         bf16* nxt = QdO + ((it + 1) & 1) * 2 * QT * LDT;
-        load_rows<QT>(nxt, qb, p.q_s[1], m0 + QT, Sq);
-        load_rows<QT>(nxt + QT * LDT, dob, p.do_s[1], m0 + QT, Sq);
+        load_rows<QT, D>(nxt, qb, p.q_s[1], m0 + QT, Sq);
+        load_rows<QT, D>(nxt + QT * LDT, dob, p.do_s[1], m0 + QT, Sq);
       }
       cp_async_commit();
 

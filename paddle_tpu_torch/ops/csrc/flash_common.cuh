@@ -5,10 +5,10 @@
 // views, the score mask, and the register-tile products of the f32 FMA
 // kernels.
 //
-// Tile scheme of the FMA kernels (the f32 forward and fused backward,
-// and the dQ + dK/dV pair in both dtypes; the bf16 forward and fused
-// backward run on the tensor cores, flash_tc.cuh, and share only the
-// parameter block, the masks and the row statistics here): 256 threads
+// Tile scheme of the FMA kernels (the f32 forward, fused backward and
+// dQ + dK/dV pair; the bf16 kernels run on the tensor cores,
+// flash_tc.cuh, and share only the parameter block, the masks and the
+// row statistics here): 256 threads
 // as a 16 x 16 grid (ty, tx).  A 64 x 64 score tile is owned as 4 x 4
 // registers per thread: rows ty + 16 i, columns tx + 16 j.  A 64 x D
 // output tile is owned as rows ty + 16 i, columns tx + 16 c (c < D /
@@ -92,8 +92,8 @@ __device__ __forceinline__ void load_tile_pair(float* dst_a, const T* src_a,
 // per-query-tile segment ids, staged in shared memory.
 __device__ __forceinline__ void load_key_masks(float* bias_s, int* kseg_s,
                                                const Params& p, int b, int h,
-                                               int n0) {
-  for (int r = threadIdx.x; r < BN; r += NT) {
+                                               int n0, int rows = BN) {
+  for (int r = threadIdx.x; r < rows; r += NT) {
     const int col = n0 + r;
     const bool ok = col < p.Sk;
     if (p.bias)
@@ -301,19 +301,6 @@ __device__ __forceinline__ void store_key_tile(
     if (tx == 0 && col < p.Sk) p.dbias[base + col] = v;
   }
 }
-
-// Dispatch a kernel template over the (dtype, head dim) pairs the
-// wrappers accept: f32 or bf16, D = 64 or 128.
-#define PTT_FLASH_DISPATCH(p, LAUNCH)                                      \
-  do {                                                                     \
-    if ((p).dtype == ptt::kF32 && (p).D == 64) return LAUNCH(float, 64);   \
-    if ((p).dtype == ptt::kF32 && (p).D == 128) return LAUNCH(float, 128); \
-    if ((p).dtype == ptt::kBF16 && (p).D == 64)                            \
-      return LAUNCH(__nv_bfloat16, 64);                                    \
-    if ((p).dtype == ptt::kBF16 && (p).D == 128)                           \
-      return LAUNCH(__nv_bfloat16, 128);                                   \
-    return cudaErrorInvalidValue;                                          \
-  } while (0)
 
 }  // namespace flash
 }  // namespace ptt

@@ -44,6 +44,26 @@ __device__ __forceinline__ void c_to_a(const float* c0, const float* c1,
   split2(c1[2], c1[3], hi[3], lo[3]);
 }
 
+// rows [row0, row0 + ROWS) of a strided [S, D] bf16 slice into a shared
+// tile whose rows are padded to D + 8 elements (against ldmatrix bank
+// conflicts), 16 bytes a cp.async, rows at or past S as zeros
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss, int row0, int S) {
+  constexpr int CH = D / 8;  // 16-byte chunks of a row
+  static_assert(ROWS * CH % flash::NT == 0, "whole rounds of the CTA");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / flash::NT; ++i) {
+    const int id = threadIdx.x + i * flash::NT;
+    const int r = id / CH, c = (id % CH) * 8;
+    const int row = row0 + r;
+    const bool ok = row < S;
+    tcore::cp_async16(dst + r * (D + 8) + c, ok ? src + row * ss + c : src,
+                      ok);
+  }
+}
+
 // keeps the compiler from moving reads or writes of a register across
 // the asynchronous wgmma that owns it (an accumulator), or from reusing
 // it while a wgmma still reads it (a register A operand)

@@ -1,6 +1,7 @@
 """The numerical scheme of the bf16 flash kernels (`csrc/flash_fwd.cu`'s
-wgmma forward, `csrc/flash_bwd_fused.cu`'s mma.sync backward), modelled
-on the CPU and held to the port's f32 plain versions.
+wgmma forward, `csrc/flash_bwd_fused.cu`'s mma.sync backward and the
+mma.sync dQ + dK/dV pair of `csrc/flash_bwd.cu`), modelled on the CPU
+and held to the port's f32 plain versions.
 
 The model repeats the kernels' arithmetic: Q, K, V and dO are bf16 and
 enter the products exactly (each product of two bf16 values is exact in
@@ -8,14 +9,17 @@ f32); the operands the kernels form themselves, P in the forward and P
 and dS in the backward, are f32 and go into their products as two bf16
 halves, hi = bf16(x) and lo = bf16(x - hi), each product accumulated in
 f32; the forward walks 64-key tiles with the online-softmax rescale and
-rounds O to bf16 once at the end.
+rounds O to bf16 once at the end; the pair forms P and dS twice, by
+query rows in its dQ kernel and by keys in its dK/dV kernel, each
+walking 64-row tiles of the other axis.
 
 Limits: `chip_smoke.py`'s bf16 ones, which the kernels must meet on the
 card against the same f32 plain versions: atol 1e-5, rtol 2 * 2^-8 for O
 and the gradients (TOL / GRAD_TOL), atol 1e-4, rtol 1e-5 for the LSE
 (LSE_TOL).  A model that rounds P and dS to bf16 once, as a plain
 bf16 product would, must be further from the f32 result than the
-(hi, lo) model: that is what the second MMA buys.  The forward is also
+(hi, lo) model: that is what the second MMA buys; for the pair, at
+D = 64 and 128, it must break the limits outright.  The forward is also
 held against the JAX package's Pallas kernel in interpret mode on the
 same bf16 inputs, under the repo's bf16 policy (2e-2,
 ``PADDLE_TPU_FLASH_ACC``).
@@ -189,6 +193,70 @@ def test_fused_backward_scheme_meets_the_card_limits(s, causal, masked):
         assert not _bf16(got[0])[1, :, 3].any()
 
 
+def model_pair_bwd(q, k, v, o, do, lse, bias, segs, scale, causal,
+                   split=True, tile=64):
+    """The dQ + dK/dV pair's arithmetic from the forward's bf16 O and its
+    LSE: (dq, dk, dv in f32 before their bf16 rounding, dbias, delta).
+    The dQ kernel forms S = Q K^T, P and scale dS by query rows and adds
+    dQ += (scale dS) K over 64-key tiles; the dK/dV kernel forms S^T,
+    P^T and dS^T by keys and adds dV += P^T dO and dK += (scale dS^T) Q
+    over 64-query tiles; each formed operand enters its product as
+    (hi, lo) halves, or rounded once with ``split=False``."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    lse = lse.reshape(b, h, sq)
+    delta = (do * o).sum(dim=-1)               # the dQ kernel's prologue
+
+    def probs(s):
+        return torch.where(s <= NEG_INF / 2, 0.0,
+                           torch.exp(s - lse[..., None]))
+
+    # the dQ kernel: rows, walking key tiles
+    s_rows = _scores(q, k, bias, segs, scale, causal)
+    ds_rows = probs(s_rows) * (torch.einsum("bhqd,bhkd->bhqk", do, v)
+                               - delta[..., None]) * scale
+    dq = sum(_prod(ds_rows[..., n0:n0 + tile], k[:, :, n0:n0 + tile], split)
+             for n0 in range(0, sk, tile))
+    # the dK/dV kernel: keys, walking query tiles
+    st = _scores(q, k, bias, segs, scale, causal).transpose(-1, -2)
+    pt = torch.where(st <= NEG_INF / 2, 0.0,
+                     torch.exp(st - lse[:, :, None, :]))
+    dst = pt * (torch.einsum("bhkd,bhqd->bhkq", v, do) - delta[:, :, None])
+    dbias = dst.sum(dim=-1)[:, :, None, :]
+    dst = dst * scale
+    dk = sum(_prod(dst[..., m0:m0 + tile], q[:, :, m0:m0 + tile], split)
+             for m0 in range(0, sq, tile))
+    dv = sum(_prod(pt[..., m0:m0 + tile], do[:, :, m0:m0 + tile], split)
+             for m0 in range(0, sq, tile))
+    return dq, dk, dv, dbias, delta.reshape(b * h, sq)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,causal,masked", CASES)
+def test_pair_backward_scheme_meets_the_card_limits(s, causal, masked, d):
+    """dQ from dS, dK from dS^T and dV from P^T, each formed operand as
+    (hi, lo) halves, meet chip_smoke's limits against the f32 plain
+    version; rounded once to bf16, each output breaks them."""
+    q, k, v, do, bias, segs = _case(17 * s + d + 2 * causal + masked, s, d,
+                                    masked)
+    scale = d ** -0.5
+    o32, lse = model_fwd(q, k, v, bias, segs, scale, causal)
+    o = _bf16(o32)
+    want = ops.flash_attention_bwd_reference(
+        q, k, v, bias, segs, o, do, lse, scale, causal, layout="BHSD")
+    got = model_pair_bwd(q, k, v, o, do, lse, bias, segs, scale, causal)
+    once = model_pair_bwd(q, k, v, o, do, lse, bias, segs, scale, causal,
+                          split=False)
+    for name, g, w, g1 in zip(("dq", "dk", "dv"), got, want, once):
+        assert _share(_bf16(g), w, GRAD_TOL) <= 1.0, name
+        assert _share(_bf16(g1), w, GRAD_TOL) > 1.0, name
+    want_delta = (do * o).sum(dim=-1).reshape(B * H, s)
+    torch.testing.assert_close(got[4], want_delta, atol=1e-5, rtol=1e-4)
+    if masked:
+        assert _share(got[3], want[3], GRAD_TOL) <= 1.0
+        assert not _bf16(got[0])[1, :, 3].any()
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s,causal,masked", [(128, False, False),
                                              (200, True, True)])
@@ -209,7 +277,8 @@ def test_forward_scheme_matches_the_pallas_kernel_bf16(s, causal, masked, d):
 
 if __name__ == "__main__":
     # The largest share of its limit that the (hi, lo) model and the
-    # rounded-once model use over the cases above, D = 64:
+    # rounded-once model use over the cases above, D = 64 (forward, fused
+    # backward, pair):
     #   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_flash_numerics.py
     shares = {}
     for s, causal, masked in CASES:
@@ -229,5 +298,9 @@ if __name__ == "__main__":
                 _share(_bf16(of), want, TOL))
             shares.setdefault("backward " + key, []).append(max(
                 _share(_bf16(a), w, GRAD_TOL) for a, w in zip(g[:3], gw[:3])))
+            gp = model_pair_bwd(q, k, v, o, do, lse, bias, segs, 0.125, causal,
+                                split)
+            shares.setdefault("pair " + key, []).append(max(
+                _share(_bf16(a), w, GRAD_TOL) for a, w in zip(gp[:3], gw[:3])))
     for key, vals in shares.items():
         print("%-24s %.4f of the limit" % (key, max(vals)))
