@@ -8,8 +8,9 @@ each launched twice for bitwise-equal gradients; the bf16 forward at
 head dim 128 too, and the pair at head dim 128 over f32/bf16, S in
 {512, 1024}; the decode kernels at serving shapes; the
 fused-epilogue GEMM forward, dX and dW + dbias over f32/bf16, five
-activations, bias or not, z emitted or not, a ragged shape and the
-BERT FFN's own shape); times the fused against the pair backward over
+activations, bias or not, z emitted or not, a ragged shape, M = 1 and
+63, a bf16 shape whose M splits raggedly, and the BERT FFN's own shape,
+each backward launched twice for bitwise-equal outputs); times the fused against the pair backward over
 B*H around the SM count; runs full-width BERT-base once on the card and
 on the CPU with the same weights, with the default FFN and with
 PADDLE_TPU_FUSED_FFN=1; trains it as `bench.py`'s flagship step does
@@ -653,8 +654,9 @@ def gemm_tol(dtype, want, dz_rounded=False):
 def matmul_case(ops, gen, m, k, n, dt, act, approx, has_bias, scale=1.0):
     """Kernels 5-7 on one shape against their plain versions on the same
     inputs (bf16 upcast exactly): the forward with and without z, dX and
-    dW(+dbias) from the kernel's own residual.  Returns (errors, limit
-    shares, tensors) keyed by output."""
+    dW(+dbias) from the kernel's own residual, each backward launched
+    twice for bitwise-equal outputs.  Returns (errors, limit shares,
+    tensors) keyed by output."""
     x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
     w = (torch.randn(n, k, device="cuda", generator=gen) * scale
          * k ** -0.5).to(dt)
@@ -670,9 +672,14 @@ def matmul_case(ops, gen, m, k, n, dt, act, approx, has_bias, scale=1.0):
     res = z if kind == "z" else (y if kind == "y" else None)
     dx = ops.matmul_bwd_dx(g, res, w, act, approx)
     dw, db = ops.matmul_bwd_dw(x, g, res, act, approx, bias=b)
+    dx2 = ops.matmul_bwd_dx(g, res, w, act, approx)
+    dw2, db2 = ops.matmul_bwd_dw(x, g, res, act, approx, bias=b)
     torch.cuda.synchronize()
     if none is not None or not torch.equal(y, y_noz):
         raise AssertionError("%s: the forward without z differs" % name)
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            and (b is None or torch.equal(db, db2))):
+        raise AssertionError("%s: two backward launches differ" % name)
     xf, wf, bf, gf, rf = upcast(x, w, b, g, res)
     y_ref, z_ref = ops.matmul_bias_act_reference(xf, wf, bf, act, approx,
                                                  emit_z=True)
@@ -692,15 +699,26 @@ def matmul_case(ops, gen, m, k, n, dt, act, approx, has_bias, scale=1.0):
     return errs, shares, dict(x=x, w=w, b=b, g=g, res=res)
 
 
+# check_matmul's shapes (M, K, N): 128-tileable; ragged (every edge
+# masked); M = 1 and M = 63 (a consumer warpgroup of the bf16 backward
+# sees only zero rows); and, bf16 only, one whose M is not a multiple of
+# its dW split's chunk (`dw_split_plan`: 9 chunks of 448 rows)
+MM_SHAPES = ((256, 128, 384), (777, 264, 200), (1, 768, 3072),
+             (63, 264, 200))
+MM_SPLIT_SHAPE = (4000, 256, 512)
+
+
 def check_matmul(ops):
-    """Kernels 5-7 against their plain versions at small shapes: f32 and
-    bf16, the five activations, with and without a bias, z emitted and
-    not, on a 128-tileable shape and a ragged one (M, K, N = 777, 264,
-    200: every edge masked)."""
+    """Kernels 5-7 against their plain versions at small shapes
+    (MM_SHAPES, f32 and bf16; MM_SPLIT_SHAPE, bf16): the five
+    activations, with and without a bias, z emitted and not, each
+    backward twice for bitwise-equal outputs."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = []
     for dt in (torch.float32, torch.bfloat16):
-        for m, k, n in ((256, 128, 384), (777, 264, 200)):
+        shapes = MM_SHAPES + ((MM_SPLIT_SHAPE,) if dt == torch.bfloat16
+                              else ())
+        for m, k, n in shapes:
             for act, approx in MM_ACTS:
                 for has_bias in (False, True):
                     errs, shares, _ = matmul_case(ops, gen, m, k, n, dt, act,
@@ -709,7 +727,8 @@ def check_matmul(ops):
                                  "dtype": str(dt).replace("torch.", ""),
                                  "act": act + ("_tanh" if approx else ""),
                                  "bias": has_bias, "max_abs_err": errs,
-                                 "limit_share": shares})
+                                 "limit_share": shares,
+                                 "bwd_bitwise": True})
     worst = {tag: max(r["limit_share"].get(tag, 0.0) for r in rows)
              for tag in ("y", "z", "dx", "dw", "dbias")}
     emit({"phase": "kernel_check", "kernel": "matmul_bias_act",
@@ -720,9 +739,11 @@ def check_matmul(ops):
 def check_matmul_main_shape(ops):
     """Kernels 5-7 at the fused FFN's own shape (M = 60 * 512, K = 768, N
     = 3072, bf16, exact gelu, bias, z emitted; fc1's init scale): errors
-    against the plain versions, then each timed beside its plain
-    version and the library yardstick (F.linear + F.gelu; torch's dX,
-    and dW + dbias, of that composition on a retained graph)."""
+    against the plain versions (each backward launched twice, bitwise),
+    then each timed beside its plain version and the library yardstick
+    (F.linear + F.gelu; torch's dX, and dW + dbias, of that composition
+    on a retained graph); the backward's tile and dW's split of
+    M beside them."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -741,9 +762,12 @@ def check_matmul_main_shape(ops):
                                2 * m * n * k, dt),
         "matmul_bwd_dw": bound((m * k + 2 * m * n + n * k + n) * elt,
                                2 * m * n * k, dt)}
+    mm = ops.matmul
     row = {
         "M": m, "K": k, "N": n, "dtype": "bfloat16", "act": "gelu",
-        "max_abs_err": errs, "limit_share": shares,
+        "max_abs_err": errs, "limit_share": shares, "bwd_bitwise": True,
+        "bwd_tile": [mm.BWD_ROWS, mm.BWD_COLS],
+        "dw_splits": mm.dw_split_plan(m, n, k, mm._sm_count(x.device))[0],
         "fwd_ms": time_ms(fwd),
         "dx_ms": time_ms(lambda: ops.matmul_bwd_dx(g, res, w, "gelu")),
         "dw_ms": time_ms(lambda: ops.matmul_bwd_dw(x, g, res, "gelu",
@@ -2215,9 +2239,11 @@ def main():
     kernels += [
         mm_entry("matmul_bias_act", "matmul_bias_act.cu", "200",
                  max(mm_err["y"], mm_err["z"]), "fwd"),
-        mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"], "dx"),
-        mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
-                 max(mm_err["dw"], mm_err["dbias"]), "dw"),
+        dict(mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"],
+                      "dx"), tile=mm_main["bwd_tile"], splits=1),
+        dict(mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
+                      max(mm_err["dw"], mm_err["dbias"]), "dw"),
+             tile=mm_main["bwd_tile"], splits=mm_main["dw_splits"]),
     ]
 
     # the 1x1 conv + BN + relu kernel over one bf16 ResNet-50 forward at

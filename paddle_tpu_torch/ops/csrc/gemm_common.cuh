@@ -1,6 +1,6 @@
 // The GEMM scheme shared by the fused-epilogue matmul kernels
-// (matmul_bias_act.cu, matmul_bwd.cu) and the 1x1-conv + BN kernels
-// (conv_bn_relu.cu, conv_bn_stats.cu): one templated tile GEMM
+// (matmul_bias_act.cu, and matmul_bwd.cu in f32) and the 1x1-conv + BN
+// kernels (conv_bn_relu.cu, conv_bn_stats.cu): one templated tile GEMM
 //
 //   C[r][c] = sum_k A(r, k) B(c, k)        (f32 accumulation)
 //
@@ -12,50 +12,45 @@
 //   kDw   dw [N, K]  dZ[k][r]    (MN-major)   x[k][c]     M  (MN-major)
 //
 // "K-major": the contraction index is the contiguous one; "MN-major":
-// the output index is.  dZ = dY * act'(residual) is formed on chip from
-// the dY and residual tiles (the residual is z for gelu, y for relu and
-// tanh, absent for none) and never written to device memory.  The
-// forward adds the f32 bias and applies the activation to the f32
-// accumulator before its one writeback, and optionally writes z; with
-// the kBnRelu epilogue it applies max(acc * scale[c] + shift[c], 0)
-// instead (the folded eval-mode BatchNorm and relu, f32); with the
-// kStats epilogue it stores the accumulator as it is and writes the
-// CTA's per-column (mean, M2) of its valid rows of the f32 accumulator,
-// the tile's mean first and then the squares about it (two passes over
-// the registers, so no sum of squares cancels), to a partials buffer
-// that a second launch merges (conv_bn_stats.cu).  The
-// dW mode also sums dZ over M into dbias in the CTAs of column tile 0
-// (every M tile of a row tile passes through the same CTA, so no
-// atomics and no second pass: deterministic), as the reference sums it
-// in its kb == 0 sweep (paddle_tpu/ops/pallas/matmul.py:322-333).
+// the output index is.  What each replaces:
+// * kFwd: paddle_tpu/ops/pallas/matmul.py:200 `_fwd_kernel` (kernel 5)
+//   with the bias + activation epilogue: the bias is added to the f32
+//   accumulator and the activation applied before the one writeback,
+//   optionally writing z; benchmarks/fused_conv_bn_relu_experiment.py:32
+//   `fused_kernel` (kernel 10) with the kBnRelu epilogue, max(acc *
+//   scale[c] + shift[c], 0) (the folded eval-mode BatchNorm and relu,
+//   f32); and :141 `fused_stats_kernel` (kernel 11) with the kStats
+//   epilogue, which stores the accumulator as it is and writes the CTA's
+//   per-column (mean, M2) of its valid rows of the f32 accumulator, the
+//   tile's mean first and then the squares about it (two passes over the
+//   registers, so no sum of squares cancels), to a partials buffer that a
+//   second launch merges (conv_bn_stats.cu).
+// * kDx, kDw: matmul.py:272 `_bwd_dx_kernel` and :296 `_bwd_dw_kernel`
+//   (kernels 6 and 7) in f32 only: dZ = dY * act'(residual) (the
+//   residual is z for gelu, y for relu and tanh, absent for none) is
+//   formed as the A tile is stored, and the dW mode sums dZ over M into
+//   dbias in the CTAs of column tile 0 (every M tile of a row tile passes
+//   through the same CTA: no atomics, deterministic).  Their bf16
+//   kernels are gemm_tc.cuh's (wgmma + TMA, dZ in registers).
 //
-// Two kernels per mode:
-// * bf16 (`tc::gemm_bf16`): tensor cores, mma.sync.m16n8k16 bf16 -> f32.
-//   CTA tile 128 x 128 x 32, 8 warps of 64 x 32, a cp.async ring of
-//   shared tiles padded against bank conflicts ([128][40] K-major,
-//   [32][136] MN-major), 3 stages in the forward and 2 in dX / dW (whose
-//   shared memory also holds the dZ tile and a gelu-derivative table, and
-//   two CTAs must fit an SM).  Fragments come from ldmatrix: K-major operands
-//   plain, MN-major operands with ldmatrix.trans, which is how the forward
-//   reads both x and w along K, dX reads w [N, K] transposed, and dW reads
-//   dZ and x transposed.  In the dX / dW modes the 256 threads turn each
-//   stage's dY and residual tiles into one shared dZ tile (rounded to
-//   bf16 for the tensor cores; the dbias sum takes the f32 value) before
-//   the warps multiply; gelu's derivative comes from a table of every
-//   bf16 z in range (`build_table`).  Ragged M, N, K edges load as zeros
-//   (cp.async zero-fill; a zero dY gives a zero dZ) and are not stored;
-//   16-byte loads need K and N to be multiples of 8.
-// * f32 (`simt::gemm_f32`): exact f32 FMA (no TF32), 64 x 64 x 16 tiles of
-//   shared memory, 4 x 4 outputs a thread, dZ formed as the A tile is
-//   stored; any shape.
+// What bounds them on this card: at the BERT FFN shape (M = 30720, K =
+// 768, N = 3072, bf16) the forward's product is 1.45e11 FLOP, 0.147 ms
+// at 989 TFLOP/s, against ~0.43 GB of traffic, 0.128 ms at 3.35 TB/s:
+// compute-bound; most of ResNet-50's 1x1 convs (small K or N) are
+// bytes-bound (conv_bn_relu.cu, conv_bn_stats.cu).  Two kernels:
+// * bf16, kFwd only (`tc::gemm_bf16`): tensor cores, mma.sync.m16n8k16
+//   bf16 -> f32.  CTA tile 128 x 128 x 32, 8 warps of 64 x 32, a 3-stage
+//   cp.async ring of K-major tiles padded against bank conflicts
+//   ([128][40]), fragments from ldmatrix; ragged M, N, K edges load as
+//   zeros (cp.async zero-fill) and are not stored; 16-byte loads need K
+//   and N to be multiples of 8.
+// * f32, every mode (`simt::gemm_f32`): exact f32 FMA (no TF32), 64 x 64
+//   x 16 tiles of shared memory, 4 x 4 outputs a thread; any shape.
 //
-// What is left for later (measured on the H100 at the BERT FFN shape,
-// PERF.md): the mainloop runs at about a third of cuBLAS's rate on the
-// same products, so wgmma + TMA with warp specialisation; forming dZ
-// doubles the time of dX (each of the K / 128 column CTAs forms the same
-// dZ tile again, and its lookups and tile traffic load shared memory);
-// split-M for the dW grid (N/128 x K/128 = 144 CTAs, barely one wave of
-// 132 SMs); a shared staging of the output tile for full-line stores.
+// What is left for later (PERF.md): the bf16 forward's mainloop runs at
+// about a third of cuBLAS's rate on the same product, so wgmma + TMA
+// with warp specialisation, as the backward has (gemm_tc.cuh), and a
+// shared staging of the output tile for full-line stores.
 #pragma once
 
 #include "common.cuh"
@@ -182,94 +177,27 @@ __device__ __forceinline__ void epilogue2(const Args& p, int r, int c,
 
 namespace tc {
 
-// smem_u32, cp_async16, cp_async_commit, cp_async_wait, ldsm_x4,
-// ldsm_x4_t, mma: tc_common.cuh
+// smem_u32, cp_async16, cp_async_commit, cp_async_wait, ldsm_x4, mma:
+// tc_common.cuh
 using namespace ::ptt::tcore;
 
-constexpr int BM = 128, BN = 128, BK = 32, NT = 256;
-constexpr int KM_LD = BK + 8;     // K-major tile [128][40]
-constexpr int MN_LD = BM + 8;     // MN-major tile [32][136]
-constexpr int TILE = BM * KM_LD;  // elements of one tile buffer
-static_assert(BK * MN_LD <= TILE, "an MN-major tile fits a buffer");
+constexpr int BM = 128, BN = 128, BK = 32, NT = 256, STAGES = 3;
+constexpr int LD = BK + 8;       // a K-major tile [128][40]
+constexpr int TILE = BM * LD;    // elements of one tile buffer
 static_assert(BM == BN, "one tile geometry for A and B");
+// the cp.async ring: an A and a B tile a stage
+constexpr int SMEM_BYTES =
+    STAGES * 2 * TILE * static_cast<int>(sizeof(__nv_bfloat16));
 
-// The gelu derivative of every bf16 z with 2^-16 <= |z| < 2^4 (20
-// binades x 128 mantissas x 2 signs), built in shared memory by each CTA
-// of the dX / dW kernels from the same act_bwd, so a table entry times
-// dY is the value act_bwd would give.  It replaces the erf and exp of
-// each dZ element by one lookup; z outside the range (0.002% of a
-// N(0, 0.55^2) pre-activation falls below it) takes act_bwd itself.  At
-// the BERT FFN shape on the H100 it took dX from 1.47 to 1.35 ms and dW
-// from 2.75 to 2.16 ms (chip_smoke.py's matmul_main_shape); its 20 KB
-// take the place of a third cp.async stage, so that two CTAs still fit
-// an SM.
-constexpr int TAB_BINADES = 20;
-constexpr int TAB_LO = (127 + 4 - TAB_BINADES) << 7;  // bits of 2^(4 - binades)
-constexpr int TAB_HALF = TAB_BINADES * 128;
-constexpr int TAB_SIZE = 2 * TAB_HALF;
-
-template <int ACT>
-__host__ __device__ constexpr bool has_table() {
-  return ACT == kGelu || ACT == kGeluTanh;
-}
-
-template <int MODE>
-__host__ __device__ constexpr int stages() {  // of the cp.async ring
-  return Geo<MODE>::DZ ? 2 : 3;
-}
-
-template <int MODE>
-__host__ __device__ constexpr int stage_tiles() {  // A (R), B
-  return Geo<MODE>::DZ ? 3 : 2;
-}
-
-// the cp.async ring, the dZ tile, and the derivative table
-template <int MODE, int ACT>
-__host__ __device__ constexpr int smem_bytes() {
-  return (stages<MODE>() * stage_tiles<MODE>() + (Geo<MODE>::DZ ? 1 : 0)) *
-             TILE * static_cast<int>(sizeof(__nv_bfloat16)) +
-         (Geo<MODE>::DZ && has_table<ACT>() ? TAB_SIZE * 4 : 0);
-}
-
-template <int ACT>
-__device__ __forceinline__ void build_table(float* tab) {
-  for (int i = threadIdx.x; i < TAB_SIZE; i += NT) {
-    const int bits = (i / TAB_HALF) << 15 | (TAB_LO + i % TAB_HALF);
-    tab[i] = act_bwd<ACT>(
-        1.f, __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(bits))));
-  }
-}
-
-// dZ of one element from dY (f32) and the bf16 residual
-template <int ACT>
-__device__ __forceinline__ float dz_of(float g, __nv_bfloat16 r,
-                                       const float* tab) {
-  if (has_table<ACT>()) {
-    const unsigned short bits = __bfloat16_as_ushort(r);
-    const unsigned u = static_cast<unsigned>((bits & 0x7FFF) - TAB_LO);
-    if (u < TAB_HALF) return g * tab[(bits >> 15) * TAB_HALF + u];
-  }
-  return act_bwd<ACT>(g, __bfloat162float(r));
-}
-
-// Thread's 16-byte chunk i of a tile: its shared offset and its (row,
-// k) in the tile.  K-major [128][BK]: 4 chunks a row; MN-major [BK][128]:
-// 16 chunks a contraction row.
-template <bool KM>
+// Thread's 16-byte chunk i of a K-major tile [128][BK] (4 chunks a
+// row): its shared offset and its (row, k) in the tile.
 __device__ __forceinline__ void chunk(int id, int& off, int& r, int& k) {
-  if (KM) {
-    r = id >> 2;
-    k = (id & 3) * 8;
-    off = r * KM_LD + k;
-  } else {
-    k = id >> 4;
-    r = (id & 15) * 8;
-    off = k * MN_LD + r;
-  }
+  r = id >> 2;
+  k = (id & 3) * 8;
+  off = r * LD + k;
 }
 
 // One operand tile of rows [r0, r0 + 128) and contraction [k0, k0 + BK)
-template <bool KM>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* s,
                                           const __nv_bfloat16* g,
                                           long long ld, int r0, int rlim,
@@ -277,52 +205,16 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     int off, r, k;
-    chunk<KM>(threadIdx.x + i * NT, off, r, k);
+    chunk(threadIdx.x + i * NT, off, r, k);
     const int gr = r0 + r, gk = k0 + k;
     const bool ok = gr < rlim && gk < klim;
-    const long long o = KM ? gr * ld + gk : gk * ld + gr;
-    cp_async16(s + off, ok ? g + o : g, ok);
-  }
-}
-
-// dZ tile from a stage's dY and residual tiles.  In kDw (MN-major) a
-// thread always holds the same 8 output rows (tid & 15), so `bsum`
-// carries their f32 column sums of dZ across the whole M loop.
-template <bool KM, int ACT>
-__device__ __forceinline__ void make_dz(__nv_bfloat16* dz,
-                                        const __nv_bfloat16* g,
-                                        const __nv_bfloat16* res,
-                                        const float* tab, float (&bsum)[8],
-                                        bool sum) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int off, r, k;
-    chunk<KM>(threadIdx.x + i * NT, off, r, k);
-    const uint4 gv = *reinterpret_cast<const uint4*>(g + off);
-    uint4 rv = make_uint4(0, 0, 0, 0);
-    if (ACT != kNone) rv = *reinterpret_cast<const uint4*>(res + off);
-    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
-    const __nv_bfloat16* r1 = reinterpret_cast<const __nv_bfloat16*>(&rv);
-    uint4 ov;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&ov);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 gf = __bfloat1622float2(g2[j]);
-      const float d0 = dz_of<ACT>(gf.x, r1[2 * j], tab);
-      const float d1 = dz_of<ACT>(gf.y, r1[2 * j + 1], tab);
-      if (sum) {
-        bsum[2 * j] += d0;
-        bsum[2 * j + 1] += d1;
-      }
-      o2[j] = __floats2bfloat162_rn(d0, d1);
-    }
-    *reinterpret_cast<uint4*>(dz + off) = ov;
+    cp_async16(s + off, ok ? g + gr * ld + gk : g, ok);
   }
 }
 
 // One BK slice of the CTA tile: warp (wr, wc) owns rows wr*64 .. +64 and
-// columns wc*32 .. +32, i.e. 4 x 4 mma tiles of 16 x 8.
-template <bool A_KM, bool B_KM>
+// columns wc*32 .. +32, i.e. 4 x 4 mma tiles of 16 x 8; both operands
+// K-major, so ldmatrix loads them untransposed.
 __device__ __forceinline__ void mma_slice(const __nv_bfloat16* As,
                                           const __nv_bfloat16* Bs,
                                           float (&acc)[4][4][4], int wr,
@@ -333,22 +225,14 @@ __device__ __forceinline__ void mma_slice(const __nv_bfloat16* As,
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
       const int r0 = wr * 64 + mi * 16;
-      if (A_KM)
-        ldsm_x4(a[mi], As + (r0 + (lane & 15)) * KM_LD + kk + (lane >> 4) * 8);
-      else
-        ldsm_x4_t(a[mi], As + (kk + (lane & 7) + (lane >> 4) * 8) * MN_LD +
-                             r0 + ((lane >> 3) & 1) * 8);
+      ldsm_x4(a[mi], As + (r0 + (lane & 15)) * LD + kk + (lane >> 4) * 8);
     }
 #pragma unroll
     for (int nj = 0; nj < 2; ++nj) {
       const int c0 = wc * 32 + nj * 16;
       uint32_t t[4];
-      if (B_KM)
-        ldsm_x4(t, Bs + (c0 + (lane & 7) + (lane >> 4) * 8) * KM_LD + kk +
-                       ((lane >> 3) & 1) * 8);
-      else
-        ldsm_x4_t(t, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * MN_LD +
-                         c0 + (lane >> 4) * 8);
+      ldsm_x4(t, Bs + (c0 + (lane & 7) + (lane >> 4) * 8) * LD + kk +
+                     ((lane >> 3) & 1) * 8);
       b[2 * nj][0] = t[0];
       b[2 * nj][1] = t[1];
       b[2 * nj + 1][0] = t[2];
@@ -411,33 +295,24 @@ __device__ __forceinline__ void tile_stats(const Args& p,
   }
 }
 
-template <int MODE, int ACT>
+// The forward (kFwd) GEMM of one 128 x 128 output tile
+template <int ACT>
 __device__ __forceinline__ void gemm_bf16(const Args& p) {
-  using G = Geo<MODE>;
-  constexpr int ST = stage_tiles<MODE>();
-  constexpr int STAGES = stages<MODE>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dzbuf = smem + STAGES * ST * TILE;
-  float* tab = reinterpret_cast<float*>(dzbuf + TILE);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wr = warp >> 2, wc = warp & 3;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const auto* A = static_cast<const __nv_bfloat16*>(p.a);
-  const auto* R = static_cast<const __nv_bfloat16*>(p.res);
   const auto* B = static_cast<const __nv_bfloat16*>(p.b);
   const int nk = (p.depth + BK - 1) / BK;
-  const bool sum = MODE == kDw && p.dbias != nullptr && blockIdx.x == 0;
 
   auto load_stage = [&](int kt) {
-    __nv_bfloat16* s = smem + (kt % STAGES) * ST * TILE;
+    __nv_bfloat16* s = smem + (kt % STAGES) * 2 * TILE;
     const int k0 = kt * BK;
-    load_tile<G::A_KM>(s, A, p.lda, row0, p.rows, k0, p.depth);
-    if (G::DZ && ACT != kNone)
-      load_tile<G::A_KM>(s + TILE, R, p.lda, row0, p.rows, k0, p.depth);
-    load_tile<G::B_KM>(s + (ST - 1) * TILE, B, p.ldb, col0, p.cols, k0,
-                       p.depth);
+    load_tile(s, A, p.lda, row0, p.rows, k0, p.depth);
+    load_tile(s + TILE, B, p.ldb, col0, p.cols, k0, p.depth);
   };
 
   float acc[4][4][4];
@@ -447,29 +322,19 @@ __device__ __forceinline__ void gemm_bf16(const Args& p) {
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  float bsum[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) bsum[j] = 0.f;
 
 #pragma unroll
   for (int kt = 0; kt < STAGES - 1; ++kt) {
     if (kt < nk) load_stage(kt);
     cp_async_commit();
   }
-  if (G::DZ && has_table<ACT>()) build_table<ACT>(tab);  // read after a sync
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage kt landed; every warp is done with kt - 1
     if (kt + STAGES - 1 < nk) load_stage(kt + STAGES - 1);
     cp_async_commit();
-    const __nv_bfloat16* s = smem + (kt % STAGES) * ST * TILE;
-    const __nv_bfloat16* As = s;
-    if (G::DZ) {
-      make_dz<G::A_KM, ACT>(dzbuf, s, s + TILE, tab, bsum, sum);
-      __syncthreads();
-      As = dzbuf;
-    }
-    mma_slice<G::A_KM, G::B_KM>(As, s + (ST - 1) * TILE, acc, wr, wc, lane);
+    const __nv_bfloat16* s = smem + (kt % STAGES) * 2 * TILE;
+    mma_slice(s, s + TILE, acc, wr, wc, lane);
   }
   cp_async_wait<0>();
 
@@ -483,25 +348,10 @@ __device__ __forceinline__ void gemm_bf16(const Args& p) {
         const int r = row0 + wr * 64 + mi * 16 + g + h * 8;
         const int c = col0 + wc * 32 + ni * 8 + q * 2;
         if (r < p.rows && c < p.cols)
-          epilogue2<__nv_bfloat16, MODE, ACT>(p, r, c, acc[mi][ni][2 * h],
+          epilogue2<__nv_bfloat16, kFwd, ACT>(p, r, c, acc[mi][ni][2 * h],
                                               acc[mi][ni][2 * h + 1]);
       }
-  if constexpr (MODE == kFwd && ACT == kStats)
-    tile_stats(p, acc, smem_raw, row0, col0);
-
-  if (sum) {  // uniform over the CTA
-    __syncthreads();
-    float* red = reinterpret_cast<float*>(smem_raw);  // [16][BM]
-#pragma unroll
-    for (int j = 0; j < 8; ++j) red[(tid >> 4) * BM + (tid & 15) * 8 + j] = bsum[j];
-    __syncthreads();
-    if (tid < BM && row0 + tid < p.rows) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) s += red[i * BM + tid];
-      store_vec(p.dbias, p.bias_dtype, row0 + tid, s);
-    }
-  }
+  if constexpr (ACT == kStats) tile_stats(p, acc, smem_raw, row0, col0);
 }
 
 }  // namespace tc
@@ -661,31 +511,35 @@ __device__ __forceinline__ void gemm_f32(const Args& p) {
 // ---------------------------------------------------------------------------
 
 // One kernel name per mode and dtype, so a profile bills each on its own
-// (chip_smoke.py's KERNEL_CATEGORIES).
-#define PTT_GEMM_KERNELS(MODE, NAME)                                  \
+// (chip_smoke.py's KERNEL_CATEGORIES).  The bf16 backward's kernels are
+// gemm_tc.cuh's.
+#define PTT_GEMM_BF16(NAME)                                           \
   template <int ACT>                                                  \
   __global__ void __launch_bounds__(tc::NT, 2) NAME##_bf16(const Args p) { \
-    tc::gemm_bf16<MODE, ACT>(p);                                      \
-  }                                                                   \
+    tc::gemm_bf16<ACT>(p);                                            \
+  }
+#define PTT_GEMM_F32(MODE, NAME)                                      \
   template <int ACT>                                                  \
   __global__ void __launch_bounds__(simt::NT) NAME##_f32(const Args p) {   \
     simt::gemm_f32<MODE, ACT>(p);                                     \
   }
-PTT_GEMM_KERNELS(kFwd, matmul_fwd)
-PTT_GEMM_KERNELS(kDx, matmul_dx)
-PTT_GEMM_KERNELS(kDw, matmul_dw)
-PTT_GEMM_KERNELS(kFwd, conv_bn_relu)
-PTT_GEMM_KERNELS(kFwd, conv_bn_stats)
-#undef PTT_GEMM_KERNELS
+PTT_GEMM_BF16(matmul_fwd)
+PTT_GEMM_F32(kFwd, matmul_fwd)
+PTT_GEMM_F32(kDx, matmul_dx)
+PTT_GEMM_F32(kDw, matmul_dw)
+PTT_GEMM_BF16(conv_bn_relu)
+PTT_GEMM_F32(kFwd, conv_bn_relu)
+PTT_GEMM_BF16(conv_bn_stats)
+PTT_GEMM_F32(kFwd, conv_bn_stats)
+#undef PTT_GEMM_BF16
+#undef PTT_GEMM_F32
 
 // the kernels of one mode only, so each library instantiates its own
-template <int MODE, int ACT>
+template <int ACT>
 auto bf16_kernel() {
-  if constexpr (MODE == kFwd && ACT == kBnRelu) return conv_bn_relu_bf16<ACT>;
-  else if constexpr (MODE == kFwd && ACT == kStats) return conv_bn_stats_bf16<ACT>;
-  else if constexpr (MODE == kFwd) return matmul_fwd_bf16<ACT>;
-  else if constexpr (MODE == kDx) return matmul_dx_bf16<ACT>;
-  else return matmul_dw_bf16<ACT>;
+  if constexpr (ACT == kBnRelu) return conv_bn_relu_bf16<ACT>;
+  else if constexpr (ACT == kStats) return conv_bn_stats_bf16<ACT>;
+  else return matmul_fwd_bf16<ACT>;
 }
 template <int MODE, int ACT>
 auto f32_kernel() {
@@ -699,13 +553,17 @@ auto f32_kernel() {
 template <int MODE, int ACT>
 cudaError_t launch_act(const Args& p, int dtype, cudaStream_t stream) {
   if (dtype == kBF16) {
-    auto kern = bf16_kernel<MODE, ACT>();
-    constexpr int bytes = tc::smem_bytes<MODE, ACT>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid((p.cols + tc::BN - 1) / tc::BN, (p.rows + tc::BM - 1) / tc::BM);
-    kern<<<grid, tc::NT, bytes, stream>>>(p);
+    if constexpr (MODE != kFwd) {
+      return cudaErrorInvalidValue;  // the bf16 backward: gemm_tc.cuh
+    } else {
+      auto kern = bf16_kernel<ACT>();
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
+      if (err != cudaSuccess) return err;
+      dim3 grid((p.cols + tc::BN - 1) / tc::BN,
+                (p.rows + tc::BM - 1) / tc::BM);
+      kern<<<grid, tc::NT, tc::SMEM_BYTES, stream>>>(p);
+    }
   } else {
     auto kern = f32_kernel<MODE, ACT>();
     dim3 grid((p.cols + simt::BM - 1) / simt::BM,

@@ -13,7 +13,11 @@ Counterpart of `paddle_tpu.ops.pallas.matmul` (the kernels, the
 * ``matmul_bwd_dx`` / ``matmul_bwd_dw`` (``csrc/matmul_bwd.cu``): dX =
   dZ w and dW = dZᵀ x with dbias = the column sum of dZ, where dZ =
   dY·act'(residual) is recomputed on chip from dY and the residual and
-  never written to device memory.
+  never written to device memory.  In bf16 they run on `wgmma` + TMA
+  (``csrc/gemm_tc.cuh``) with dZ formed in registers; the dW kernel
+  splits M into chunks (`dw_split_plan`) whose f32 partials, in a
+  workspace from PyTorch's caching allocator, a second launch merges in
+  a fixed order.
 
 **Weight layout.**  ``w`` is ``[N, K]`` (out, in), as `nn.Linear.weight`
 and `F.linear` take it, so a Linear hands its weight over with no
@@ -34,11 +38,12 @@ contracts it in f32), which `chip_smoke.py` adds to its limit.
 Unlike the JAX dispatch there is no naive fallback: a CUDA tensor always
 launches the kernels, at any M, N and K (ragged edges are masked in the
 kernels); bf16 operands need K and N to be multiples of 8 (16-byte
-loads).  Operands must be contiguous: the wrappers raise rather than
-copy.  The ``block_m/n/k`` knobs and ``PADDLE_TPU_GEMM_BLOCKS`` keep the
-reference's contract (explicit non-divisors raise, explicit beats the
-environment) but do not select the card's tile yet: each kernel has its
-own.
+loads).  Operands must be contiguous and 16-byte aligned (TMA and
+16-byte loads): the wrappers raise rather than copy, and the backward
+wrappers hold that contract on CPU tensors too.  The ``block_m/n/k``
+knobs and ``PADDLE_TPU_GEMM_BLOCKS`` keep the reference's contract
+(explicit non-divisors raise, explicit beats the environment) but do
+not select the card's tile yet: each kernel has its own.
 """
 
 from __future__ import annotations
@@ -50,9 +55,9 @@ import torch
 
 from . import _build
 
-__all__ = ["ACTIVATIONS", "matmul_bias_act", "matmul_bias_act_bwd_reference",
-           "matmul_bias_act_fwd", "matmul_bias_act_reference",
-           "matmul_bwd_dw", "matmul_bwd_dx"]
+__all__ = ["ACTIVATIONS", "dw_split_plan", "matmul_bias_act",
+           "matmul_bias_act_bwd_reference", "matmul_bias_act_fwd",
+           "matmul_bias_act_reference", "matmul_bwd_dw", "matmul_bwd_dx"]
 
 ACTIVATIONS = ("none", "relu", "tanh", "gelu")
 
@@ -67,7 +72,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _DX_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_DW_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_DW_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+
+# The bf16 backward kernels (csrc/gemm_tc.cuh): 128 x 256 outputs a CTA,
+# 64 contraction rows a stage.
+BWD_ROWS, BWD_COLS, BWD_DEPTH = 128, 256, 64
+# dW's split of M (`dw_split_plan`): at most MAX_SPLITS chunks; a CTA's
+# pipeline fill and epilogue cost about SPLIT_OVERHEAD stages, and each
+# f32 partial element, written and merged, about SPLIT_MERGE_COST.
+MAX_SPLITS = 16
+SPLIT_OVERHEAD = 6.0
+SPLIT_MERGE_COST = 4e-6
+H100_SMS = 132
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +289,44 @@ def matmul_bias_act_bwd_reference(x, w, bias, res, g, activation="none",
 # ---------------------------------------------------------------------------
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def dw_split_plan(m, n, k, sms=H100_SMS):
+    """The bf16 dW kernel's split of M: ``(splits, chunk)``, ``chunk`` a
+    multiple of 64 rows and ``splits = ceil(m / chunk)`` chunks, none
+    empty (the last may be short).  Of the splits into at most
+    MAX_SPLITS chunks it takes the one a wave model finds cheapest: each
+    of the ``tiles x splits`` CTAs walks its chunk's stages plus
+    SPLIT_OVERHEAD, ``sms`` at a time, and a split run writes and merges
+    ``splits + 1`` f32 copies of dW at SPLIT_MERGE_COST stages an
+    element.  The first of equal costs wins."""
+    tiles = _cdiv(n, BWD_ROWS) * _cdiv(k, BWD_COLS)
+    stages = _cdiv(m, BWD_DEPTH)
+    best = None
+    for s in range(1, min(stages, MAX_SPLITS) + 1):
+        per = _cdiv(stages, s)
+        splits = _cdiv(stages, per)
+        cost = _cdiv(tiles * splits, sms) * (per + SPLIT_OVERHEAD)
+        if splits > 1:
+            cost += (splits + 1) * n * k * SPLIT_MERGE_COST
+        if best is None or cost < best[0]:
+            best = (cost, splits, per * BWD_DEPTH)
+    return best[1], best[2]
+
+
+_SMS = {}
+
+
+def _sm_count(device):
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _act_code(activation, approximate):
     _check_activation(activation)
     if activation == "gelu" and approximate:
@@ -280,14 +334,14 @@ def _act_code(activation, approximate):
     return _ACT_CODES[activation]
 
 
-def _check_cuda(name, ref, *named):
-    """Every operand a kernel reads or writes: on ``ref``'s CUDA device,
+def _check_operands(name, ref, *named):
+    """Every operand a kernel reads or writes: on ``ref``'s device,
     contiguous, f32 / bf16 (the named ones in ``ref``'s dtype), and
-    16-byte aligned (the bf16 kernel's loads)."""
+    16-byte aligned (TMA and the 16-byte loads)."""
     for arg, t in named:
         if t is None:
             continue
-        if not t.is_cuda or t.device != ref.device:
+        if t.device != ref.device:
             raise ValueError("%s: %s must lie on %s with x" % (name, arg,
                                                              ref.device))
         if not t.is_contiguous():
@@ -336,7 +390,8 @@ def matmul_bias_act_fwd(x, w, bias=None, activation="none",
     _check_args(x, w, bias, activation)
     m, k = x.shape
     n = w.shape[0]
-    _check_cuda("matmul_bias_act", x, ("x", x), ("w", w), ("bias", bias))
+    _check_operands("matmul_bias_act", x, ("x", x), ("w", w),
+                    ("bias", bias))
     _check_dims("matmul_bias_act", x.dtype, m, n, k)
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if emit_z else None
@@ -352,18 +407,19 @@ def matmul_bias_act_fwd(x, w, bias=None, activation="none",
 
 def matmul_bwd_dx(g, res, w, activation="none", approximate=False):
     """The row-parallel dX kernel: dX ``[M, K]`` = (g·act'(res)) w, in
-    g's dtype.  CPU tensors take the plain version."""
-    if not g.is_cuda:
-        dz = _dz_reference(g, res, activation, approximate)
-        return torch.matmul(dz, w.float()).to(g.dtype)
+    g's dtype.  The operand contract holds on any device; CPU tensors
+    then take the plain version."""
     if g.dim() != 2 or w.dim() != 2 or w.shape[0] != g.shape[1]:
         raise ValueError("matmul_bwd_dx: dY [M, N] %s and w [N, K] %s "
                          "disagree" % (tuple(g.shape), tuple(w.shape)))
     m, n = g.shape
     k = w.shape[1]
-    _check_cuda("matmul_bwd_dx", g, ("g", g), ("res", res), ("w", w))
+    _check_operands("matmul_bwd_dx", g, ("g", g), ("res", res), ("w", w))
     _check_dims("matmul_bwd_dx", g.dtype, m, n, k)
     _check_residual("matmul_bwd_dx", res, g, activation)
+    if not g.is_cuda:
+        dz = _dz_reference(g, res, activation, approximate)
+        return torch.matmul(dz, w.float()).to(g.dtype)
     dx = torch.empty(m, k, dtype=g.dtype, device=g.device)
     _build.launch(
         "matmul_bwd", "matmul_bwd_dx", _DX_ARGTYPES, g.data_ptr(), _ptr(res),
@@ -379,12 +435,10 @@ def matmul_bwd_dw(x, g, res, activation="none", approximate=False,
     """The column-parallel dW kernel: ``(dw, dbias)`` with dW ``[N, K]``
     = (g·act'(res))ᵀ x in x's dtype and, when ``bias`` is given, dbias
     = the column sum of dZ in the bias's dtype (taken by the CTAs of
-    the first K tile alone: no atomics, deterministic).  CPU tensors
-    take the plain version."""
-    if not x.is_cuda:
-        dz = _dz_reference(g, res, activation, approximate)
-        return (torch.matmul(dz.t(), x.float()).to(x.dtype),
-                None if bias is None else dz.sum(dim=0).to(bias.dtype))
+    the first K tile alone, in a fixed order: no atomics,
+    deterministic).  In bf16, M is cut as `dw_split_plan` says.  The
+    operand contract holds on any device; CPU tensors then take the
+    plain version."""
     if x.dim() != 2 or g.dim() != 2 or g.shape[0] != x.shape[0]:
         raise ValueError("matmul_bwd_dw: x [M, K] %s and dY [M, N] %s "
                          "disagree" % (tuple(x.shape), tuple(g.shape)))
@@ -393,22 +447,43 @@ def matmul_bwd_dw(x, g, res, activation="none", approximate=False,
                          % (g.shape[1], tuple(bias.shape)))
     m, k = x.shape
     n = g.shape[1]
-    _check_cuda("matmul_bwd_dw", x, ("x", x), ("g", g), ("res", res))
+    _check_operands("matmul_bwd_dw", x, ("x", x), ("g", g), ("res", res))
     _check_dims("matmul_bwd_dw", x.dtype, m, n, k)
     _check_residual("matmul_bwd_dw", res, g, activation)
+    if bias is not None:
+        _build.dtype_code(bias)
+    if not x.is_cuda:
+        dz = _dz_reference(g, res, activation, approximate)
+        return (torch.matmul(dz.t(), x.float()).to(x.dtype),
+                None if bias is None else dz.sum(dim=0).to(bias.dtype))
     dw = torch.empty(n, k, dtype=x.dtype, device=x.device)
     db = None
     if bias is not None:
         db = torch.empty(n, dtype=bias.dtype, device=x.device)
-        _build.dtype_code(db)
-    _build.launch(
-        "matmul_bwd", "matmul_bwd_dw", _DW_ARGTYPES, x.data_ptr(),
-        g.data_ptr(), _ptr(res), dw.data_ptr(), _ptr(db), m, n, k,
-        _act_code(activation, approximate), _build.dtype_code(x),
-        0 if db is None else _build.dtype_code(db),
-        _build.stream_ptr(x.device))
+    splits, chunk = 1, m  # the f32 kernel takes no split
+    if x.dtype == torch.bfloat16:
+        splits, chunk = dw_split_plan(m, n, k, _sm_count(x.device))
+    _launch_dw(x, g, res, dw, db, activation, approximate, splits, chunk)
     matmul_bwd_dw.launches += 1
     return dw, db
+
+
+def _launch_dw(x, g, res, dw, db, activation, approximate, splits, chunk):
+    """The dW launch with an explicit plan; with ``splits`` > 1 its f32
+    partials take a workspace from the caching allocator, on the
+    current stream."""
+    m, k = x.shape
+    n = g.shape[1]
+    ws = None
+    if splits > 1:
+        ws = torch.empty(splits * n * (k + 1), dtype=torch.float32,
+                         device=x.device)
+    _build.launch(
+        "matmul_bwd", "matmul_bwd_dw", _DW_ARGTYPES, x.data_ptr(),
+        g.data_ptr(), _ptr(res), dw.data_ptr(), _ptr(db), _ptr(ws), m, n,
+        k, chunk, _act_code(activation, approximate),
+        _build.dtype_code(x), 0 if db is None else _build.dtype_code(db),
+        _build.stream_ptr(x.device))
 
 
 for _fn in (matmul_bias_act_fwd, matmul_bwd_dx, matmul_bwd_dw):
