@@ -112,6 +112,30 @@ def time_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+def queued_ms(fn, iters=20, warmup=3):
+    """The card's time for one call of ``fn``: the timed calls queue
+    behind a sleep kernel long enough for the host to enqueue them all,
+    so the card runs them back to back.  Back-to-back CUDA events around
+    a wrapper whose kernel is shorter than its host work (the decode
+    kernels) read the host's enqueue rate instead (`time_ms`)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t        # one call, host and card
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(0.2, 2 * iters * host_s + 1e-3) * 2e9))
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -543,81 +567,177 @@ def check_bwd_crossover(ops):
     return rows
 
 
-def check_decode(ops):
-    import torch.nn.functional as F
+# check_decode's serving shape: 8 slots of a 1024-position cache in
+# 16-row blocks, these lengths; then one slot of 1024 (where the split
+# of the key range matters most), and lengths at the chunk plan's edges
+DECODE_T, DECODE_BS = 1024, 16
+DECODE_LENGTHS = (0, 1, 17, 1024, 300, 511, 64, 900)
 
-    n, t, bs = 8, 1024, 16
-    mb = t // bs
-    lengths_l = [0, 1, 17, 1024, 300, 511, 64, 900]
-    gen = torch.Generator(device="cuda").manual_seed(1)
+
+def decode_inputs(ops, gen, lengths_l, d=D, dt=torch.float32, t=DECODE_T,
+                  bs=DECODE_BS, stale=False):
+    """One decode step's operands: q [N, H, d], K and V pools [N * t / bs
+    + 1, bs, H, d] shuffled so that slot n's live blocks are scattered
+    pool blocks, tables whose entries past ceil(len / bs) are 0 (the
+    garbage block) or, with ``stale``, other slots' live blocks, the
+    gathered dense caches and the int32 lengths."""
+    n, mb = len(lengths_l), t // bs
     lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
-    q = torch.randn(n, H, D, device="cuda", generator=gen)
-    # a shuffled pool: slot n's live blocks are scattered pool blocks,
-    # entries past ceil(len / bs) are 0 (the garbage block)
+    q = torch.randn(n, H, d, device="cuda", generator=gen).to(dt)
     nb = n * mb + 1
-    k_pool = torch.randn(nb, bs, H, D, device="cuda", generator=gen)
-    v_pool = torch.randn(nb, bs, H, D, device="cuda", generator=gen)
+    k_pool = torch.randn(nb, bs, H, d, device="cuda", generator=gen).to(dt)
+    v_pool = torch.randn(nb, bs, H, d, device="cuda", generator=gen).to(dt)
     perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2))
     tables = torch.zeros(n, mb, dtype=torch.int32)
     used = 0
     for i, ln in enumerate(lengths_l):
         need = -(-ln // bs)
         tables[i, :need] = perm[used:used + need] + 1
+        if stale:
+            tables[i, need:] = perm[(used + need + torch.arange(mb - need))
+                                    % (nb - 1)] + 1
         used += need
     tables = tables.cuda()
     k_dense = ops.paged_gather_kv(k_pool, tables).contiguous()
     v_dense = ops.paged_gather_kv(v_pool, tables).contiguous()
-    scale = D ** -0.5
+    return q, k_pool, v_pool, tables, k_dense, v_dense, lengths
 
-    dense = ops.decode_attention(q, k_dense, v_dense, lengths, scale=scale)
-    paged = ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths,
-                                       scale=scale)
+
+def decode_bytes(lengths_l, d, dt, bs=DECODE_BS):
+    """(bytes, flops) of one decode step: q and the output, each live K
+    and V row once, the lengths (the paged kernel adds its live table
+    entries: 4 bytes a live block)."""
+    elt = torch.finfo(dt).bits // 8
+    live = sum(lengths_l)
+    nbytes = 2 * len(lengths_l) * H * d * elt + 2 * live * H * d * elt \
+        + 4 * len(lengths_l)
+    return nbytes, 4 * live * H * d
+
+
+def decode_case(ops, gen, lengths_l, d=D, dt=torch.float32, stale=False):
+    """The dense and paged kernels on one step, each launched twice:
+    raises unless the four outputs are bitwise equal, an empty slot
+    emits zeros and both lie within TOL of their plain versions (f32,
+    on the same inputs upcast).  Returns (error, limit share, operands)."""
+    q, k_pool, v_pool, tables, k_dense, v_dense, lengths = decode_inputs(
+        ops, gen, lengths_l, d, dt, stale=stale)
+    scale = d ** -0.5
+    name = "decode N=%d D=%d %s%s" % (len(lengths_l), d,
+                                      str(dt).replace("torch.", ""),
+                                      " stale" if stale else "")
+    outs = [ops.decode_attention(q, k_dense, v_dense, lengths, scale=scale),
+            ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                                       scale=scale)]
+    outs += [ops.decode_attention(q, k_dense, v_dense, lengths, scale=scale),
+             ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                                        scale=scale)]
     torch.cuda.synchronize()
-    if not torch.equal(dense, paged):
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
         raise AssertionError(
-            "dense and paged decode differ: max %g"
-            % (dense - paged).abs().max().item())
-    if dense[0].abs().max().item() != 0.0:
-        raise AssertionError("an empty slot did not emit zeros")
+            "%s: dense, paged and their second launches differ: max %g"
+            % (name, max((outs[0].float() - o.float()).abs().max().item()
+                         for o in outs[1:])))
+    for i, ln in enumerate(lengths_l):
+        if ln == 0 and outs[0][i].abs().max().item() != 0.0:
+            raise AssertionError("%s: an empty slot did not emit zeros"
+                                 % name)
+    qf, kf, vf = upcast(q, k_dense, v_dense)
+    want = ops.decode_attention_reference(qf, kf, vf, lengths, scale)
+    want_p = ops.paged_decode_attention_reference(
+        *upcast(q, k_pool, v_pool), tables, lengths, scale)
+    err, share = compare(name, outs[0], want, TOL[dt])
+    compare(name + " paged", outs[1], want_p, TOL[dt])
+    return err, share, (q, k_pool, v_pool, tables, k_dense, v_dense,
+                        lengths, scale)
+
+
+def check_decode(ops):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.decode_attention import (decode_head_groups,
+                                                       decode_split_plan)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lengths_l = list(DECODE_LENGTHS)
+    n, t, bs = len(lengths_l), DECODE_T, DECODE_BS
+    err, share, ins = decode_case(ops, gen, lengths_l)
+    q, k_pool, v_pool, tables, k_dense, v_dense, lengths, scale = ins
+    chunk, chunks = decode_split_plan(t)
+    plan = {"chunk": chunk, "chunks": chunks, "heads_a_cta":
+            decode_head_groups(H)}
+
+    # the split's own cases: one slot of T, bf16, D = 128, and lengths at
+    # the plan's edges with stale table entries past them
+    edge = [0, 1, bs - 1, chunk - 1, chunk, chunk + 1, t - 1, t]
+    cases = [(lengths_l, D, torch.bfloat16, False),
+             (lengths_l, 128, torch.float32, False),
+             (lengths_l, 128, torch.bfloat16, False),
+             (edge, D, torch.float32, True), (edge, 128, torch.bfloat16, True)]
+    rows = []
+    for ls, d, dt, stale in cases:
+        e, sh, _ = decode_case(ops, gen, ls, d, dt, stale)
+        rows.append({"lengths": ls, "D": d,
+                     "dtype": str(dt).replace("torch.", ""), "stale": stale,
+                     "max_abs_err": e, "limit_share": sh})
+    _, one_share, one = decode_case(ops, gen, [t])
+    q1, kp1, vp1, tb1, kd1, vd1, len1, _ = one
+
+    def paged_ms(*a):
+        return queued_ms(lambda: ops.paged_decode_attention(*a, scale=scale))
+
+    def dense_ms(*a):
+        return queued_ms(lambda: ops.decode_attention(*a, scale=scale))
+
+    nbytes, flops = decode_bytes(lengths_l, D, torch.float32)
+    bms, by = bound(nbytes, flops, torch.float32)
+    live_blocks = sum(-(-ln // bs) for ln in lengths_l)
+    bms_p, by_p = bound(nbytes + live_blocks * 4, flops, torch.float32)
+    nb1, fl1 = decode_bytes([t], D, torch.float32)
+    one_bound = bound(nb1 + (t // bs) * 4, fl1, torch.float32)
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qs, kt, vt = q[:, :, None], k_dense.transpose(1, 2), v_dense.transpose(1, 2)
+    dense_call = lambda: ops.decode_attention(  # noqa: E731
+        q, k_dense, v_dense, lengths, scale=scale)
+    paged_call = lambda: ops.paged_decode_attention(  # noqa: E731
+        q, k_pool, v_pool, tables, lengths, scale=scale)
     dense_plain = lambda: ops.decode_attention_reference(  # noqa: E731
         q, k_dense, v_dense, lengths, scale)
     paged_plain = lambda: ops.paged_decode_attention_reference(  # noqa: E731
         q, k_pool, v_pool, tables, lengths, scale)
-    err_d = compare("decode dense", dense, dense_plain(),
-                    TOL[torch.float32])[0]
-    err_p = compare("decode paged", paged, paged_plain(),
-                    TOL[torch.float32])[0]
-
-    live = sum(lengths_l)
-    nbytes = (2 * q.numel() * 4 + 2 * live * H * D * 4 + n * 4)
-    flops = 4 * live * H * D
-    bms, by = bound(nbytes, flops, torch.float32)
-    live_blocks = sum(-(-ln // bs) for ln in lengths_l)
-    bms_p, by_p = bound(nbytes + live_blocks * 4, flops, torch.float32)
-    mask = (torch.arange(t, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    qs, kt, vt = q[:, :, None], k_dense.transpose(1, 2), v_dense.transpose(1, 2)
+    # ms, plain_ms, library_ms: the card's time (`queued_ms`); call_ms:
+    # back-to-back calls as a caller issues them, host included;
+    # device_ms: the kernel alone, from the profiler
     dense_row = {
-        "max_abs_err": err_d,
-        "ms": time_ms(lambda: ops.decode_attention(q, k_dense, v_dense,
-                                                   lengths, scale=scale)),
-        "plain_ms": time_ms(dense_plain),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+        "max_abs_err": err,
+        "ms": queued_ms(dense_call),
+        "call_ms": time_ms(dense_call),
+        "device_ms": device_ms(dense_call, "decode_attention"),
+        "plain_ms": queued_ms(dense_plain),
+        "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
             qs, kt, vt, attn_mask=mask, scale=scale)),
-        "bound_ms": bms, "bound_by": by}
+        "bound_ms": bms, "bound_by": by, "plan": plan,
+        "one_slot_ms": dense_ms(q1, kd1, vd1, len1)}
     paged_row = {
-        "max_abs_err": err_p,
-        "ms": time_ms(lambda: ops.paged_decode_attention(
-            q, k_pool, v_pool, tables, lengths, scale=scale)),
-        "plain_ms": time_ms(paged_plain),
+        "max_abs_err": err,
+        "ms": queued_ms(paged_call),
+        "call_ms": time_ms(paged_call),
+        "device_ms": device_ms(paged_call, "paged_attention"),
+        "plain_ms": queued_ms(paged_plain),
         "library_ms": None,
-        "bound_ms": bms_p, "bound_by": by_p}
+        "bound_ms": bms_p, "bound_by": by_p, "plan": plan,
+        "one_slot_ms": paged_ms(q1, kp1, vp1, tb1, len1),
+        "one_slot_device_ms": device_ms(lambda: ops.paged_decode_attention(
+            q1, kp1, vp1, tb1, len1, scale=scale), "paged_attention"),
+        "one_slot_bound_ms": one_bound[0]}
     emit({"phase": "kernel_check", "kernel": "decode_attention", "N": n,
-          "T": t, "H": H, "D": D, "lengths": lengths_l, **dense_row})
+          "T": t, "H": H, "D": D, "lengths": lengths_l,
+          "limit_share": share, **dense_row})
     emit({"phase": "kernel_check", "kernel": "paged_attention", "N": n,
-          "bs": bs, "max_blocks": mb, "H": H, "D": D,
+          "bs": bs, "max_blocks": t // bs, "H": H, "D": D,
           "lengths": lengths_l, "dense_equals_paged_bitwise": True,
-          **paged_row})
+          "launches_bitwise": True, "one_slot_limit_share": one_share,
+          "cases": rows, **paged_row})
     return dense_row, paged_row
 
 
@@ -654,7 +774,7 @@ def gemm_tol(dtype, want, dz_rounded=False):
 def matmul_case(ops, gen, m, k, n, dt, act, approx, has_bias, scale=1.0):
     """Kernels 5-7 on one shape against their plain versions on the same
     inputs (bf16 upcast exactly): the forward with and without z, dX and
-    dW(+dbias) from the kernel's own residual, each backward launched
+    dW(+dbias) from the kernel's own residual, each kernel launched
     twice for bitwise-equal outputs.  Returns (errors, limit shares,
     tensors) keyed by output."""
     x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
@@ -668,6 +788,7 @@ def matmul_case(ops, gen, m, k, n, dt, act, approx, has_bias, scale=1.0):
         "(tanh)" if approx else "", has_bias)
     kind = ops.matmul._residual_kind(act)
     y, z = ops.matmul_bias_act_fwd(x, w, b, act, approx, emit_z=True)
+    y2, z2 = ops.matmul_bias_act_fwd(x, w, b, act, approx, emit_z=True)
     y_noz, none = ops.matmul_bias_act_fwd(x, w, b, act, approx)
     res = z if kind == "z" else (y if kind == "y" else None)
     dx = ops.matmul_bwd_dx(g, res, w, act, approx)
@@ -677,6 +798,8 @@ def matmul_case(ops, gen, m, k, n, dt, act, approx, has_bias, scale=1.0):
     torch.cuda.synchronize()
     if none is not None or not torch.equal(y, y_noz):
         raise AssertionError("%s: the forward without z differs" % name)
+    if not (torch.equal(y, y2) and torch.equal(z, z2)):
+        raise AssertionError("%s: two forward launches differ" % name)
     if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)
             and (b is None or torch.equal(db, db2))):
         raise AssertionError("%s: two backward launches differ" % name)
@@ -728,7 +851,7 @@ def check_matmul(ops):
                                  "act": act + ("_tanh" if approx else ""),
                                  "bias": has_bias, "max_abs_err": errs,
                                  "limit_share": shares,
-                                 "bwd_bitwise": True})
+                                 "launches_bitwise": True})
     worst = {tag: max(r["limit_share"].get(tag, 0.0) for r in rows)
              for tag in ("y", "z", "dx", "dw", "dbias")}
     emit({"phase": "kernel_check", "kernel": "matmul_bias_act",
@@ -765,7 +888,11 @@ def check_matmul_main_shape(ops):
     mm = ops.matmul
     row = {
         "M": m, "K": k, "N": n, "dtype": "bfloat16", "act": "gelu",
-        "max_abs_err": errs, "limit_share": shares, "bwd_bitwise": True,
+        "max_abs_err": errs, "limit_share": shares,
+        "launches_bitwise": True,
+        "fwd_tile": [mm.FWD_ROWS, mm.FWD_COLS],
+        "fwd_ctas": mm.fwd_schedule(m, n, mm._sm_count(x.device)),
+        "fwd_tiles": mm.fwd_tiles(m, n),
         "bwd_tile": [mm.BWD_ROWS, mm.BWD_COLS],
         "dw_splits": mm.dw_split_plan(m, n, k, mm._sm_count(x.device))[0],
         "fwd_ms": time_ms(fwd),
@@ -1309,6 +1436,21 @@ def device_profile(run):
             "by_category_ms": {k: [v[0] / 1e3, v[1]] for k, v in sorted(
                 by_cat.items(), key=lambda kv: -kv[1][0])},
             "top_kernels_ms": [[k, v[0] / 1e3, v[1]] for k, v in top]}
+
+
+def device_ms(fn, category, iters=20, warmup=3):
+    """One launch's device time of the kernel of ``category`` in ``fn``:
+    its time summed over ``iters`` calls from torch.profiler's CUDA
+    activity, over its launches.  Back-to-back CUDA events around a
+    short kernel's wrapper read the host's time to enqueue it instead."""
+    for _ in range(warmup):
+        fn()
+    prof = device_profile(lambda: [fn() for _ in range(iters)])
+    ms, n = prof["by_category_ms"].get(category, (0.0, 0))
+    if n < iters:
+        raise AssertionError("device_ms: %d %s launches in %d calls"
+                             % (n, category, iters))
+    return ms / n
 
 
 def profile_engine(gen, model, reqs):
@@ -2108,6 +2250,34 @@ def run_resnet_train(ptt, params):
     return stats_rows, main_rows, launches
 
 
+# the kernels this slice redesigned, whose ptxas report the build phase
+# lists on its own (kernel 5 must not spill)
+REDESIGNED_KERNELS = ("matmul_fwd_tc", "decode_dense_kernel",
+                      "decode_paged_kernel")
+
+
+def ptxas_summary(logs, names):
+    """{function: {"registers": n, "spill_bytes": n}} from nvcc's
+    -Xptxas -v output, for the functions whose mangled name holds one
+    of ``names``."""
+    import re
+
+    out, fn = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                fn = m.group(1) if any(k in m.group(1) for k in names) \
+                    else None
+            elif fn and "spill stores" in ln:
+                out.setdefault(fn, {})["spill_bytes"] = int(re.search(
+                    r"(\d+) bytes spill stores", ln).group(1))
+            elif fn and "Used" in ln and "registers" in ln:
+                out.setdefault(fn, {})["registers"] = int(re.search(
+                    r"Used (\d+) registers", ln).group(1))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2133,9 +2303,14 @@ def main():
                     if "registers" in ln or "spill" in ln
                     or "Function properties" in ln]
              for name, log in _build.build_logs.items()}
+    redesigned = ptxas_summary(_build.build_logs, REDESIGNED_KERNELS)
     emit({"phase": "build", "seconds": build_s,
           "libraries": {k: str(v) for k, v in paths.items()},
-          "ptxas": ptxas})
+          "redesigned_kernels_ptxas": redesigned, "ptxas": ptxas})
+    spilled = [f for f, r in redesigned.items()
+               if "matmul_fwd_tc" in f and r["spill_bytes"]]
+    if spilled:
+        raise AssertionError("kernel 5 spills: %s" % spilled)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2237,8 +2412,12 @@ def main():
                     library_ms=mm_main["library_%s_ms" % tag])
 
     kernels += [
-        mm_entry("matmul_bias_act", "matmul_bias_act.cu", "200",
-                 max(mm_err["y"], mm_err["z"]), "fwd"),
+        dict(mm_entry("matmul_bias_act", "matmul_bias_act.cu", "200",
+                      max(mm_err["y"], mm_err["z"]), "fwd"),
+             tile=mm_main["fwd_tile"],
+             schedule="%d CTAs over %d tiles" % (mm_main["fwd_ctas"],
+                                                 mm_main["fwd_tiles"]),
+             cublas_gemm_ms=mm_main["cublas_gemm_ms"]["fwd"]),
         dict(mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"],
                       "dx"), tile=mm_main["bwd_tile"], splits=1),
         dict(mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",

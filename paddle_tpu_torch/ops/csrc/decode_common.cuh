@@ -6,50 +6,53 @@
 //   dense  — an identity table: block n, row t of a [N, T, H, D] cache;
 //   paged  — block tables[n][t / bs], row t % bs of a [NB, bs, H, D] pool.
 //
-// Everything else — the 16-row key tile over logical positions, the
-// order of every sum and max — is this one body, so on identical cache
-// contents the dense and paged kernels return bitwise-equal outputs
-// (the engine's paged == dense check rests on it).
+// Everything else — the chunks of the key range, the order of every sum
+// and max — is this one body, so on identical cache contents and the
+// same chunk plan the dense and paged kernels return bitwise-equal
+// outputs (the engine's paged == dense check rests on it).
 //
 // Per (slot, head), with len = lengths[n]:
 //   s[t]  = scale * q . k[t]            t < len
 //   out   = softmax(s) @ v              (len == 0: zeros)
-// in f32, with an online softmax over the tiles.  Only rows t < len are
-// read, so a paged slot reads only its first ceil(len / bs) table
-// entries; entries past that may be 0 (the garbage block) or stale.
+// in f32.  Only rows t < len are read, so a paged slot reads only its
+// first ceil(len / bs) table entries; entries past that may be 0 (the
+// garbage block) or stale.
 //
 // What bounds it on this card: every live K and V byte is read once for
 // 4 * D flops per row pair — about 0.5 flop per f32 byte, far below the
-// card's ridge, so the kernel is bound by device-memory bytes.  The
-// design reads each live row exactly once and skips everything past
-// the length.  One CTA per (slot, head): at 8 slots x 12 heads that is
-// 96 CTAs on 132 SMs, each walking its rows in sequence, so a CTA's
-// time is the chain of memory latencies along its slot's tiles.  The
-// body hides what it can of that chain with a two-stage register
-// pipeline: while tile i is scored and summed, tile i + 1's K and V
-// values are in flight and tile i + 2's cache rows (its table entries,
-// for the paged kernel) are being resolved, so a tile costs about one
-// memory latency, not the four a paged tile costs unpipelined.  The
-// card's bandwidth is still not reached; splitting the key range across
-// CTAs (split-K) is later work.
+// card's ridge, so the kernel is bound by device-memory bytes, and at
+// serving sizes (a few MB) by how many loads are in flight.
 //
-// Block: 128 threads = 4 warps.  For each 16-row tile, warp w scores
-// keys 4w .. 4w+3 (each lane holds D/32 query values; the dot product
-// reduces with a fixed xor-shuffle tree) and writes them to shared
-// memory; every thread then reads the 16 scores and updates the same
-// (m, l) in the same order; for P.V, thread (g, d) with g = tid / D
-// accumulates output column d over the tile's keys j with j % (128/D) == g,
-// in increasing j, and the (128/D) partial sums are added in order
-// through shared memory at the end.  The pipeline moves loads earlier
-// and changes no sum's order.
+// Design: a split of the key range (flash-decoding).  The host plans
+// chunks of `chunk` positions, whole pool blocks, from the cache's
+// capacity alone (ops/decode_attention.py `decode_split_plan`; never
+// from the lengths, which live on the card).  The grid is (chunk c,
+// slot n, head group); a CTA has one warp a head of its group and
+// exits at once when its chunk starts at or past len.
+// * A warp walks its chunk's rows for its head with 16-byte loads: a
+//   row of D values is LPR lanes of VE values (f32, D = 64: 16 lanes of
+//   4), so a warp step covers RPW = 32 / LPR rows, one a row group.  A
+//   batch of UNROLL steps resolves its rows (table entries) first, then
+//   issues every K and V load, then scores and sums, so a warp keeps
+//   UNROLL * 2 * 16 bytes a lane in flight.  The warps of a CTA read
+//   neighbouring heads of the same rows, one contiguous run of hg * D
+//   values a row (ops/decode_attention.py `decode_head_groups`).
+// * Each row group keeps an online softmax (m, l, acc) over its rows
+//   (one rescale a batch); the row groups merge by a fixed xor-shuffle
+//   tree, so every lane of the warp holds the chunk's partial.
+// * One live chunk: the warp writes out = acc / l.  Otherwise each CTA
+//   writes its partials (m, l) and acc (f32) to a workspace, and the
+//   last CTA of its (slot, head group) to finish (an integer counter,
+//   reset by that CTA for the next launch) merges them in chunk order:
+//   M = max m_c, L = sum l_c e^(m_c - M), out = sum acc_c e^(m_c - M) / L.
+//   No float atomics, so launches agree bit for bit.
 #pragma once
 
 #include "common.cuh"
 
 namespace ptt {
 
-constexpr int DEC_NT = 128;
-constexpr int DEC_TILE = 16;
+constexpr int DEC_UNROLL = 8;  // warp steps a batch
 
 // identity table: slot n's cache is block n, row t
 struct DenseAddr {
@@ -70,152 +73,241 @@ struct PagedAddr {
   }
 };
 
-// Per-thread view of one 16-row tile: the cache rows this thread reads
-// (KPW keys of its warp for Q.K, VPT keys of its group g for P.V) and
-// the values read from them.
-template <int D>
-struct DecTile {
-  static constexpr int VPL = D / 32;                  // query values per lane
-  static constexpr int KSPLIT = DEC_NT / D;           // P.V key groups
-  static constexpr int KPW = DEC_TILE / (DEC_NT / 32);  // keys per warp
-  static constexpr int VPT = DEC_TILE / KSPLIT;       // P.V keys per thread
-  long long krow[KPW], vrow[VPT];
-  float k[KPW][VPL], v[VPT];
+// A cache row as 16-byte lane slices: VE values a lane, LPR lanes a
+// row, RPW rows a warp step.
+template <typename T, int D>
+struct RowGeo {
+  static constexpr int VE = 16 / static_cast<int>(sizeof(T));
+  static constexpr int LPR = D / VE;
+  static constexpr int RPW = 32 / LPR;
+  static_assert(LPR <= 32 && 32 % LPR == 0, "a row within a warp");
 };
 
-template <int D, typename Addr>
-__device__ __forceinline__ void tile_rows(DecTile<D>& tl, const Addr& addr,
-                                          int n, int t0, int len, int warp,
-                                          int g) {
+struct DecArgs {
+  const void* q;        // [N, H, D]
+  const void* k;        // cache or pool, rows of [H, D]
+  const void* v;
+  void* o;              // [N, H, D]
+  const int* lengths;   // [N]
+  float* acc;           // [N, H, chunks, D] partials
+  float* ml;            // [N, H, chunks, 2] partials (m, l)
+  int* counters;        // [N, groups], zero between launches
+  int H, hg;            // heads, heads a CTA (its warps)
+  int chunk, chunks;    // positions a chunk (whole blocks), chunks a slot
+  int cap;              // positions the cache holds for a slot
+  float scale;
+};
+
+// 16 bytes as VE floats
+__device__ __forceinline__ void to_floats(uint4 v, float (&x)[4]) {
+  x[0] = __uint_as_float(v.x);
+  x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z);
+  x[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void to_floats(uint4 v, float (&x)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int kk = 0; kk < DecTile<D>::KPW; ++kk) {
-    const int t = t0 + warp * DecTile<D>::KPW + kk;
-    tl.krow[kk] = t < len ? addr.row(n, t) : 0;
-  }
-#pragma unroll
-  for (int jj = 0; jj < DecTile<D>::VPT; ++jj) {
-    const int t = t0 + jj * DecTile<D>::KSPLIT + g;
-    tl.vrow[jj] = t < len ? addr.row(n, t) : 0;
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
 }
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+// VE floats to 16 bytes at p
+__device__ __forceinline__ void store16(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&x)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
 
-template <typename T, int D>
-__device__ __forceinline__ void tile_load(DecTile<D>& tl,
-                                          const T* __restrict__ kc,
-                                          const T* __restrict__ vc,
-                                          long long hd, int h, int t0,
-                                          int len, int warp, int lane, int g,
-                                          int d) {
+// (m, l, acc) of another row group merged into this one's; both lanes
+// of a pair compute the same bits (IEEE sums and products commute)
+template <int VE>
+__device__ __forceinline__ void merge_xor(float& m, float& l,
+                                          float (&acc)[VE], int off) {
+  const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+  const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+  const float mn = fmaxf(m, mo);
+  const float a = expf(m - mn), b = expf(mo - mn);
+  l = l * a + lo * b;
 #pragma unroll
-  for (int kk = 0; kk < DecTile<D>::KPW; ++kk) {
-    const int t = t0 + warp * DecTile<D>::KPW + kk;
-    const T* kr = kc + tl.krow[kk] * hd + h * D;
-#pragma unroll
-    for (int i = 0; i < DecTile<D>::VPL; ++i)
-      tl.k[kk][i] = t < len ? to_f(kr[lane + 32 * i]) : 0.f;
+  for (int i = 0; i < VE; ++i) {
+    const float ao = __shfl_xor_sync(0xffffffffu, acc[i], off);
+    acc[i] = acc[i] * a + ao * b;
   }
-#pragma unroll
-  for (int jj = 0; jj < DecTile<D>::VPT; ++jj) {
-    const int t = t0 + jj * DecTile<D>::KSPLIT + g;
-    tl.v[jj] = t < len ? to_f(vc[tl.vrow[jj] * hd + h * D + d]) : 0.f;
-  }
+  m = mn;
 }
 
 template <typename T, int D, typename Addr>
-__device__ __forceinline__ void decode_body(const T* __restrict__ q,
-                                            const T* __restrict__ kc,
-                                            const T* __restrict__ vc,
-                                            T* __restrict__ o, int H, int n,
-                                            int h, int len, float scale,
-                                            Addr addr) {
-  static_assert(D % 32 == 0 && DEC_NT % D == 0, "head dim 32, 64 or 128");
-  using Tile = DecTile<D>;
-  constexpr int VPL = Tile::VPL;
-  constexpr int KSPLIT = Tile::KSPLIT;
-  constexpr int KPW = Tile::KPW;
-  __shared__ float s_sc[DEC_TILE];
-  __shared__ float s_acc[KSPLIT][D];
+__device__ __forceinline__ void decode_split(const DecArgs& p, Addr addr) {
+  using G = RowGeo<T, D>;
+  constexpr int VE = G::VE, LPR = G::LPR, RPW = G::RPW;
+  const int c = blockIdx.x, n = blockIdx.y, grp = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h = grp * p.hg + warp;
+  const bool head = h < p.H;
+  const int len = max(0, min(p.lengths[n], p.cap));
+  const int live = (len + p.chunk - 1) / p.chunk;
+  const int rg = lane / LPR, e0 = (lane % LPR) * VE;
+  const long long hd = static_cast<long long>(p.H) * D;
+  const long long qoff = (static_cast<long long>(n) * p.H + h) * D + e0;
+  T* out = static_cast<T*>(p.o);
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = tid / D, d = tid % D;
-  const long long hd = static_cast<long long>(H) * D;
-  const long long qoff = (static_cast<long long>(n) * H + h) * D;
-
-  float qv[VPL];
+  if (live == 0) {  // an empty slot emits zeros
+    if (c == 0 && head && rg == 0) {
+      float z[VE];
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) qv[i] = to_f(q[qoff + lane + 32 * i]);
-
-  // cur: the tile being summed; nxt: its successor, rows resolved and
-  // values in flight; rows of the tile after that are resolved below
-  Tile cur, nxt;
-  tile_rows<D>(cur, addr, n, 0, len, warp, g);
-  tile_load<T, D>(cur, kc, vc, hd, h, 0, len, warp, lane, g, d);
-  tile_rows<D>(nxt, addr, n, DEC_TILE, len, warp, g);
-
-  float m = NEG_INF, l = 0.f, acc = 0.f;
-  for (int t0 = 0; t0 < len; t0 += DEC_TILE) {
-    tile_load<T, D>(nxt, kc, vc, hd, h, t0 + DEC_TILE, len, warp, lane, g,
-                    d);
-    Tile after;
-    tile_rows<D>(after, addr, n, t0 + 2 * DEC_TILE, len, warp, g);
-
-#pragma unroll
-    for (int kk = 0; kk < KPW; ++kk) {
-      const int j = warp * KPW + kk;
-      const int t = t0 + j;
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) part = fmaf(qv[i], cur.k[kk][i], part);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) s_sc[j] = t < len ? part * scale : NEG_INF;
+      for (int i = 0; i < VE; ++i) z[i] = 0.f;
+      store16(out + qoff, z);
     }
-    __syncthreads();
+    return;
+  }
+  if (c >= live) return;
 
-    float sc[DEC_TILE];
-    float mt = NEG_INF;
+  float m = NEG_INF, l = 0.f, acc[VE];
 #pragma unroll
-    for (int j = 0; j < DEC_TILE; ++j) {
-      sc[j] = s_sc[j];
-      mt = fmaxf(mt, sc[j]);
+  for (int i = 0; i < VE; ++i) acc[i] = 0.f;
+  if (head) {
+    const T* kc = static_cast<const T*>(p.k) + h * D + e0;
+    const T* vc = static_cast<const T*>(p.v) + h * D + e0;
+    float qv[VE];
+    to_floats(load16(static_cast<const T*>(p.q) + qoff), qv);
+    const int t_end = min(len, (c + 1) * p.chunk);
+    for (int t0 = c * p.chunk; t0 < t_end; t0 += DEC_UNROLL * RPW) {
+      long long rows[DEC_UNROLL];
+#pragma unroll
+      for (int u = 0; u < DEC_UNROLL; ++u) {
+        const int t = t0 + u * RPW + rg;
+        rows[u] = t < t_end ? addr.row(n, t) * hd : -1;
+      }
+      uint4 kr[DEC_UNROLL], vr[DEC_UNROLL];  // raw: 4 registers each
+#pragma unroll
+      for (int u = 0; u < DEC_UNROLL; ++u) {
+        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (rows[u] >= 0) {
+          kr[u] = load16(kc + rows[u]);
+          vr[u] = load16(vc + rows[u]);
+        }
+      }
+      float s[DEC_UNROLL];
+      float mb = m;
+#pragma unroll
+      for (int u = 0; u < DEC_UNROLL; ++u) {
+        float kv[VE], part = 0.f;
+        to_floats(kr[u], kv);
+#pragma unroll
+        for (int i = 0; i < VE; ++i) part = fmaf(qv[i], kv[i], part);
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        s[u] = part * p.scale;
+        if (rows[u] >= 0) mb = fmaxf(mb, s[u]);
+      }
+      const float corr = expf(m - mb);
+      l *= corr;
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int u = 0; u < DEC_UNROLL; ++u)
+        if (rows[u] >= 0) {
+          const float pe = expf(s[u] - mb);
+          float vv[VE];
+          to_floats(vr[u], vv);
+          l += pe;
+#pragma unroll
+          for (int i = 0; i < VE; ++i) acc[i] = fmaf(pe, vv[i], acc[i]);
+        }
+      m = mb;
     }
-    const float m_new = fmaxf(m, mt);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < DEC_TILE; ++j) {
-      sc[j] = sc[j] <= NEG_INF / 2 ? 0.f : expf(sc[j] - m_new);
-      psum += sc[j];
-    }
-    l = l * corr + psum;
-    m = m_new;
-    acc *= corr;
-#pragma unroll
-    for (int jj = 0; jj < Tile::VPT; ++jj) {
-      const int j = jj * KSPLIT + g;
-      if (t0 + j < len) acc = fmaf(sc[j], cur.v[jj], acc);
-    }
-    __syncthreads();  // s_sc is rewritten by the next tile
-
-    cur = nxt;
-#pragma unroll
-    for (int kk = 0; kk < KPW; ++kk) nxt.krow[kk] = after.krow[kk];
-#pragma unroll
-    for (int jj = 0; jj < Tile::VPT; ++jj) nxt.vrow[jj] = after.vrow[jj];
+    for (int off = LPR; off < 32; off <<= 1) merge_xor<VE>(m, l, acc, off);
   }
 
-  s_acc[g][d] = acc;
+  const long long pi =  // this (slot, head, chunk)'s partial
+      (static_cast<long long>(n) * p.H + h) * p.chunks + c;
+  if (live == 1) {
+    if (head && rg == 0) {
+      const float inv = 1.f / (l == 0.f ? 1.f : l);
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[i] *= inv;
+      store16(out + qoff, acc);
+    }
+    return;
+  }
+  if (head && rg == 0) {
+#pragma unroll
+    for (int i = 0; i < VE; i += 4)
+      *reinterpret_cast<float4*>(p.acc + pi * D + e0 + i) =
+          make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+    if (lane == 0)
+      *reinterpret_cast<float2*>(p.ml + 2 * pi) = make_float2(m, l);
+  }
+  __threadfence();
   __syncthreads();
-  if (tid < D) {
-    float tot = 0.f;
+  __shared__ int s_last;
+  int* counter = p.counters + n * gridDim.z + grp;
+  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == live - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // the merge, in chunk order; lane j holds chunks j, j + 32, ... of
+  // the (m, l) partials
+  if (head) {
+    const long long base = (static_cast<long long>(n) * p.H + h) * p.chunks;
+    float mx = NEG_INF;
+    for (int j = lane; j < live; j += 32)
+      mx = fmaxf(mx, __ldcg(p.ml + 2 * (base + j)));
 #pragma unroll
-    for (int gg = 0; gg < KSPLIT; ++gg) tot += s_acc[gg][tid];
-    const bool dead = m <= NEG_INF / 2;
-    const float out = tot / (l == 0.f ? 1.f : l);
-    store(&o[qoff + tid], dead ? 0.f : out);
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float lt = 0.f, o[VE];
+#pragma unroll
+    for (int i = 0; i < VE; ++i) o[i] = 0.f;
+    for (int j0 = 0; j0 < live; j0 += 32) {
+      float wj = 0.f, lj = 0.f;
+      if (j0 + lane < live) {
+        const float2 v = __ldcg(reinterpret_cast<const float2*>(
+            p.ml + 2 * (base + j0 + lane)));
+        wj = expf(v.x - mx);
+        lj = v.y;
+      }
+      const int nj = min(32, live - j0);
+      for (int j = 0; j < nj; ++j) {
+        const float w = __shfl_sync(0xffffffffu, wj, j);
+        lt = fmaf(__shfl_sync(0xffffffffu, lj, j), w, lt);
+        if (rg == 0) {
+          const float* a = p.acc + (base + j0 + j) * D + e0;
+#pragma unroll
+          for (int i = 0; i < VE; i += 4) {
+            const float4 v = __ldcg(reinterpret_cast<const float4*>(a + i));
+            o[i] = fmaf(v.x, w, o[i]);
+            o[i + 1] = fmaf(v.y, w, o[i + 1]);
+            o[i + 2] = fmaf(v.z, w, o[i + 2]);
+            o[i + 3] = fmaf(v.w, w, o[i + 3]);
+          }
+        }
+      }
+    }
+    if (rg == 0) {
+      const float inv = 1.f / (lt == 0.f ? 1.f : lt);
+#pragma unroll
+      for (int i = 0; i < VE; ++i) o[i] *= inv;
+      store16(out + qoff, o);
+    }
   }
+  if (threadIdx.x == 0) *counter = 0;  // for the next launch
 }
 
 }  // namespace ptt

@@ -1,6 +1,6 @@
-// The GEMM scheme shared by the fused-epilogue matmul kernels
-// (matmul_bias_act.cu, and matmul_bwd.cu in f32) and the 1x1-conv + BN
-// kernels (conv_bn_relu.cu, conv_bn_stats.cu): one templated tile GEMM
+// The GEMM scheme shared by the fused-epilogue matmul kernels in f32
+// (matmul_bias_act.cu, matmul_bwd.cu) and the 1x1-conv + BN kernels
+// (conv_bn_relu.cu, conv_bn_stats.cu): one templated tile GEMM
 //
 //   C[r][c] = sum_k A(r, k) B(c, k)        (f32 accumulation)
 //
@@ -14,9 +14,10 @@
 // "K-major": the contraction index is the contiguous one; "MN-major":
 // the output index is.  What each replaces:
 // * kFwd: paddle_tpu/ops/pallas/matmul.py:200 `_fwd_kernel` (kernel 5)
-//   with the bias + activation epilogue: the bias is added to the f32
-//   accumulator and the activation applied before the one writeback,
-//   optionally writing z; benchmarks/fused_conv_bn_relu_experiment.py:32
+//   in f32 only, with the bias + activation epilogue: the bias is added
+//   to the f32 accumulator and the activation applied before the one
+//   writeback, optionally writing z (its bf16 kernel is gemm_tc.cuh's
+//   `fwd_tc`: wgmma + TMA); benchmarks/fused_conv_bn_relu_experiment.py:32
 //   `fused_kernel` (kernel 10) with the kBnRelu epilogue, max(acc *
 //   scale[c] + shift[c], 0) (the folded eval-mode BatchNorm and relu,
 //   f32); and :141 `fused_stats_kernel` (kernel 11) with the kStats
@@ -38,7 +39,8 @@
 // at 989 TFLOP/s, against ~0.43 GB of traffic, 0.128 ms at 3.35 TB/s:
 // compute-bound; most of ResNet-50's 1x1 convs (small K or N) are
 // bytes-bound (conv_bn_relu.cu, conv_bn_stats.cu).  Two kernels:
-// * bf16, kFwd only (`tc::gemm_bf16`): tensor cores, mma.sync.m16n8k16
+// * bf16, kFwd with the conv epilogues only (`tc::gemm_bf16`, kernels 10
+//   and 11): tensor cores, mma.sync.m16n8k16
 //   bf16 -> f32.  CTA tile 128 x 128 x 32, 8 warps of 64 x 32, a 3-stage
 //   cp.async ring of K-major tiles padded against bank conflicts
 //   ([128][40]), fragments from ldmatrix; ragged M, N, K edges load as
@@ -47,10 +49,9 @@
 // * f32, every mode (`simt::gemm_f32`): exact f32 FMA (no TF32), 64 x 64
 //   x 16 tiles of shared memory, 4 x 4 outputs a thread; any shape.
 //
-// What is left for later (PERF.md): the bf16 forward's mainloop runs at
-// about a third of cuBLAS's rate on the same product, so wgmma + TMA
-// with warp specialisation, as the backward has (gemm_tc.cuh), and a
-// shared staging of the output tile for full-line stores.
+// What is left for later (PERF.md): this bf16 mainloop runs at about a
+// third of cuBLAS's rate on the same product; kernels 10 and 11 move to
+// gemm_tc.cuh's forward mainloop (wgmma + TMA, staged TMA stores) next.
 #pragma once
 
 #include "common.cuh"
@@ -511,7 +512,7 @@ __device__ __forceinline__ void gemm_f32(const Args& p) {
 // ---------------------------------------------------------------------------
 
 // One kernel name per mode and dtype, so a profile bills each on its own
-// (chip_smoke.py's KERNEL_CATEGORIES).  The bf16 backward's kernels are
+// (chip_smoke.py's KERNEL_CATEGORIES).  The bf16 matmul kernels are
 // gemm_tc.cuh's.
 #define PTT_GEMM_BF16(NAME)                                           \
   template <int ACT>                                                  \
@@ -523,7 +524,6 @@ __device__ __forceinline__ void gemm_f32(const Args& p) {
   __global__ void __launch_bounds__(simt::NT) NAME##_f32(const Args p) {   \
     simt::gemm_f32<MODE, ACT>(p);                                     \
   }
-PTT_GEMM_BF16(matmul_fwd)
 PTT_GEMM_F32(kFwd, matmul_fwd)
 PTT_GEMM_F32(kDx, matmul_dx)
 PTT_GEMM_F32(kDw, matmul_dw)
@@ -538,8 +538,7 @@ PTT_GEMM_F32(kFwd, conv_bn_stats)
 template <int ACT>
 auto bf16_kernel() {
   if constexpr (ACT == kBnRelu) return conv_bn_relu_bf16<ACT>;
-  else if constexpr (ACT == kStats) return conv_bn_stats_bf16<ACT>;
-  else return matmul_fwd_bf16<ACT>;
+  else return conv_bn_stats_bf16<ACT>;
 }
 template <int MODE, int ACT>
 auto f32_kernel() {
@@ -553,8 +552,8 @@ auto f32_kernel() {
 template <int MODE, int ACT>
 cudaError_t launch_act(const Args& p, int dtype, cudaStream_t stream) {
   if (dtype == kBF16) {
-    if constexpr (MODE != kFwd) {
-      return cudaErrorInvalidValue;  // the bf16 backward: gemm_tc.cuh
+    if constexpr (MODE != kFwd || ACT < kBnRelu) {
+      return cudaErrorInvalidValue;  // the bf16 matmul: gemm_tc.cuh
     } else {
       auto kern = bf16_kernel<ACT>();
       cudaError_t err = cudaFuncSetAttribute(

@@ -1,10 +1,13 @@
-// The bf16 backward GEMMs of the fused-epilogue matmul for Hopper
-// (sm_90a), launched by matmul_bwd.cu: with dZ = dY * act'(residual)
-// (the residual is z for gelu, y for relu and tanh, absent for none) and
-// the port's w [N, K],
+// The bf16 GEMMs of the fused-epilogue matmul for Hopper (sm_90a): the
+// forward (launched by matmul_bias_act.cu) and the backward (launched by
+// matmul_bwd.cu).  With the port's w [N, K] and, in the backward, dZ =
+// dY * act'(residual) (the residual is z for gelu, y for relu and tanh,
+// absent for none),
 //
-//   kDx  dX [M, K] = dZ w     A = dZ [M x N], K-major;  B = w [N][K], MN-major
-//   kDw  dW [N, K] = dZ^T x   A = dZ^T [N x M], MN-major; B = x [M][K], MN-major
+//   kFwd z [M, N] = x w^T + bias   A = x [M][K], K-major;  B = w [N][K], K-major
+//        y [M, N] = act(z)
+//   kDx  dX [M, K] = dZ w          A = dZ [M x N], K-major; B = w [N][K], MN-major
+//   kDw  dW [N, K] = dZ^T x        A = dZ^T [N x M], MN-major; B = x [M][K], MN-major
 //        dbias [N] = sum_M dZ
 //
 // ("K-major": the contraction index is the contiguous one; "MN-major":
@@ -16,23 +19,36 @@
 // registers to the others) and two consumer warpgroups of 64 output rows
 // each.
 // * The producer keeps a ring of ST stages in flight with TMA (2-D
-//   tensor maps, 128-byte swizzle; flash_tc.cuh's primitives): each
-//   stage holds the dY tile, the residual tile (not for act none) and
-//   the B tile (w or x) as four boxes of [64 contraction][64
-//   columns].  A `full` mbarrier a stage counts the bytes in; an `empty`
-//   one counts the eight consumer warps out.  TMA fills loads past an
-//   edge with zeros, and a zero dY gives a zero dZ, so ragged M, N and K
-//   take no branch in the mainloop; stores are masked.
-// * A consumer thread reads its A fragment of dY and of the residual
-//   straight from the swizzled tiles with ldmatrix (kDx: plain, rows of
-//   dZ; kDw: .trans, so the fragment is of dZ^T), forms dZ in f32 with
-//   act_bwd (gelu's derivative from a table, below), rounds it once to
-//   bf16 into the register A operand, and runs wgmma m64n256k16 with B
-//   read MN-major through a descriptor, as V enters P V in flash_fwd.cu.
-//   dZ is never written to shared or device memory.  Forming dZ costs
-//   as much as the products, so the two overlap: while one stage's
-//   wgmmas run, the thread forms the next stage's fragments into a
-//   second register set.
+//   tensor maps, 128-byte swizzle; flash_tc.cuh's primitives).  A `full`
+//   mbarrier a stage counts the bytes in; an `empty` one counts the
+//   eight consumer warps out.  TMA fills loads past an edge with zeros
+//   (and a zero dY gives a zero dZ), so ragged M, N and K take no branch
+//   in the mainloop.
+// * The forward (`fwd_tc`): a stage holds the x tile [128][64] and the w
+//   tile [256][64], both read by wgmma m64n256k16 through shared-memory
+//   descriptors (the simplest case: no operand is formed in registers).
+//   The epilogue runs on the f32 accumulator: the bias added in f32, z
+//   rounded once to bf16, y = act_fwd(z) of the f32 z (no table: y must
+//   be act of the f32 value, not of its rounding) rounded once.  Each
+//   consumer warpgroup writes z, then y, into its own swizzled
+//   [64][256] staging tile and one thread stores it with TMA (full
+//   lines; the parts past M or N are not written).  A CTA walks the
+//   tiles blockIdx.x, + gridDim.x, ... in row-major tile order: with as
+//   many CTAs as tiles that is one tile a CTA; with fewer (persistent),
+//   the producer loads the next tile's stages while the consumers run
+//   the epilogue, and the TMA stores drain under the next mainloop.
+// * The backward (`bwd_tc`): each stage holds the dY tile, the residual
+//   tile (not for act none) and the B tile (w or x) as boxes of [64
+//   contraction][64 columns]; stores are masked.  A consumer thread
+//   reads its A fragment of dY and of the residual straight from the
+//   swizzled tiles with ldmatrix (kDx: plain, rows of dZ; kDw: .trans,
+//   so the fragment is of dZ^T), forms dZ in f32 with act_bwd (gelu's
+//   derivative from a table, below), rounds it once to bf16 into the
+//   register A operand, and runs wgmma m64n256k16 with B read MN-major
+//   through a descriptor, as V enters P V in flash_fwd.cu.  dZ is never
+//   written to shared or device memory.  Forming dZ costs as much as the
+//   products, so the two overlap: while one stage's wgmmas run, the
+//   thread forms the next stage's fragments into a second register set.
 // * kDw sums dbias in the CTAs of column tile 0 from the f32 dZ, before
 //   its rounding: each thread over its own rows and contraction indices
 //   in a fixed order, then the four lanes of a row in a fixed order.
@@ -43,7 +59,8 @@
 //
 // The swizzle: TMA stores 16-byte chunk c of row r of a 128-byte-row
 // box at chunk c ^ (r % 8), the pattern the wgmma descriptors assume;
-// the ldmatrix addresses below apply the same XOR.
+// the ldmatrix addresses and the forward's staging writes below apply
+// the same XOR.
 #pragma once
 
 #include "flash_tc.cuh"
@@ -452,6 +469,230 @@ cudaError_t launch(const CUtensorMap& tg, const CUtensorMap& tr,
     case kGelu: return launch_act<MODE, kGelu>(tg, tr, tb, p, grid, stream);
     case kGeluTanh:
       return launch_act<MODE, kGeluTanh>(tg, tr, tb, p, grid, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+
+// ---------------------------------------------------------------------------
+// the forward (kernel 5)
+// ---------------------------------------------------------------------------
+
+constexpr int OUT_BOX = 64 * 128;  // bytes of a [64 rows][64 cols] bf16 box
+
+struct FwdSmem {
+  static constexpr int B_OFF = A_BYTES;             // within a stage
+  static constexpr int STAGE = A_BYTES + BN * 128;  // x [128][64], w [256][64]
+  static constexpr int OUT_OFF = ST * STAGE;
+  static constexpr int OUT_WG = (BN / 64) * OUT_BOX;  // a warpgroup's [64][256]
+  static constexpr int BAR_OFF = OUT_OFF + 2 * OUT_WG;
+  static constexpr int BYTES = BAR_OFF + 2 * ST * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // slack to align the base
+};
+
+struct FwdArgs {
+  int rows, cols, depth;  // M, N, K
+  const void* bias;       // [N] in bias_dtype, or null
+  int bias_dtype;
+  int emit_z;             // non-zero: write z through its map
+};
+
+// The staging byte offset of accumulator pair t (columns 8t + 2q, +1) of
+// row r (0..63) in a warpgroup's [64][256] tile: four swizzled boxes of
+// 64 columns.
+__device__ __forceinline__ int stage_offset(int r, int t, int q) {
+  return (t / 8) * OUT_BOX + r * 128 + (((t % 8) ^ (r % 8)) << 4) + 4 * q;
+}
+
+// One output of a warpgroup's 64 x 256 tile: the f32 accumulator
+// rounded to bf16 into the staging tile, then stored by one thread with
+// TMA.  The staging tile is free: its previous stores have read it
+// (`stage_free` ran).
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
+                                           unsigned char* stg,
+                                           const CUtensorMap* map, int row0,
+                                           int col0, int rows, int cols,
+                                           int wg, int wi, int lane) {
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wi * 16 + g + 8 * h;
+#pragma unroll
+    for (int t = 0; t < BN / 8; ++t) {
+      *reinterpret_cast<__nv_bfloat162*>(stg + stage_offset(r, t, q)) =
+          __floats2bfloat162_rn(acc[4 * t + 2 * h], acc[4 * t + 2 * h + 1]);
+    }
+  }
+  fence_async_shared();
+  named_bar_sync(1 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+    const int r = row0 + wg * 64;
+    if (r < rows)
+      for (int b = 0; b < BN / 64 && col0 + 64 * b < cols; ++b)
+        tma_store_2d(map, stg + b * OUT_BOX, col0 + 64 * b, r);
+    bulk_commit();
+  }
+}
+
+// Waits until the warpgroup's staging tile may be written again.
+__device__ __forceinline__ void stage_free(int wg) {
+  if (threadIdx.x % 128 == 0) bulk_wait_read();
+  named_bar_sync(1 + wg, 128);
+}
+
+template <int ACT>
+__device__ __forceinline__ void fwd_tc(const CUtensorMap& ta,
+                                       const CUtensorMap& tb,
+                                       const CUtensorMap& ty,
+                                       const CUtensorMap& tz,
+                                       const FwdArgs& p) {
+  using SM = FwdSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + SM::BAR_OFF);
+  uint64_t* empty = full + ST;
+
+  const int tiles_n = (p.cols + BN - 1) / BN;
+  const int tiles = tiles_n * ((p.rows + BM - 1) / BM);
+  const int nk = (p.depth + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= CONSUMER_WARPS) {
+    // the producer: ring slot it % ST holds the it-th stage of the CTA's
+    // tiles in order
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = tile / tiles_n * BM, col0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int st = it % ST;
+          mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[st], SM::STAGE);
+          unsigned char* s = sm + st * SM::STAGE;
+          tma_load_2d(s, &ta, &full[st], kt * BK, row0);
+          tma_load_2d(s + SM::B_OFF, &tb, &full[st], kt * BK, col0);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = warp / 4, wi = warp % 4;
+  unsigned char* stg = sm + SM::OUT_OFF + wg * SM::OUT_WG;
+  const bool lead = lane == 0;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile / tiles_n * BM, col0 = tile % tiles_n * BN;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      acc[i] = 0.f;
+      fence_reg(acc[i]);
+    }
+    // stage kt's products are issued, then stage kt - 1's awaited and
+    // its slot handed back
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int st = it % ST;
+      mbar_wait(&full[st], (it / ST) & 1);
+      const uint32_t a = smem_u32(sm + st * SM::STAGE) + wg * 64 * 128;
+      const uint32_t b = smem_u32(sm + st * SM::STAGE + SM::B_OFF);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss_m64n256k16(acc, desc_sw128(a + kk * 32, 16, 1024),
+                            desc_sw128(b + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+      __syncwarp();
+      if (kt > 0 && lead) mbar_arrive(&empty[(it - 1) % ST]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+    __syncwarp();
+    if (nk > 0 && lead) mbar_arrive(&empty[(it - 1) % ST]);
+
+    // the epilogue: z = acc + bias (in place), then y = act(z)
+    const int q = lane % 4;
+    if (p.bias) {
+#pragma unroll
+      for (int t = 0; t < BN / 8; ++t) {
+        const int c = col0 + 8 * t + 2 * q;
+        const float b0 = c < p.cols ? load_vec(p.bias, p.bias_dtype, c) : 0.f;
+        const float b1 =
+            c + 1 < p.cols ? load_vec(p.bias, p.bias_dtype, c + 1) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[4 * t + 2 * h] += b0;
+          acc[4 * t + 2 * h + 1] += b1;
+        }
+      }
+    }
+    if (p.emit_z) {
+      stage_free(wg);
+      store_tile(acc, stg, &tz, row0, col0, p.rows, p.cols, wg, wi, lane);
+    }
+    // y = act(z) in place first: with act_fwd inside the staging loop
+    // ptxas interleaved enough exact-gelu evaluations to spill
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = act_fwd<ACT>(acc[i]);
+    stage_free(wg);
+    store_tile(acc, stg, &ty, row0, col0, p.rows, p.cols, wg, wi, lane);
+  }
+  if (threadIdx.x % 128 == 0) bulk_wait();  // before the CTA's shared
+                                            // memory goes
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(NT, 1)
+    matmul_fwd_tc(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap ty,
+                  const __grid_constant__ CUtensorMap tz, const FwdArgs p) {
+  fwd_tc<ACT>(ta, tb, ty, tz, p);
+}
+
+template <int ACT>
+cudaError_t launch_fwd_act(const CUtensorMap& ta, const CUtensorMap& tb,
+                           const CUtensorMap& ty, const CUtensorMap& tz,
+                           const FwdArgs& p, int ctas, cudaStream_t stream) {
+  constexpr int bytes = FwdSmem::ALLOC;
+  cudaError_t err = cudaFuncSetAttribute(
+      matmul_fwd_tc<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  matmul_fwd_tc<ACT><<<ctas, NT, bytes, stream>>>(ta, tb, ty, tz, p);
+  return cudaGetLastError();
+}
+
+// The forward over maps made by the caller, on `ctas` CTAs (at most one
+// a tile; fewer walk several tiles each).
+inline cudaError_t launch_fwd(const CUtensorMap& ta, const CUtensorMap& tb,
+                              const CUtensorMap& ty, const CUtensorMap& tz,
+                              const FwdArgs& p, int act, int ctas,
+                              cudaStream_t stream) {
+  const int tiles = ((p.cols + BN - 1) / BN) * ((p.rows + BM - 1) / BM);
+  if (ctas <= 0 || ctas > tiles) ctas = tiles;
+  switch (act) {
+    case kNone: return launch_fwd_act<kNone>(ta, tb, ty, tz, p, ctas, stream);
+    case kRelu: return launch_fwd_act<kRelu>(ta, tb, ty, tz, p, ctas, stream);
+    case kTanh: return launch_fwd_act<kTanh>(ta, tb, ty, tz, p, ctas, stream);
+    case kGelu: return launch_fwd_act<kGelu>(ta, tb, ty, tz, p, ctas, stream);
+    case kGeluTanh:
+      return launch_fwd_act<kGeluTanh>(ta, tb, ty, tz, p, ctas, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -5,62 +5,59 @@
 // a [NB, bs, H, D] block pool through a [N, max_blocks] int32 block
 // table, attending positions t < lengths[n]; an empty slot emits zeros.
 // Any block size works (the engine's default is 16); the TPU kernel
-// needed bs % 128 == 0.  Each CTA reads its slot's table entries itself
-// (the TPU kernel had them scalar-prefetched), and only the first
-// ceil(len / bs) of them.  The body, its bound and its design are in
+// needed bs % 128 == 0.  Each CTA reads its chunk's table entries itself
+// (the TPU kernel had them scalar-prefetched), and only those of rows
+// below the length; a chunk is whole blocks, so an entry is resolved
+// once a chunk.  The body, its bound and its design are in
 // decode_common.cuh, shared with the dense kernel, which makes the two
-// bitwise equal on identical contents.
+// bitwise equal on identical contents under the same chunk plan.
 
 #include "decode_common.cuh"
 
 namespace {
 
-template <typename T, int D>
-__global__ void __launch_bounds__(ptt::DEC_NT)
-decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ lengths, int H, int bs,
-                    int max_blocks, float scale) {
-  const int n = blockIdx.y, h = blockIdx.x;
-  const int len = max(0, min(lengths[n], max_blocks * bs));
-  ptt::decode_body<T, D>(q, k, v, o, H, n, h, len, scale,
-                         ptt::PagedAddr{tables, max_blocks, bs});
-}
+constexpr int MAX_NT = 512;  // 16 heads a CTA
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const void* tables, const void* lengths, int N, int H,
-                   int bs, int max_blocks, float scale, cudaStream_t stream) {
-  decode_paged_kernel<T, D><<<dim3(H, N), ptt::DEC_NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<const int*>(tables), static_cast<const int*>(lengths), H,
-      bs, max_blocks, scale);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(MAX_NT)
+    decode_paged_kernel(const ptt::DecArgs p, const int* __restrict__ tables,
+                        int max_blocks, int bs) {
+  ptt::decode_split<T, D>(p, ptt::PagedAddr{tables, max_blocks, bs});
 }
 
 }  // namespace
 
-extern "C" int paged_decode_attention(const void* q, const void* k_pool,
-                                      const void* v_pool, void* o,
-                                      const void* tables, const void* lengths,
-                                      int N, int H, int D, int bs,
-                                      int max_blocks, float scale, int dtype,
-                                      void* stream) {
+// As decode_attention (decode_attention.cu) through the block table;
+// `chunk` is a multiple of bs.
+extern "C" int paged_decode_attention(
+    const void* q, const void* k_pool, const void* v_pool, void* o,
+    const void* tables, const void* lengths, void* acc, void* ml,
+    void* counters, int N, int H, int D, int bs, int max_blocks, int chunk,
+    int chunks, int hg, float scale, int dtype, void* stream) {
   if (N <= 0 || H <= 0) return cudaSuccess;
+  if (hg <= 0 || hg * 32 > MAX_NT || bs <= 0 || chunk <= 0 || chunk % bs ||
+      chunks <= 0)
+    return cudaErrorInvalidValue;
+  ptt::DecArgs p{q, k_pool, v_pool, o, static_cast<const int*>(lengths),
+                 static_cast<float*>(acc), static_cast<float*>(ml),
+                 static_cast<int*>(counters), H, hg, chunk, chunks,
+                 max_blocks * bs, scale};
+  const int* tb = static_cast<const int*>(tables);
+  const dim3 grid(chunks, N, (H + hg - 1) / hg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kF32 && D == 64)
-    return launch<float, 64>(q, k_pool, v_pool, o, tables, lengths, N, H, bs,
-                             max_blocks, scale, s);
-  if (dtype == ptt::kF32 && D == 128)
-    return launch<float, 128>(q, k_pool, v_pool, o, tables, lengths, N, H, bs,
-                              max_blocks, scale, s);
-  if (dtype == ptt::kBF16 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, o, tables, lengths, N,
-                                     H, bs, max_blocks, scale, s);
-  if (dtype == ptt::kBF16 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pool, v_pool, o, tables, lengths,
-                                      N, H, bs, max_blocks, scale, s);
-  return cudaErrorInvalidValue;
+    decode_paged_kernel<float, 64><<<grid, hg * 32, 0, s>>>(p, tb,
+                                                             max_blocks, bs);
+  else if (dtype == ptt::kF32 && D == 128)
+    decode_paged_kernel<float, 128><<<grid, hg * 32, 0, s>>>(p, tb,
+                                                              max_blocks, bs);
+  else if (dtype == ptt::kBF16 && D == 64)
+    decode_paged_kernel<__nv_bfloat16, 64><<<grid, hg * 32, 0, s>>>(
+        p, tb, max_blocks, bs);
+  else if (dtype == ptt::kBF16 && D == 128)
+    decode_paged_kernel<__nv_bfloat16, 128><<<grid, hg * 32, 0, s>>>(
+        p, tb, max_blocks, bs);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }

@@ -9,7 +9,10 @@ Counterpart of `paddle_tpu.ops.pallas.matmul` (the kernels, the
 * ``matmul_bias_act`` (``csrc/matmul_bias_act.cu``): ``y = act(x wᵀ +
   bias)`` with the bias and activation applied to the f32 accumulator
   before the one writeback, and optionally the pre-activation z (the
-  gelu backward's residual) as a second output;
+  gelu backward's residual) as a second output.  In bf16 it runs on
+  `wgmma` + TMA (``csrc/gemm_tc.cuh`` `fwd_tc`), 128 x 256 output tiles
+  walked by one CTA an SM (`fwd_schedule`), y and z staged in shared
+  memory for TMA stores;
 * ``matmul_bwd_dx`` / ``matmul_bwd_dw`` (``csrc/matmul_bwd.cu``): dX =
   dZ w and dW = dZᵀ x with dbias = the column sum of dZ, where dZ =
   dY·act'(residual) is recomputed on chip from dY and the residual and
@@ -39,8 +42,8 @@ Unlike the JAX dispatch there is no naive fallback: a CUDA tensor always
 launches the kernels, at any M, N and K (ragged edges are masked in the
 kernels); bf16 operands need K and N to be multiples of 8 (16-byte
 loads).  Operands must be contiguous and 16-byte aligned (TMA and
-16-byte loads): the wrappers raise rather than copy, and the backward
-wrappers hold that contract on CPU tensors too.  The ``block_m/n/k``
+16-byte loads): the wrappers raise rather than copy, and hold that
+contract on CPU tensors too.  The ``block_m/n/k``
 knobs and ``PADDLE_TPU_GEMM_BLOCKS`` keep the reference's contract
 (explicit non-divisors raise, explicit beats the environment) but do
 not select the card's tile yet: each kernel has its own.
@@ -55,7 +58,8 @@ import torch
 
 from . import _build
 
-__all__ = ["ACTIVATIONS", "dw_split_plan", "matmul_bias_act",
+__all__ = ["ACTIVATIONS", "dw_split_plan", "fwd_schedule",
+           "fwd_tile_plan", "fwd_tiles", "matmul_bias_act",
            "matmul_bias_act_bwd_reference", "matmul_bias_act_fwd",
            "matmul_bias_act_reference", "matmul_bwd_dw", "matmul_bwd_dx"]
 
@@ -70,13 +74,14 @@ _GELU_TANH = 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FWD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_FWD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _DX_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _DW_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
-# The bf16 backward kernels (csrc/gemm_tc.cuh): 128 x 256 outputs a CTA,
-# 64 contraction rows a stage.
+# The bf16 kernels (csrc/gemm_tc.cuh): 128 x 256 outputs a CTA, 64
+# contraction rows a stage.
 BWD_ROWS, BWD_COLS, BWD_DEPTH = 128, 256, 64
+FWD_ROWS, FWD_COLS = BWD_ROWS, BWD_COLS
 # dW's split of M (`dw_split_plan`): at most MAX_SPLITS chunks; a CTA's
 # pipeline fill and epilogue cost about SPLIT_OVERHEAD stages, and each
 # f32 partial element, written and merged, about SPLIT_MERGE_COST.
@@ -379,30 +384,64 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def fwd_tile_plan(m, n, ctas):
+    """The bf16 forward's tiles, CTA by CTA, as the kernel walks them:
+    CTA b takes tiles b, b + ctas, ... of the row-major order of the
+    ``ceil(m / 128) x ceil(n / 256)`` output tiles; each tile as (row
+    tile, column tile)."""
+    tiles_n = _cdiv(n, FWD_COLS)
+    tiles = fwd_tiles(m, n)
+    ctas = min(ctas, tiles)
+    return [[divmod(t, tiles_n) for t in range(b, tiles, ctas)]
+            for b in range(ctas)]
+
+
+def fwd_tiles(m, n):
+    """The bf16 forward's 128 x 256 output tiles."""
+    return _cdiv(n, FWD_COLS) * _cdiv(m, FWD_ROWS)
+
+
+def fwd_schedule(m, n, sms=H100_SMS):
+    """The CTAs the bf16 forward launches: one an SM (at most one a
+    tile), each walking the tiles `fwd_tile_plan` gives it, so that one
+    tile's epilogue and stores overlap the loads of the next.  One CTA a
+    tile was 19% slower at the FFN shape (PERF.md)."""
+    return min(fwd_tiles(m, n), sms)
+
+
 def matmul_bias_act_fwd(x, w, bias=None, activation="none",
                         approximate=False, emit_z=False):
     """The forward kernel: ``(y, z)``, z (x's dtype) only when
     ``emit_z``.  x ``[M, K]``, w ``[N, K]``, bias ``[N]`` f32 or bf16.
-    CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return matmul_bias_act_reference(x, w, bias, activation,
-                                         approximate, emit_z)
+    The operand contract holds on any device; CPU tensors then take the
+    plain version."""
     _check_args(x, w, bias, activation)
     m, k = x.shape
     n = w.shape[0]
     _check_operands("matmul_bias_act", x, ("x", x), ("w", w),
                     ("bias", bias))
     _check_dims("matmul_bias_act", x.dtype, m, n, k)
+    if not x.is_cuda:
+        return matmul_bias_act_reference(x, w, bias, activation,
+                                         approximate, emit_z)
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if emit_z else None
-    _build.launch(
-        "matmul_bias_act", "matmul_bias_act_fwd", _FWD_ARGTYPES, x.data_ptr(),
-        w.data_ptr(), _ptr(bias), y.data_ptr(), _ptr(z), m, n, k,
-        _act_code(activation, approximate), _build.dtype_code(x),
-        0 if bias is None else _build.dtype_code(bias),
-        _build.stream_ptr(x.device))
+    _launch_fwd(x, w, bias, y, z, activation, approximate,
+                fwd_schedule(m, n, _sm_count(x.device)))
     matmul_bias_act_fwd.launches += 1
     return y, z
+
+
+def _launch_fwd(x, w, bias, y, z, activation, approximate, ctas):
+    """The forward launch on ``ctas`` CTAs (bf16; the f32 kernel takes
+    one a 64 x 64 tile whatever ``ctas`` says)."""
+    m, k = x.shape
+    _build.launch(
+        "matmul_bias_act", "matmul_bias_act_fwd", _FWD_ARGTYPES, x.data_ptr(),
+        w.data_ptr(), _ptr(bias), y.data_ptr(), _ptr(z), m, w.shape[0], k,
+        _act_code(activation, approximate), _build.dtype_code(x),
+        0 if bias is None else _build.dtype_code(bias), ctas,
+        _build.stream_ptr(x.device))
 
 
 def matmul_bwd_dx(g, res, w, activation="none", approximate=False):

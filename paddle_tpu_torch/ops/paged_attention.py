@@ -7,9 +7,11 @@ j to a pool block.
 
 * `paged_decode_attention` — one query token per slot through the
   table.  CUDA tensors launch the hand-written kernel
-  (``csrc/paged_attention.cu``), which shares its body with the dense
-  decode kernel and is bitwise equal to it on identical contents; any
-  block size works.  CPU tensors take the plain version.
+  (``csrc/paged_attention.cu``), which shares its body (a split of the
+  key range into chunks of whole blocks) with the dense decode kernel
+  and is bitwise equal to it on identical contents under the same
+  chunk plan (block size 16, the engine's default); any block size
+  works.  CPU tensors take the plain version.
 * `paged_gather_kv` — the dense ``[N, T, H, D]`` view of each slot's
   blocks.
 * `paged_decode_attention_reference` — the plain version: gather, then
@@ -25,15 +27,19 @@ import ctypes
 import torch
 
 from . import _build
-from .decode_attention import check_decode_operands, decode_attention_reference
+from .decode_attention import (check_decode_operands,
+                               decode_attention_reference,
+                               decode_head_groups, decode_split_plan,
+                               split_workspace)
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "paged_gather_kv"]
 
-# paged_decode_attention(q, k_pool, v_pool, o, tables, lengths, N, H, D,
-#                        bs, max_blocks, scale, dtype, stream)
+# paged_decode_attention(q, k_pool, v_pool, o, tables, lengths, acc, ml,
+#                        counters, N, H, D, bs, max_blocks, chunk, chunks,
+#                        hg, scale, dtype, stream)
 # in csrc/paged_attention.cu
-_PAGED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -73,14 +79,28 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, scale=None):
     if tables.dim() != 2 or tables.shape[0] != n:
         raise ValueError("paged_decode_attention: tables must be [%d, "
                          "max_blocks], got %s" % (n, tuple(tables.shape)))
-    code = _build.dtype_code(q)
+    bs = k_pool.shape[1]
+    chunk, chunks = decode_split_plan(tables.shape[1] * bs, bs)
+    out = _launch_paged(q, k_pool, v_pool, tables, lengths, scale, chunk,
+                        chunks, decode_head_groups(h))
+    paged_decode_attention.launches += 1
+    return out
+
+
+def _launch_paged(q, k_pool, v_pool, tables, lengths, scale, chunk, chunks,
+                  hg):
+    """The paged kernel on an explicit plan (checked operands; ``chunk``
+    a multiple of the block size)."""
+    n, h, d = q.shape
     out = torch.empty_like(q)
+    stream = _build.stream_ptr(q.device)
+    acc, ml, cnt = split_workspace(q, chunks, hg, stream)
     _build.launch("paged_attention", "paged_decode_attention",
                   _PAGED_ARGTYPES, q.data_ptr(), k_pool.data_ptr(),
                   v_pool.data_ptr(), out.data_ptr(), tables.data_ptr(),
-                  lengths.data_ptr(), n, h, d, k_pool.shape[1],
-                  tables.shape[1], scale, code, _build.stream_ptr(q.device))
-    paged_decode_attention.launches += 1
+                  lengths.data_ptr(), acc.data_ptr(), ml.data_ptr(),
+                  cnt.data_ptr(), n, h, d, k_pool.shape[1], tables.shape[1],
+                  chunk, chunks, hg, scale, _build.dtype_code(q), stream)
     return out
 
 
