@@ -20,15 +20,19 @@ FFN; then serves a full-width TransformerLM through the paged generation
 engine and checks the streams against the port's sequential oracle and
 the dense engine; last, holds the 1x1 conv + BN + relu kernel against
 its plain version (f32/bf16, the Pallas experiment's shape, ResNet-50's
-eight conv0 shapes at B=128 and a ragged one) and times it there,
+eight conv0 shapes at B=128 and a ragged one; in bf16 every tile width
+at the ragged shape, an M below one tile and a shape with fewer tiles
+than SMs, and y bitwise equal over two launches and between one CTA an
+SM and one CTA a tile) and times it there,
 checks full-width ResNet-50 eval on the card against the CPU, and
 serves B=128 224x224 batches through it in f32 and bf16 (16 kernel
 launches a forward), with a profile of one forward of each; then holds
 the 1x1 conv + BN-statistics kernel against its plain version (f32/bf16,
 the experiment's shape, the twelve shapes of the ResNet-50 train step at
 B=128, a ragged one and a column whose mean is ~90 times its std, each
-launched twice for bitwise-equal statistics) and times it there over a
-step's 33 launches; runs the eval model under grad through kernel 10
+launched twice for bitwise-equal statistics; in bf16 the same width and
+grid cases as kernel 10, y and the statistics bitwise) and times it
+there over a step's 33 launches; runs the eval model under grad through kernel 10
 against its plain version; checks one f32 Momentum step of full-width
 ResNet-50 (B=4, 64x64) on the card against the CPU and against kernel
 11's plain version; and trains ResNet-50 as `bench.py:_bench_resnet`
@@ -69,6 +73,7 @@ H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the f32 kernels use FMA),
 989 TFLOP/s bf16 (the bf16 kernels' tensor cores).
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -1579,6 +1584,10 @@ CONV_PATH = ((128, 56, 64, 64, 1), (128, 56, 256, 64, 2),
              (128, 28, 512, 256, 1), (128, 14, 1024, 256, 5),
              (128, 14, 1024, 512, 1), (128, 7, 2048, 512, 2))
 CONV_RAGGED = (777, 200, 264)    # M, K, N: every edge of the tile masked
+# the bf16 kernels 10 and 11 at every tile width (`conv_bn.TILE_WIDTHS`):
+# the ragged shape, an M below one 128-row tile, and a shape with fewer
+# tiles than the card has SMs at every width
+CONV_GRID_SHAPES = (CONV_RAGGED, (100, 64, 64), (2048, 256, 512))
 # bf16 logits against the f32 model's, in relative norm: the repo's bf16
 # forward policy (2e-2); the CPU measured 5e-3 at B = 2 with the same
 # seeded weights
@@ -1600,39 +1609,108 @@ def _bn_vectors(gen, n):
             u(0.5, 2.0))
 
 
-def conv_bn_case(ops, gen, m, k, n, dt):
-    """Kernel 10 on one shape against its plain version on the same
-    inputs (bf16 upcast exactly).  Returns (error, limit share,
-    tensors)."""
+def _sms():
+    from paddle_tpu_torch.ops.matmul import _sm_count
+
+    return _sm_count(torch.device("cuda"))
+
+
+def conv_grids(kernel, t, bn=None):
+    """Kernel 10's (y,) or kernel 11's (y, mean, var) in bf16 at tile
+    width ``bn`` (`conv_schedule`'s when None), launched twice on one CTA
+    an SM and once on one CTA a tile (none counted): raises unless the
+    three are bitwise equal.  Returns (outputs, bn, ctas, tiles)."""
+    from paddle_tpu_torch.ops import conv_bn as cb, matmul as mm
+
+    x, w = t["x"], t["w"]
+    m, n = x.shape[0], w.shape[0]
+    bn = bn or cb.conv_schedule(m, n, _sms())[0]
+    tiles = mm.fwd_tiles(m, n, bn)
+    ctas = min(tiles, _sms())
+
+    def run(c):
+        if kernel == "conv_bn_stats":
+            return cb._launch_conv_bn_stats(x, w, bn, c)
+        y = torch.empty(m, n, dtype=x.dtype, device=x.device)
+        cb._launch_conv_bn_relu(x, w, t["scale"], t["shift"], y, bn, c)
+        return (y,)
+
+    outs = [run(ctas), run(ctas), run(tiles)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for o in outs[1:]
+               for a, b in zip(outs[0], o)):
+        raise AssertionError(
+            "%s M=%d N=%d width %d: two launches on %d CTAs and one on %d "
+            "differ" % (kernel, m, n, bn, ctas, tiles))
+    return outs[0], bn, ctas, tiles
+
+
+def _conv_operands(ops, gen, m, k, n, dt):
     x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
     w = (torch.randn(n, k, device="cuda", generator=gen)
          * (2.0 / k) ** 0.5).to(dt)
     gamma, beta, mean, var = _bn_vectors(gen, n)
     scale, shift = ops.fold_bn(gamma, beta, mean, var, 1e-5)
-    y = ops.conv1x1_bn_relu(x, w, scale, shift)
+    return dict(x=x, w=w, scale=scale, shift=shift,
+                bn_vectors=(gamma, beta, mean, var))
+
+
+def conv_bn_case(ops, gen, m, k, n, dt):
+    """Kernel 10 on one shape against its plain version on the same
+    inputs (bf16 upcast exactly); in bf16 also the wrapper's y bitwise
+    equal to `conv_grids`' at the scheduled width.  Returns (error, limit
+    share, tensors; in bf16 with "bn" and "ctas")."""
+    t = _conv_operands(ops, gen, m, k, n, dt)
+    y = ops.conv1x1_bn_relu(t["x"], t["w"], t["scale"], t["shift"])
     torch.cuda.synchronize()
-    xf, wf = upcast(x, w)
-    want = ops.conv1x1_bn_relu_reference(xf, wf, scale, shift)
-    err, share = compare("conv_bn_relu M=%d K=%d N=%d %s" % (
-        m, k, n, str(dt).replace("torch.", "")), y, want, gemm_tol(dt, want))
-    return err, share, dict(x=x, w=w, scale=scale, shift=shift,
-                            bn=(gamma, beta, mean, var))
+    tag = "conv_bn_relu M=%d K=%d N=%d %s" % (m, k, n,
+                                             str(dt).replace("torch.", ""))
+    if dt == torch.bfloat16:
+        (y2,), t["bn"], t["ctas"], _ = conv_grids("conv_bn_relu", t)
+        if not torch.equal(y, y2):
+            raise AssertionError("%s: the wrapper's y and the scheduled "
+                                 "grid's differ" % tag)
+    xf, wf = upcast(t["x"], t["w"])
+    want = ops.conv1x1_bn_relu_reference(xf, wf, t["scale"], t["shift"])
+    err, share = compare(tag, y, want, gemm_tol(dt, want))
+    return err, share, t
+
+
+def conv_bn_width_case(ops, gen, m, k, n, bn):
+    """Kernel 10 in bf16 at tile width ``bn`` on both grids
+    (`conv_grids`) against its plain version."""
+    t = _conv_operands(ops, gen, m, k, n, torch.bfloat16)
+    (y,), _, ctas, tiles = conv_grids("conv_bn_relu", t, bn)
+    xf, wf = upcast(t["x"], t["w"])
+    want = ops.conv1x1_bn_relu_reference(xf, wf, t["scale"], t["shift"])
+    err, share = compare("conv_bn_relu M=%d K=%d N=%d width %d" % (
+        m, k, n, bn), y, want, gemm_tol(torch.bfloat16, want))
+    return {"M": m, "K": k, "N": n, "dtype": "bfloat16", "bn": bn,
+            "ctas": ctas, "tiles": tiles, "max_abs_err": err,
+            "limit_share": share, "bitwise_grids_and_launches": True}
 
 
 def check_conv_bn(ops):
     """Kernel 10 against its plain version, f32 and bf16, at the
     experiment's shape, the eight conv0 shapes of the path and a ragged
-    shape."""
+    shape (bf16: at the scheduled width, on both grids, bitwise); then
+    in bf16 every tile width at CONV_GRID_SHAPES."""
+    from paddle_tpu_torch.ops import conv_bn as cb
+
     gen = torch.Generator(device="cuda").manual_seed(10)
     rows = []
     shapes = [(b * hw * hw, k, n) for b, hw, k, n, _ in
               (CONV_EXPERIMENT,) + CONV_PATH] + [CONV_RAGGED]
     for dt in (torch.float32, torch.bfloat16):
         for m, k, n in shapes:
-            err, share, _ = conv_bn_case(ops, gen, m, k, n, dt)
+            err, share, t = conv_bn_case(ops, gen, m, k, n, dt)
             rows.append({"M": m, "K": k, "N": n,
                          "dtype": str(dt).replace("torch.", ""),
+                         "bn": t.get("bn"), "ctas": t.get("ctas"),
                          "max_abs_err": err, "limit_share": share})
+    for m, k, n in CONV_GRID_SHAPES:
+        for bn in cb.TILE_WIDTHS:
+            rows.append(conv_bn_width_case(ops, gen, m, k, n, bn))
     emit({"phase": "conv_bn_check", "cases": len(rows),
           "worst_limit_share": max(r["limit_share"] for r in rows),
           "rows": rows})
@@ -1660,16 +1738,19 @@ def check_conv_bn_main_shape(ops):
             m = b * hw * hw
             err, share, t = conv_bn_case(ops, gen, m, k, n, dt)
             x, w, scale, shift = t["x"], t["w"], t["scale"], t["shift"]
-            gamma, beta, mean, var = t["bn"]
+            gamma, beta, mean, var = t["bn_vectors"]
             x4 = x.view(b, hw, hw, k).permute(0, 3, 1, 2)   # channels-last
             w4 = w.view(n, k, 1, 1)
             bms, by = bound(*conv_bn_work(m, k, n, dt), dt)
             rows.append({
                 "M": m, "K": k, "N": n, "dtype": str(dt).replace("torch.", ""),
-                "per_forward": per_fwd, "max_abs_err": err,
+                "per_forward": per_fwd, "bn": t.get("bn"),
+                "ctas": t.get("ctas"), "max_abs_err": err,
                 "limit_share": share,
                 "ms": time_ms(lambda: ops.conv1x1_bn_relu(x, w, scale,
                                                           shift)),
+                "queued_ms": queued_ms(lambda: ops.conv1x1_bn_relu(
+                    x, w, scale, shift)),
                 "plain_ms": time_ms(lambda: ops.conv1x1_bn_relu_reference(
                     x, w, scale, shift)),
                 "library_ms": time_ms(lambda: F.relu_(F.batch_norm(
@@ -1886,6 +1967,13 @@ def conv_stats_case(ops, gen, m, k, n, dt, cancel=False):
         m, k, n, str(dt).replace("torch.", ""), " cancel" if cancel else "")
     if not (torch.equal(mean, mean2) and torch.equal(var, var2)):
         raise AssertionError("%s: two launches' statistics differ" % tag)
+    sched = {}
+    if dt == torch.bfloat16:
+        outs, sched["bn"], sched["ctas"], _ = conv_grids(
+            "conv_bn_stats", dict(x=x, w=w))
+        if not all(torch.equal(a, b) for a, b in zip((y, mean, var), outs)):
+            raise AssertionError("%s: the wrapper's outputs and the "
+                                 "scheduled grid's differ" % tag)
     xf, wf = upcast(x, w)
     y_ref, mean_ref, var_ref = ops.conv1x1_bn_stats_reference(xf, wf)
     err, share = compare(tag + " y", y, y_ref, gemm_tol(dt, y_ref))
@@ -1895,7 +1983,8 @@ def conv_stats_case(ops, gen, m, k, n, dt, cancel=False):
         raise AssertionError("%s: mean %g, var %g relative error (limit %g)"
                              % (tag, em, ev, STATS_RTOL[dt]))
     row = {"M": m, "K": k, "N": n, "dtype": str(dt).replace("torch.", ""),
-           "cancel": cancel, "max_abs_err": err, "limit_share": share,
+           "cancel": cancel, **sched, "max_abs_err": err,
+           "limit_share": share,
            "mean_rel_err": em, "var_rel_err": ev,
            "stats_rtol": STATS_RTOL[dt], "stats_bitwise_repeat": True}
     if cancel:   # what the one-pass form would give on the same product
@@ -1913,10 +2002,48 @@ def conv_stats_case(ops, gen, m, k, n, dt, cancel=False):
     return row, dict(x=x, w=w)
 
 
+def conv_stats_width_case(ops, gen, m, k, n, bn):
+    """Kernel 11 in bf16 at tile width ``bn`` on both grids
+    (`conv_grids`) against its plain version; the partials' row tiles the
+    library reports must be ceil(M / 128)."""
+    from paddle_tpu_torch.ops import _build, matmul as mm
+
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn(n, k, device="cuda", generator=gen)
+         * (2.0 / k) ** 0.5).to(torch.bfloat16)
+    (y, mean, var), _, ctas, tiles = conv_grids("conv_bn_stats",
+                                                dict(x=x, w=w), bn)
+    tag = "conv_bn_stats M=%d K=%d N=%d width %d" % (m, k, n, bn)
+    part_tiles = _build.query("conv_bn_stats", "conv_bn_stats_part_tiles",
+                              [ctypes.c_int] * 2, m,
+                              _build.dtype_code(x))
+    if part_tiles != -(-m // mm.FWD_ROWS):
+        raise AssertionError("%s: %d row tiles of partials, not ceil(M / "
+                             "%d)" % (tag, part_tiles, mm.FWD_ROWS))
+    xf, wf = upcast(x, w)
+    y_ref, mean_ref, var_ref = ops.conv1x1_bn_stats_reference(xf, wf)
+    err, share = compare(tag + " y", y, y_ref,
+                         gemm_tol(torch.bfloat16, y_ref))
+    em, ev = stats_errors(mean, var, mean_ref, var_ref)
+    if not (em <= STATS_RTOL[torch.bfloat16]
+            and ev <= STATS_RTOL[torch.bfloat16]):
+        raise AssertionError("%s: mean %g, var %g relative error (limit %g)"
+                             % (tag, em, ev, STATS_RTOL[torch.bfloat16]))
+    return {"M": m, "K": k, "N": n, "dtype": "bfloat16", "cancel": False,
+            "bn": bn, "ctas": ctas, "tiles": tiles, "part_tiles": part_tiles,
+            "max_abs_err": err, "limit_share": share, "mean_rel_err": em,
+            "var_rel_err": ev, "stats_rtol": STATS_RTOL[torch.bfloat16],
+            "bitwise_grids_and_launches": True}
+
+
 def check_conv_bn_stats(ops):
     """Kernel 11 against its plain version, f32 and bf16, at the
     experiment's shape, the twelve shapes of the train path, a ragged
-    shape and the cancellation case."""
+    shape and the cancellation case (bf16: at the scheduled width, on
+    both grids, bitwise); then in bf16 every tile width at
+    CONV_GRID_SHAPES."""
+    from paddle_tpu_torch.ops import conv_bn as cb
+
     gen = torch.Generator(device="cuda").manual_seed(13)
     shapes = [(m, k, n) for m, k, n, _ in
               (CONV_STATS_EXPERIMENT,) + CONV_STATS_PATH] + [CONV_RAGGED]
@@ -1926,6 +2053,9 @@ def check_conv_bn_stats(ops):
             rows.append(conv_stats_case(ops, gen, m, k, n, dt)[0])
         rows.append(conv_stats_case(ops, gen, *CONV_STATS_CANCEL, dt,
                                     cancel=True)[0])
+    for m, k, n in CONV_GRID_SHAPES:
+        for bn in cb.TILE_WIDTHS:
+            rows.append(conv_stats_width_case(ops, gen, m, k, n, bn))
     emit({"phase": "conv_bn_stats_check", "cases": len(rows),
           "worst_limit_share": max(r["limit_share"] for r in rows),
           "worst_mean_rel_err": max(r["mean_rel_err"] for r in rows),
@@ -1962,6 +2092,7 @@ def check_conv_bn_stats_main_shape(ops):
         row.update({
             "per_step": per_step,
             "ms": time_ms(lambda: ops.conv1x1_bn_stats(x, w)),
+            "queued_ms": queued_ms(lambda: ops.conv1x1_bn_stats(x, w)),
             "plain_ms": time_ms(
                 lambda: ops.conv1x1_bn_stats_reference(x, w)),
             "library_ms": time_ms(library),
@@ -2250,10 +2381,10 @@ def run_resnet_train(ptt, params):
     return stats_rows, main_rows, launches
 
 
-# the kernels this slice redesigned, whose ptxas report the build phase
-# lists on its own (kernel 5 must not spill)
-REDESIGNED_KERNELS = ("matmul_fwd_tc", "decode_dense_kernel",
-                      "decode_paged_kernel")
+# the kernels on gemm_tc.cuh's forward body and the split decode, whose
+# ptxas report the build phase lists on its own (none may spill)
+REDESIGNED_KERNELS = ("matmul_fwd_tc", "conv_bn_relu_tc", "conv_bn_stats_tc",
+                      "decode_dense_kernel", "decode_paged_kernel")
 
 
 def ptxas_summary(logs, names):
@@ -2307,10 +2438,11 @@ def main():
     emit({"phase": "build", "seconds": build_s,
           "libraries": {k: str(v) for k, v in paths.items()},
           "redesigned_kernels_ptxas": redesigned, "ptxas": ptxas})
-    spilled = [f for f, r in redesigned.items()
-               if "matmul_fwd_tc" in f and r["spill_bytes"]]
+    spilled = [f for f, r in redesigned.items() if r["spill_bytes"] and any(
+        k in f for k in ("matmul_fwd_tc", "conv_bn_relu_tc",
+                         "conv_bn_stats_tc"))]
     if spilled:
-        raise AssertionError("kernel 5 spills: %s" % spilled)
+        raise AssertionError("the forward body spills: %s" % spilled)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2438,16 +2570,16 @@ def main():
              r["per_forward"]) for r in path]
     t_bytes = sum(w[0] * n for w, n in work) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(w[1] * n for w, n in work) / PEAK_FLOPS[torch.bfloat16] * 1e3
-    keep = ("M", "K", "N", "dtype", "per_forward", "max_abs_err", "ms",
-            "plain_ms", "library_ms", "cublas_gemm_ms", "bound_ms",
-            "bound_by")
+    keep = ("M", "K", "N", "dtype", "per_forward", "bn", "ctas",
+            "max_abs_err", "ms", "queued_ms", "plain_ms", "library_ms",
+            "cublas_gemm_ms", "bound_ms", "bound_by")
     kernels.append(dict(
         name="conv_bn_relu", route="cuda", source=src + "conv_bn_relu.cu",
         replaces="benchmarks/fused_conv_bn_relu_experiment.py:32",
         launches=resnet_launches["bfloat16"]["conv_bn_relu"],
         max_abs_err=max(r["max_abs_err"] for r in path),
-        ms=fwd_sum("ms"), plain_ms=fwd_sum("plain_ms"),
-        bound_ms=fwd_sum("bound_ms"),
+        ms=fwd_sum("ms"), queued_ms=fwd_sum("queued_ms"),
+        plain_ms=fwd_sum("plain_ms"), bound_ms=fwd_sum("bound_ms"),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=fwd_sum("library_ms"), cublas_gemm_ms=fwd_sum(
             "cublas_gemm_ms"),
@@ -2466,16 +2598,16 @@ def main():
              r["per_step"]) for r in path11]
     t_bytes = sum(w[0] * n for w, n in work) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(w[1] * n for w, n in work) / PEAK_FLOPS[torch.bfloat16] * 1e3
-    keep11 = ("M", "K", "N", "per_step", "max_abs_err", "mean_rel_err",
-              "var_rel_err", "ms", "plain_ms", "library_ms",
-              "cublas_gemm_ms", "bound_ms", "bound_by")
+    keep11 = ("M", "K", "N", "per_step", "bn", "ctas", "max_abs_err",
+              "mean_rel_err", "var_rel_err", "ms", "queued_ms", "plain_ms",
+              "library_ms", "cublas_gemm_ms", "bound_ms", "bound_by")
     kernels.append(dict(
         name="conv_bn_stats", route="cuda", source=src + "conv_bn_stats.cu",
         replaces="benchmarks/fused_conv_bn_relu_experiment.py:141",
         launches=train_launches11["conv_bn_stats"],
         max_abs_err=max(r["max_abs_err"] for r in path11),
-        ms=step_sum("ms"), plain_ms=step_sum("plain_ms"),
-        bound_ms=step_sum("bound_ms"),
+        ms=step_sum("ms"), queued_ms=step_sum("queued_ms"),
+        plain_ms=step_sum("plain_ms"), bound_ms=step_sum("bound_ms"),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=step_sum("library_ms"),
         cublas_gemm_ms=step_sum("cublas_gemm_ms"),

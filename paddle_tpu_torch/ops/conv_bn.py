@@ -5,7 +5,10 @@ the eval one.
 Two kernels over a 1x1 convolution's channels-last rows, x ``[M, K]``
 (M = B·H·W rows of Cin channels) and w ``[N, K]`` (the Conv2D weight
 ``[Cout, Cin, 1, 1]`` viewed as ``[Cout, Cin]``; the TPU kernels' w is
-``[K, N]``), both over `gemm_common.cuh`'s forward GEMM:
+``[K, N]``), both on the port's forward GEMM body: in bf16
+`gemm_tc.cuh`'s ``fwd_tc`` (``wgmma`` + TMA, one CTA an SM walking
+``128 x bn`` output tiles, ``bn`` from `conv_schedule`), in f32
+`gemm_common.cuh`'s exact-FMA kernel:
 
 * **Eval** (`conv1x1_bn_relu`, ``csrc/conv_bn_relu.cu``): counterpart of
   `benchmarks/fused_conv_bn_relu_experiment.py` `pallas_fused` (kernel
@@ -28,8 +31,9 @@ Two kernels over a 1x1 convolution's channels-last rows, x ``[M, K]``
 
 There is no size threshold and no fallback: a CUDA tensor launches the
 kernel or raises, at any M, N and K (ragged edges are masked in the
-kernel); bf16 operands need K and N to be multiples of 8 (16-byte
-loads); operands must be contiguous (no copy is made).  Both are
+kernel); bf16 operands need K and N to be multiples of 8 (TMA's 16-byte
+row strides); operands must be contiguous (no copy is made) and 16-byte
+aligned, on every device.  Both are
 `torch.autograd.Function`s whose backward is plain torch (no kernel:
 in the JAX package these products are XLA's conv backward, outside any
 Pallas kernel): the eval one masks dy by y > 0 and recomputes the f32
@@ -44,14 +48,16 @@ import ctypes
 import torch
 
 from . import _build
+from .matmul import H100_SMS, _sm_count, fwd_tiles
 
 __all__ = ["conv1x1_bn_relu", "conv1x1_bn_relu_reference", "conv1x1_bn_stats",
-           "conv1x1_bn_stats_reference", "fold_bn"]
+           "conv1x1_bn_stats_reference", "conv_schedule", "fold_bn"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_RELU_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-_STATS_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
+_RELU_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_STATS_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _P]
 
 
 def fold_bn(gamma, beta, mean, var, eps):
@@ -77,6 +83,24 @@ def conv1x1_bn_stats_reference(x2d, w2d):
     acc = torch.matmul(x2d.float(), w2d.float().t())
     var, mean = torch.var_mean(acc.double(), dim=0, unbiased=False)
     return acc.to(x2d.dtype), mean.float(), var.float()
+
+
+# the bf16 kernels' output tile widths: gemm_tc.cuh's forward body, one
+# instantiation a width, over tiles of `matmul.FWD_ROWS` rows walked as
+# `matmul.fwd_tile_plan` gives them
+TILE_WIDTHS = (64, 128, 256)
+
+
+def conv_schedule(m, n, sms=H100_SMS):
+    """``(bn, ctas)`` of a bf16 launch: the narrowest tile width that
+    holds N (256 above that), and the CTAs that walk the tiles (one an
+    SM, at most one a tile).  `tools/conv_bn_probe.py`'s sweep on the
+    H100 (PERF.md) found this width the fastest, or within the noise,
+    at every path shape of both kernels: narrower tiles re-read x once a
+    column tile, and at M = 6272 the 128-wide tiles that fill more SMs
+    were no faster."""
+    bn = next((w for w in TILE_WIDTHS if w >= n), TILE_WIDTHS[-1])
+    return bn, min(fwd_tiles(m, n, bn), sms)
 
 
 def _check_args(name, x2d, w2d, vecs=()):
@@ -107,6 +131,8 @@ def _check_args(name, x2d, w2d, vecs=()):
         if not t.is_contiguous():
             raise ValueError("%s: %s must be contiguous, got strides %s"
                              % (name, tname, t.stride()))
+        if t.data_ptr() % 16:   # TMA and the 16-byte loads
+            raise ValueError("%s: %s must be 16-byte aligned" % (name, tname))
     if min(m, n, k) <= 0:
         raise ValueError("%s: empty operands (M=%d, N=%d, K=%d)"
                          % (name, m, n, k))
@@ -121,8 +147,6 @@ def _check_cuda(name, x2d, tensors):
         if not t.is_cuda or t.device != x2d.device:
             raise ValueError("%s: %s must lie on %s with x"
                              % (name, tname, x2d.device))
-        if t.data_ptr() % 16:
-            raise ValueError("%s: %s must be 16-byte aligned" % (name, tname))
 
 
 def _conv_bn_relu_fwd(x2d, w2d, scale, shift):
@@ -130,15 +154,24 @@ def _conv_bn_relu_fwd(x2d, w2d, scale, shift):
         return conv1x1_bn_relu_reference(x2d, w2d, scale, shift)
     _check_cuda("conv1x1_bn_relu", x2d, (("x", x2d), ("w", w2d),
                                          ("scale", scale), ("shift", shift)))
-    m, k = x2d.shape
-    n = w2d.shape[0]
+    m, n = x2d.shape[0], w2d.shape[0]
     y = torch.empty(m, n, dtype=x2d.dtype, device=x2d.device)
+    _launch_conv_bn_relu(x2d, w2d, scale, shift, y,
+                         *conv_schedule(m, n, _sm_count(x2d.device)))
+    conv1x1_bn_relu.launches += 1
+    return y
+
+
+def _launch_conv_bn_relu(x2d, w2d, scale, shift, y, bn, ctas):
+    """Kernel 10's launch into ``y``; bf16 on ``bn``-wide tiles walked by
+    ``ctas`` CTAs (the f32 kernel takes one a 64 x 64 tile whatever they
+    say)."""
+    m, k = x2d.shape
     _build.launch(
         "conv_bn_relu", "conv_bn_relu_fwd", _RELU_ARGTYPES, x2d.data_ptr(),
         w2d.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(), m,
-        n, k, _build.dtype_code(x2d), _build.stream_ptr(x2d.device))
-    conv1x1_bn_relu.launches += 1
-    return y
+        w2d.shape[0], k, _build.dtype_code(x2d), bn, ctas,
+        _build.stream_ptr(x2d.device))
 
 
 class _ConvBnRelu(torch.autograd.Function):
@@ -189,6 +222,17 @@ def _conv_bn_stats_fwd(x2d, w2d):
     if not x2d.is_cuda:
         return conv1x1_bn_stats_reference(x2d, w2d)
     _check_cuda("conv1x1_bn_stats", x2d, (("x", x2d), ("w", w2d)))
+    out = _launch_conv_bn_stats(
+        x2d, w2d, *conv_schedule(x2d.shape[0], w2d.shape[0],
+                                 _sm_count(x2d.device)))
+    conv1x1_bn_stats.launches += 1
+    return out
+
+
+def _launch_conv_bn_stats(x2d, w2d, bn, ctas):
+    """Kernel 11's two launches: ``(y, mean, var)``; bf16 on ``bn``-wide
+    tiles walked by ``ctas`` CTAs (the f32 kernel takes one a 64 x 64
+    tile whatever they say)."""
     m, k = x2d.shape
     n = w2d.shape[0]
     dev = x2d.device
@@ -202,9 +246,8 @@ def _conv_bn_stats_fwd(x2d, w2d):
     _build.launch(
         "conv_bn_stats", "conv_bn_stats_fwd", _STATS_ARGTYPES, x2d.data_ptr(),
         w2d.data_ptr(), y.data_ptr(), part.data_ptr(), tiles, mean.data_ptr(),
-        var.data_ptr(), m, n, k, _build.dtype_code(x2d),
+        var.data_ptr(), m, n, k, _build.dtype_code(x2d), bn, ctas,
         _build.stream_ptr(dev))
-    conv1x1_bn_stats.launches += 1
     return y, mean, var
 
 

@@ -18,34 +18,39 @@
 // (ops/nn_ops.py `batch_norm_train`).
 //
 // Two launches, in order on the caller's stream:
-// 1. gemm_common.cuh's kFwd GEMM with the kStats epilogue: each CTA
-//    stores its y tile and writes its tile's per-column (mean, M2), the
+// 1. The forward GEMM with the kStats epilogue: each 128-row tile (64 in
+//    f32) stores its y tile and writes its per-column (mean, M2), the
 //    mean first and then the squares about it, to a partials buffer
 //    [2][row tiles][N].  The TPU kernel carries s1 and s2 across the
-//    sequential row-tile axis; CTAs here run in no order, so each writes
-//    its own partial and nothing is carried.
+//    sequential row-tile axis; CTAs here run in no order, so each tile
+//    writes its own partial and nothing is carried.
 // 2. `conv_bn_stats_reduce`: per column, Chan's merge of the (count,
 //    mean, M2) partials, each thread over a fixed stride of row tiles and
 //    then a fixed tree across the block's threads.  No float atomics: the
-//    statistics are the same bits from run to run.  No sum of squares
-//    minus a squared mean: that form cancels when |mean| >> std, and the
-//    reference op reduces about a shift for that reason
-//    (paddle_tpu/fluid/ops/nn_ops.py:203-220).
+//    statistics are the same bits from run to run, and on any grid of
+//    the first launch.  No sum of squares minus a squared mean: that form
+//    cancels when |mean| >> std, and the reference op reduces about a
+//    shift for that reason (paddle_tpu/fluid/ops/nn_ops.py:203-220).
 //
 // What bounds it on this card: in bf16, nine of the ResNet-50 train
 // step's twelve shapes at B = 128 are bytes-bound; the two at M = 6272
 // (K or N = 2048) and the one at K = 1024, N = 512 are operation-bound.
 // A step's 33 launches are bounded at 1.203 ms (3.97 GB, 0.46 TFLOP),
 // the experiment's own shape (M = 401408, K = 64, N = 256) at 0.077 ms.
-// The
-// partials add 8 bytes a (row tile, column), written once and read
+// The partials add 8 bytes a (row tile, column), written once and read
 // once: 6% of y's bytes in bf16 (128-row tiles), as much in f32 (64).
-// Design: the kFwd mainloop as conv_bn_relu.cu has it (mma.sync, a
-// cp.async ring; exact FMA in f32); the statistics are taken from the
-// registers before they are rounded, so y is written once and never read
-// back.  wgmma, TMA and a narrow-N tile for N = 64 are later work.
+//
+// Design.  bf16: gemm_tc.cuh's forward body (`fwd_tc`, kernel 5's) with
+// the kStats epilogue: TMA loads from a producer warpgroup, wgmma in two
+// consumer warpgroups, y staged in shared memory for TMA stores, then
+// `tile_stats` on the f32 accumulator before anything is rounded (shuffle
+// halvings within a warp, the eight warps' sums in shared memory), so y
+// is written once and never read back.  One CTA an SM walks the 128 x BN
+// tiles (BN from ops/conv_bn.py `conv_schedule`), so a tile's epilogue
+// overlaps the next tile's loads.  f32: gemm_common.cuh's exact-FMA
+// kernel (`simt::gemm_f32`) with the same statistics.
 
-#include "gemm_common.cuh"
+#include "gemm_tc.cuh"
 
 using namespace ptt::gemm;
 
@@ -113,9 +118,29 @@ __global__ void __launch_bounds__(RX * RY)
 
 }  // namespace
 
-// Rows of one CTA's tile: tc::BM for bf16, simt::BM for f32.
+// one name for every width, so a profile bills kernel 11 on its own
+// (chip_smoke.py's KERNEL_CATEGORIES)
+template <int TN>
+__global__ void __launch_bounds__(wg::NT, 1)
+    conv_bn_stats_tc(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb,
+                     const __grid_constant__ CUtensorMap ty,
+                     const __grid_constant__ CUtensorMap tz,
+                     const wg::FwdArgs p) {
+  wg::fwd_tc<kStats, TN>(ta, tb, ty, tz, p);
+}
+
+template <int TN>
+static cudaError_t launch_tc(const void* x, const void* w, void* y,
+                             const wg::FwdArgs& p, int ctas,
+                             cudaStream_t s) {
+  return wg::launch_conv<kStats, TN>(conv_bn_stats_tc<TN>, x, w, y, p, ctas,
+                                     s);
+}
+
+// Rows of a tile of partials: a function of the dtype alone.
 static int tile_rows_of(int dtype) {
-  return dtype == ptt::kBF16 ? tc::BM : simt::BM;
+  return dtype == ptt::kBF16 ? wg::BM : simt::BM;
 }
 
 // The row tiles of partials that conv_bn_stats_fwd needs for M rows of
@@ -124,30 +149,50 @@ extern "C" int conv_bn_stats_part_tiles(int M, int dtype) {
   return (M + tile_rows_of(dtype) - 1) / tile_rows_of(dtype);
 }
 
-// y, mean and var from x and w; `part` holds `part_tiles` row tiles of
-// partials [2][part_tiles][N], as conv_bn_stats_part_tiles gives them.
-extern "C" int conv_bn_stats_fwd(const void* x, const void* w, void* y,
-                                 float* part, int part_tiles, float* mean,
-                                 float* var, int M, int N, int K, int dtype,
-                                 void* stream) {
-  const int tiles = conv_bn_stats_part_tiles(M, dtype);
-  if (part_tiles != tiles) return cudaErrorInvalidValue;
-  const int tile_rows = tile_rows_of(dtype);
-  Args p{};
-  p.a = x;
-  p.b = w;
-  p.c = y;
-  p.stats = part;
+static cudaError_t launch_gemm(const void* x, const void* w, void* y,
+                               float* part, int M, int N, int K, int dtype,
+                               int bn, int ctas, cudaStream_t s) {
+  if (dtype == ptt::kF32) {
+    Args p{};
+    p.a = x;
+    p.b = w;
+    p.c = y;
+    p.stats = part;
+    p.rows = M;
+    p.cols = N;
+    p.depth = K;
+    p.lda = K;
+    p.ldb = K;
+    p.ldc = N;
+    return launch_act<kFwd, kStats>(p, s);
+  }
+  if (dtype != ptt::kBF16) return cudaErrorInvalidValue;
+  wg::FwdArgs p{};
   p.rows = M;
   p.cols = N;
   p.depth = K;
-  p.lda = K;
-  p.ldb = K;
-  p.ldc = N;
+  p.stats = part;
+  switch (bn) {
+    case 64: return launch_tc<64>(x, w, y, p, ctas, s);
+    case 128: return launch_tc<128>(x, w, y, p, ctas, s);
+    case 256: return launch_tc<256>(x, w, y, p, ctas, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// y, mean and var from x and w; `part` holds `part_tiles` row tiles of
+// partials [2][part_tiles][N], as conv_bn_stats_part_tiles gives them.
+// bf16 on 128 x `bn` tiles walked by `ctas` CTAs (0: one a tile).
+extern "C" int conv_bn_stats_fwd(const void* x, const void* w, void* y,
+                                 float* part, int part_tiles, float* mean,
+                                 float* var, int M, int N, int K, int dtype,
+                                 int bn, int ctas, void* stream) {
+  const int tiles = conv_bn_stats_part_tiles(M, dtype);
+  if (part_tiles != tiles) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_act<kFwd, kStats>(p, dtype, s);
+  cudaError_t err = launch_gemm(x, w, y, part, M, N, K, dtype, bn, ctas, s);
   if (err != cudaSuccess) return err;
   conv_bn_stats_reduce<<<(N + RX - 1) / RX, dim3(RX, RY), 0, s>>>(
-      part, tiles, tile_rows, M, N, mean, var);
+      part, tiles, tile_rows_of(dtype), M, N, mean, var);
   return cudaGetLastError();
 }

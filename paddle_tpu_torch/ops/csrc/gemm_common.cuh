@@ -1,8 +1,10 @@
-// The GEMM scheme shared by the fused-epilogue matmul kernels in f32
-// (matmul_bias_act.cu, matmul_bwd.cu) and the 1x1-conv + BN kernels
-// (conv_bn_relu.cu, conv_bn_stats.cu): one templated tile GEMM
+// The f32 GEMMs of the fused-epilogue matmul (matmul_bias_act.cu,
+// matmul_bwd.cu) and of the 1x1-conv + BN kernels (conv_bn_relu.cu,
+// conv_bn_stats.cu), and the epilogue pieces every GEMM of the port
+// shares: one templated tile GEMM in exact f32 FMA (`simt::gemm_f32`, no
+// TF32)
 //
-//   C[r][c] = sum_k A(r, k) B(c, k)        (f32 accumulation)
+//   C[r][c] = sum_k A(r, k) B(c, k)
 //
 // in three modes over the port's weight layout w [N, K] (nn.Linear's):
 //
@@ -12,50 +14,36 @@
 //   kDw   dw [N, K]  dZ[k][r]    (MN-major)   x[k][c]     M  (MN-major)
 //
 // "K-major": the contraction index is the contiguous one; "MN-major":
-// the output index is.  What each replaces:
+// the output index is.  What each replaces, in f32:
 // * kFwd: paddle_tpu/ops/pallas/matmul.py:200 `_fwd_kernel` (kernel 5)
-//   in f32 only, with the bias + activation epilogue: the bias is added
-//   to the f32 accumulator and the activation applied before the one
-//   writeback, optionally writing z (its bf16 kernel is gemm_tc.cuh's
-//   `fwd_tc`: wgmma + TMA); benchmarks/fused_conv_bn_relu_experiment.py:32
+//   with the bias + activation epilogue (the bias added to the f32
+//   accumulator, the activation applied before the one writeback,
+//   optionally z written too); benchmarks/fused_conv_bn_relu_experiment.py:32
 //   `fused_kernel` (kernel 10) with the kBnRelu epilogue, max(acc *
-//   scale[c] + shift[c], 0) (the folded eval-mode BatchNorm and relu,
-//   f32); and :141 `fused_stats_kernel` (kernel 11) with the kStats
-//   epilogue, which stores the accumulator as it is and writes the CTA's
-//   per-column (mean, M2) of its valid rows of the f32 accumulator, the
-//   tile's mean first and then the squares about it (two passes over the
-//   registers, so no sum of squares cancels), to a partials buffer that a
-//   second launch merges (conv_bn_stats.cu).
+//   scale[c] + shift[c], 0) (the folded eval-mode BatchNorm and relu);
+//   and :141 `fused_stats_kernel` (kernel 11) with the kStats epilogue,
+//   which stores the accumulator as it is and writes the tile's
+//   per-column (mean, M2) of its valid rows, the tile's mean first and
+//   then the squares about it (two passes over the registers, so no sum
+//   of squares cancels), to partials that a second launch merges
+//   (conv_bn_stats.cu).
 // * kDx, kDw: matmul.py:272 `_bwd_dx_kernel` and :296 `_bwd_dw_kernel`
-//   (kernels 6 and 7) in f32 only: dZ = dY * act'(residual) (the
-//   residual is z for gelu, y for relu and tanh, absent for none) is
-//   formed as the A tile is stored, and the dW mode sums dZ over M into
-//   dbias in the CTAs of column tile 0 (every M tile of a row tile passes
-//   through the same CTA: no atomics, deterministic).  Their bf16
-//   kernels are gemm_tc.cuh's (wgmma + TMA, dZ in registers).
+//   (kernels 6 and 7): dZ = dY * act'(residual) (the residual is z for
+//   gelu, y for relu and tanh, absent for none) is formed as the A tile
+//   is stored, and the dW mode sums dZ over M into dbias in the CTAs of
+//   column tile 0 (every M tile of a row tile passes through the same
+//   CTA: no atomics, deterministic).
+// Tiles: 64 x 64 x 16 in shared memory, 4 x 4 outputs a thread, 256
+// threads; any shape (edges masked).  In f32 the card's FMA rate (67
+// TFLOP/s) bounds most of the path's shapes.
 //
-// What bounds them on this card: at the BERT FFN shape (M = 30720, K =
-// 768, N = 3072, bf16) the forward's product is 1.45e11 FLOP, 0.147 ms
-// at 989 TFLOP/s, against ~0.43 GB of traffic, 0.128 ms at 3.35 TB/s:
-// compute-bound; most of ResNet-50's 1x1 convs (small K or N) are
-// bytes-bound (conv_bn_relu.cu, conv_bn_stats.cu).  Two kernels:
-// * bf16, kFwd with the conv epilogues only (`tc::gemm_bf16`, kernels 10
-//   and 11): tensor cores, mma.sync.m16n8k16
-//   bf16 -> f32.  CTA tile 128 x 128 x 32, 8 warps of 64 x 32, a 3-stage
-//   cp.async ring of K-major tiles padded against bank conflicts
-//   ([128][40]), fragments from ldmatrix; ragged M, N, K edges load as
-//   zeros (cp.async zero-fill) and are not stored; 16-byte loads need K
-//   and N to be multiples of 8.
-// * f32, every mode (`simt::gemm_f32`): exact f32 FMA (no TF32), 64 x 64
-//   x 16 tiles of shared memory, 4 x 4 outputs a thread; any shape.
-//
-// What is left for later (PERF.md): this bf16 mainloop runs at about a
-// third of cuBLAS's rate on the same product; kernels 10 and 11 move to
-// gemm_tc.cuh's forward mainloop (wgmma + TMA, staged TMA stores) next.
+// Every bf16 GEMM of the port is gemm_tc.cuh's (wgmma + TMA): the
+// forward body of kernels 5, 10 and 11 and the backward of kernels 6
+// and 7.  They share the activation codes, `act_fwd`, `act_bwd` and the
+// vector loads and stores below.
 #pragma once
 
 #include "common.cuh"
-#include "tc_common.cuh"
 
 namespace ptt {
 namespace gemm {
@@ -173,191 +161,6 @@ __device__ __forceinline__ void epilogue2(const Args& p, int r, int c,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-
-namespace tc {
-
-// smem_u32, cp_async16, cp_async_commit, cp_async_wait, ldsm_x4, mma:
-// tc_common.cuh
-using namespace ::ptt::tcore;
-
-constexpr int BM = 128, BN = 128, BK = 32, NT = 256, STAGES = 3;
-constexpr int LD = BK + 8;       // a K-major tile [128][40]
-constexpr int TILE = BM * LD;    // elements of one tile buffer
-static_assert(BM == BN, "one tile geometry for A and B");
-// the cp.async ring: an A and a B tile a stage
-constexpr int SMEM_BYTES =
-    STAGES * 2 * TILE * static_cast<int>(sizeof(__nv_bfloat16));
-
-// Thread's 16-byte chunk i of a K-major tile [128][BK] (4 chunks a
-// row): its shared offset and its (row, k) in the tile.
-__device__ __forceinline__ void chunk(int id, int& off, int& r, int& k) {
-  r = id >> 2;
-  k = (id & 3) * 8;
-  off = r * LD + k;
-}
-
-// One operand tile of rows [r0, r0 + 128) and contraction [k0, k0 + BK)
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g,
-                                          long long ld, int r0, int rlim,
-                                          int k0, int klim) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int off, r, k;
-    chunk(threadIdx.x + i * NT, off, r, k);
-    const int gr = r0 + r, gk = k0 + k;
-    const bool ok = gr < rlim && gk < klim;
-    cp_async16(s + off, ok ? g + gr * ld + gk : g, ok);
-  }
-}
-
-// One BK slice of the CTA tile: warp (wr, wc) owns rows wr*64 .. +64 and
-// columns wc*32 .. +32, i.e. 4 x 4 mma tiles of 16 x 8; both operands
-// K-major, so ldmatrix loads them untransposed.
-__device__ __forceinline__ void mma_slice(const __nv_bfloat16* As,
-                                          const __nv_bfloat16* Bs,
-                                          float (&acc)[4][4][4], int wr,
-                                          int wc, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int r0 = wr * 64 + mi * 16;
-      ldsm_x4(a[mi], As + (r0 + (lane & 15)) * LD + kk + (lane >> 4) * 8);
-    }
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      const int c0 = wc * 32 + nj * 16;
-      uint32_t t[4];
-      ldsm_x4(t, Bs + (c0 + (lane & 7) + (lane >> 4) * 8) * LD + kk +
-                     ((lane >> 3) & 1) * 8);
-      b[2 * nj][0] = t[0];
-      b[2 * nj][1] = t[1];
-      b[2 * nj + 1][0] = t[2];
-      b[2 * nj + 1][1] = t[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-  }
-}
-
-// kStats: partial (mean, M2) of each column over the CTA's valid rows,
-// written at row tile blockIdx.y.  Column c's 128 rows lie in 16
-// threads (warp row wr, lane group g; 8 rows each), whose sums meet in
-// shared memory and are added in a fixed order: deterministic.
-__device__ __forceinline__ void tile_stats(const Args& p,
-                                           const float (&acc)[4][4][4],
-                                           unsigned char* smem_raw, int row0,
-                                           int col0) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp >> 2, wc = warp & 3, g = lane >> 2, q = lane & 3;
-  const int nrows = min(BM, p.rows - row0);
-  float* red = reinterpret_cast<float*>(smem_raw);  // [16][BN]
-  float* mean = red + 16 * BN;                      // [BN]
-  __syncthreads();  // every warp is done with the operand ring
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {  // the sum, then the squares
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = wc * 32 + ni * 8 + q * 2 + j;
-        const float m = pass ? mean[c] : 0.f;
-        float s = 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            if (wr * 64 + mi * 16 + g + h * 8 < nrows) {
-              const float d = acc[mi][ni][2 * h + j] - m;
-              s += pass ? d * d : d;
-            }
-        red[(wr * 8 + g) * BN + c] = s;
-      }
-    __syncthreads();
-    if (tid < BN) {
-      float t = 0.f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) t += red[i * BN + tid];
-      if (pass == 0) {
-        mean[tid] = t / nrows;
-      } else if (col0 + tid < p.cols) {
-        const long long o = static_cast<long long>(blockIdx.y) * p.cols + col0 + tid;
-        p.stats[o] = mean[tid];
-        p.stats[static_cast<long long>(gridDim.y) * p.cols + o] = t;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// The forward (kFwd) GEMM of one 128 x 128 output tile
-template <int ACT>
-__device__ __forceinline__ void gemm_bf16(const Args& p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const auto* A = static_cast<const __nv_bfloat16*>(p.a);
-  const auto* B = static_cast<const __nv_bfloat16*>(p.b);
-  const int nk = (p.depth + BK - 1) / BK;
-
-  auto load_stage = [&](int kt) {
-    __nv_bfloat16* s = smem + (kt % STAGES) * 2 * TILE;
-    const int k0 = kt * BK;
-    load_tile(s, A, p.lda, row0, p.rows, k0, p.depth);
-    load_tile(s + TILE, B, p.ldb, col0, p.cols, k0, p.depth);
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-#pragma unroll
-  for (int kt = 0; kt < STAGES - 1; ++kt) {
-    if (kt < nk) load_stage(kt);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; every warp is done with kt - 1
-    if (kt + STAGES - 1 < nk) load_stage(kt + STAGES - 1);
-    cp_async_commit();
-    const __nv_bfloat16* s = smem + (kt % STAGES) * 2 * TILE;
-    mma_slice(s, s + TILE, acc, wr, wc, lane);
-  }
-  cp_async_wait<0>();
-
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + wr * 64 + mi * 16 + g + h * 8;
-        const int c = col0 + wc * 32 + ni * 8 + q * 2;
-        if (r < p.rows && c < p.cols)
-          epilogue2<__nv_bfloat16, kFwd, ACT>(p, r, c, acc[mi][ni][2 * h],
-                                              acc[mi][ni][2 * h + 1]);
-      }
-  if constexpr (ACT == kStats) tile_stats(p, acc, smem_raw, row0, col0);
-}
-
-}  // namespace tc
-
-// ---------------------------------------------------------------------------
 // f32: exact FMA
 // ---------------------------------------------------------------------------
 
@@ -365,9 +168,11 @@ namespace simt {
 
 constexpr int BM = 64, BK = 16, NT = 256, LD = BM + 4;
 
-// kStats, as tc::tile_stats: column c's 64 rows lie in the 16 threads
-// of one tx (4 rows each); `red` and `mean` reuse the operand tiles,
-// which the mainloop's last barrier has freed.
+// kStats: partial (mean, M2) of each column over the CTA's valid rows,
+// written at row tile blockIdx.y.  Column c's 64 rows lie in the 16
+// threads of one tx (4 rows each), whose sums meet in shared memory and
+// are added in a fixed order: deterministic.  `red` and `mean` reuse the
+// operand tiles, which the mainloop's last barrier has freed.
 __device__ __forceinline__ void tile_stats(const Args& p,
                                            const float (&acc)[4][4],
                                            float (*red)[LD], float* mean,
@@ -511,14 +316,8 @@ __device__ __forceinline__ void gemm_f32(const Args& p) {
 // launch
 // ---------------------------------------------------------------------------
 
-// One kernel name per mode and dtype, so a profile bills each on its own
-// (chip_smoke.py's KERNEL_CATEGORIES).  The bf16 matmul kernels are
-// gemm_tc.cuh's.
-#define PTT_GEMM_BF16(NAME)                                           \
-  template <int ACT>                                                  \
-  __global__ void __launch_bounds__(tc::NT, 2) NAME##_bf16(const Args p) { \
-    tc::gemm_bf16<ACT>(p);                                            \
-  }
+// One kernel name per mode, so a profile bills each on its own
+// (chip_smoke.py's KERNEL_CATEGORIES).
 #define PTT_GEMM_F32(MODE, NAME)                                      \
   template <int ACT>                                                  \
   __global__ void __launch_bounds__(simt::NT) NAME##_f32(const Args p) {   \
@@ -527,19 +326,11 @@ __device__ __forceinline__ void gemm_f32(const Args& p) {
 PTT_GEMM_F32(kFwd, matmul_fwd)
 PTT_GEMM_F32(kDx, matmul_dx)
 PTT_GEMM_F32(kDw, matmul_dw)
-PTT_GEMM_BF16(conv_bn_relu)
 PTT_GEMM_F32(kFwd, conv_bn_relu)
-PTT_GEMM_BF16(conv_bn_stats)
 PTT_GEMM_F32(kFwd, conv_bn_stats)
-#undef PTT_GEMM_BF16
 #undef PTT_GEMM_F32
 
 // the kernels of one mode only, so each library instantiates its own
-template <int ACT>
-auto bf16_kernel() {
-  if constexpr (ACT == kBnRelu) return conv_bn_relu_bf16<ACT>;
-  else return conv_bn_stats_bf16<ACT>;
-}
 template <int MODE, int ACT>
 auto f32_kernel() {
   if constexpr (MODE == kFwd && ACT == kBnRelu) return conv_bn_relu_f32<ACT>;
@@ -549,37 +340,23 @@ auto f32_kernel() {
   else return matmul_dw_f32<ACT>;
 }
 
+// The f32 GEMM of MODE with epilogue ACT, one CTA a 64 x 64 tile.
 template <int MODE, int ACT>
-cudaError_t launch_act(const Args& p, int dtype, cudaStream_t stream) {
-  if (dtype == kBF16) {
-    if constexpr (MODE != kFwd || ACT < kBnRelu) {
-      return cudaErrorInvalidValue;  // the bf16 matmul: gemm_tc.cuh
-    } else {
-      auto kern = bf16_kernel<ACT>();
-      cudaError_t err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
-      if (err != cudaSuccess) return err;
-      dim3 grid((p.cols + tc::BN - 1) / tc::BN,
-                (p.rows + tc::BM - 1) / tc::BM);
-      kern<<<grid, tc::NT, tc::SMEM_BYTES, stream>>>(p);
-    }
-  } else {
-    auto kern = f32_kernel<MODE, ACT>();
-    dim3 grid((p.cols + simt::BM - 1) / simt::BM,
-              (p.rows + simt::BM - 1) / simt::BM);
-    kern<<<grid, simt::NT, 0, stream>>>(p);
-  }
+cudaError_t launch_act(const Args& p, cudaStream_t stream) {
+  dim3 grid((p.cols + simt::BM - 1) / simt::BM,
+            (p.rows + simt::BM - 1) / simt::BM);
+  f32_kernel<MODE, ACT>()<<<grid, simt::NT, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch(const Args& p, int act, int dtype, cudaStream_t stream) {
+cudaError_t launch(const Args& p, int act, cudaStream_t stream) {
   switch (act) {
-    case kNone: return launch_act<MODE, kNone>(p, dtype, stream);
-    case kRelu: return launch_act<MODE, kRelu>(p, dtype, stream);
-    case kTanh: return launch_act<MODE, kTanh>(p, dtype, stream);
-    case kGelu: return launch_act<MODE, kGelu>(p, dtype, stream);
-    case kGeluTanh: return launch_act<MODE, kGeluTanh>(p, dtype, stream);
+    case kNone: return launch_act<MODE, kNone>(p, stream);
+    case kRelu: return launch_act<MODE, kRelu>(p, stream);
+    case kTanh: return launch_act<MODE, kTanh>(p, stream);
+    case kGelu: return launch_act<MODE, kGelu>(p, stream);
+    case kGeluTanh: return launch_act<MODE, kGeluTanh>(p, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,11 +1,15 @@
-// The bf16 GEMMs of the fused-epilogue matmul for Hopper (sm_90a): the
-// forward (launched by matmul_bias_act.cu) and the backward (launched by
+// The bf16 GEMMs of the port for Hopper (sm_90a): the forward body of the
+// fused-epilogue matmul (kernel 5, launched by matmul_bias_act.cu) and of
+// the 1x1-conv + BN kernels (kernels 10 and 11, conv_bn_relu.cu and
+// conv_bn_stats.cu), and the matmul's backward (kernels 6 and 7,
 // matmul_bwd.cu).  With the port's w [N, K] and, in the backward, dZ =
 // dY * act'(residual) (the residual is z for gelu, y for relu and tanh,
 // absent for none),
 //
-//   kFwd z [M, N] = x w^T + bias   A = x [M][K], K-major;  B = w [N][K], K-major
-//        y [M, N] = act(z)
+//   kFwd acc [M, N] = x w^T        A = x [M][K], K-major;  B = w [N][K], K-major
+//        kernel 5:  z = acc + bias, y = act(z)
+//        kernel 10: y = max(acc scale + shift, 0)
+//        kernel 11: y = acc, and each column's (mean, M2) a row tile
 //   kDx  dX [M, K] = dZ w          A = dZ [M x N], K-major; B = w [N][K], MN-major
 //   kDw  dW [N, K] = dZ^T x        A = dZ^T [N x M], MN-major; B = x [M][K], MN-major
 //        dbias [N] = sum_M dZ
@@ -13,30 +17,36 @@
 // ("K-major": the contraction index is the contiguous one; "MN-major":
 // the output index is.)
 //
-// One CTA computes a 128 x 256 output tile over a contraction range,
-// BK = 64 deep a stage, with 384 threads: a producer
-// warpgroup (one thread issues the loads; `setmaxnreg` hands most of its
-// registers to the others) and two consumer warpgroups of 64 output rows
-// each.
+// One CTA computes a 128 x TN output tile (TN = 256, and 64 or 128 in
+// the forward) over a contraction range, BK = 64 deep a stage, with 384
+// threads: a producer warpgroup (one thread issues the loads;
+// `setmaxnreg` hands most of its registers to the others) and two
+// consumer warpgroups of 64 output rows each.
 // * The producer keeps a ring of ST stages in flight with TMA (2-D
 //   tensor maps, 128-byte swizzle; flash_tc.cuh's primitives).  A `full`
 //   mbarrier a stage counts the bytes in; an `empty` one counts the
 //   eight consumer warps out.  TMA fills loads past an edge with zeros
 //   (and a zero dY gives a zero dZ), so ragged M, N and K take no branch
 //   in the mainloop.
-// * The forward (`fwd_tc`): a stage holds the x tile [128][64] and the w
-//   tile [256][64], both read by wgmma m64n256k16 through shared-memory
-//   descriptors (the simplest case: no operand is formed in registers).
-//   The epilogue runs on the f32 accumulator: the bias added in f32, z
-//   rounded once to bf16, y = act_fwd(z) of the f32 z (no table: y must
-//   be act of the f32 value, not of its rounding) rounded once.  Each
-//   consumer warpgroup writes z, then y, into its own swizzled
-//   [64][256] staging tile and one thread stores it with TMA (full
-//   lines; the parts past M or N are not written).  A CTA walks the
-//   tiles blockIdx.x, + gridDim.x, ... in row-major tile order: with as
-//   many CTAs as tiles that is one tile a CTA; with fewer (persistent),
-//   the producer loads the next tile's stages while the consumers run
-//   the epilogue, and the TMA stores drain under the next mainloop.
+// * The forward (`fwd_tc<EPI, TN>`): a stage holds the x tile [128][64]
+//   and the w tile [TN][64], both read by wgmma m64nTNk16 through
+//   shared-memory descriptors (the simplest case: no operand is formed
+//   in registers).  The epilogue EPI runs on the f32 accumulator, which
+//   holds TN / 2 floats a thread: kernel 5's bias added in f32, z rounded
+//   once to bf16, y = act_fwd(z) of the f32 z (no table: y must be act of
+//   the f32 value, not of its rounding) rounded once; kernel 10's affine
+//   and relu in f32; kernel 11's y as it is, then `tile_stats` on the
+//   unrounded accumulator.  Each consumer warpgroup writes z, then y,
+//   into its own swizzled [64][TN] staging tile and one thread stores it
+//   with TMA (full lines; the parts past M or N are not written).  A CTA
+//   walks the tiles blockIdx.x, + gridDim.x, ... in row-major tile order:
+//   with as many CTAs as tiles that is one tile a CTA; with fewer
+//   (persistent), the producer loads the next tile's stages while the
+//   consumers run the epilogue, and the TMA stores drain under the next
+//   mainloop.  Kernel 5 takes TN = 256; kernels 10 and 11 the width
+//   ops/conv_bn.py `conv_schedule` picks from N (the narrowest that
+//   holds N: a 256-wide tile at N = 64 would leave three quarters of its
+//   columns masked).
 // * The backward (`bwd_tc`): each stage holds the dY tile, the residual
 //   tile (not for act none) and the B tile (w or x) as boxes of [64
 //   contraction][64 columns]; stores are masked.  A consumer thread
@@ -475,40 +485,61 @@ cudaError_t launch(const CUtensorMap& tg, const CUtensorMap& tr,
 
 
 // ---------------------------------------------------------------------------
-// the forward (kernel 5)
+// the forward body: kernel 5, and the 1x1 conv + BN kernels 10 and 11
 // ---------------------------------------------------------------------------
 
 constexpr int OUT_BOX = 64 * 128;  // bytes of a [64 rows][64 cols] bf16 box
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a CTA may take
 
+// The forward's shared memory at output width TN: the ring (x [128][64]
+// and w [TN][64] a stage), the two warpgroups' staging tiles, kStats's
+// scratch (two [8 warps][TN] f32 sums, one a pass, and the tile's means
+// [TN]), the barriers.
+template <int EPI, int TN>
 struct FwdSmem {
   static constexpr int B_OFF = A_BYTES;             // within a stage
-  static constexpr int STAGE = A_BYTES + BN * 128;  // x [128][64], w [256][64]
+  static constexpr int STAGE = A_BYTES + TN * 128;
   static constexpr int OUT_OFF = ST * STAGE;
-  static constexpr int OUT_WG = (BN / 64) * OUT_BOX;  // a warpgroup's [64][256]
-  static constexpr int BAR_OFF = OUT_OFF + 2 * OUT_WG;
+  static constexpr int OUT_WG = (TN / 64) * OUT_BOX;  // a warpgroup's [64][TN]
+  static constexpr int RED_OFF = OUT_OFF + 2 * OUT_WG;
+  static constexpr int RED_BYTES =
+      EPI == kStats ? (2 * CONSUMER_WARPS + 1) * TN * 4 : 0;
+  static constexpr int BAR_OFF = RED_OFF + RED_BYTES;
   static constexpr int BYTES = BAR_OFF + 2 * ST * 8;
   static constexpr int ALLOC = BYTES + 1024;  // slack to align the base
+  static_assert(ALLOC <= SMEM_MAX, "the forward's shared memory");
 };
 
 struct FwdArgs {
   int rows, cols, depth;  // M, N, K
-  const void* bias;       // [N] in bias_dtype, or null
+  const void* bias;       // kernel 5: [N] in bias_dtype, or null
   int bias_dtype;
-  int emit_z;             // non-zero: write z through its map
+  int emit_z;             // kernel 5: non-zero: write z through its map
+  const float* scale;     // kBnRelu: [N] f32
+  const float* shift;     // kBnRelu: [N] f32
+  float* stats;           // kStats: [2][row tiles][N] f32 partials, the
+                          // tiles' means, then their M2s
 };
 
+// The output tiles of the forward at width TN: BM rows x TN columns.
+template <int TN>
+__host__ __device__ inline int fwd_tiles(int rows, int cols) {
+  return ((cols + TN - 1) / TN) * ((rows + BM - 1) / BM);
+}
+
 // The staging byte offset of accumulator pair t (columns 8t + 2q, +1) of
-// row r (0..63) in a warpgroup's [64][256] tile: four swizzled boxes of
-// 64 columns.
+// row r (0..63) in a warpgroup's [64][TN] tile: TN / 64 swizzled boxes
+// of 64 columns.
 __device__ __forceinline__ int stage_offset(int r, int t, int q) {
   return (t / 8) * OUT_BOX + r * 128 + (((t % 8) ^ (r % 8)) << 4) + 4 * q;
 }
 
-// One output of a warpgroup's 64 x 256 tile: the f32 accumulator
-// rounded to bf16 into the staging tile, then stored by one thread with
-// TMA.  The staging tile is free: its previous stores have read it
+// One output of a warpgroup's 64 x TN tile: the f32 accumulator rounded
+// to bf16 into the staging tile, then stored by one thread with TMA.
+// The staging tile is free: its previous stores have read it
 // (`stage_free` ran).
-__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
+template <int TN>
+__device__ __forceinline__ void store_tile(const float (&acc)[TN / 2],
                                            unsigned char* stg,
                                            const CUtensorMap* map, int row0,
                                            int col0, int rows, int cols,
@@ -518,7 +549,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
   for (int h = 0; h < 2; ++h) {
     const int r = wi * 16 + g + 8 * h;
 #pragma unroll
-    for (int t = 0; t < BN / 8; ++t) {
+    for (int t = 0; t < TN / 8; ++t) {
       *reinterpret_cast<__nv_bfloat162*>(stg + stage_offset(r, t, q)) =
           __floats2bfloat162_rn(acc[4 * t + 2 * h], acc[4 * t + 2 * h + 1]);
     }
@@ -528,7 +559,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
   if (threadIdx.x % 128 == 0) {
     const int r = row0 + wg * 64;
     if (r < rows)
-      for (int b = 0; b < BN / 64 && col0 + 64 * b < cols; ++b)
+      for (int b = 0; b < TN / 64 && col0 + 64 * b < cols; ++b)
         tma_store_2d(map, stg + b * OUT_BOX, col0 + 64 * b, r);
     bulk_commit();
   }
@@ -540,21 +571,114 @@ __device__ __forceinline__ void stage_free(int wg) {
   named_bar_sync(1 + wg, 128);
 }
 
-template <int ACT>
+// v[j] <- the sum over the lane pair (lane, lane ^ mask) of v[j + H * b]
+// where b is this lane's bit `bit`: each lane of the pair keeps one half
+// of v[0 .. 2H) and sends the other.  a + b == b + a bit for bit, so
+// both lanes of a pair round alike.
+template <int H>
+__device__ __forceinline__ void halve(float (&v)[16], bool bit, int mask) {
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float send = bit ? v[j] : v[j + H];
+    const float keep = bit ? v[j + H] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
+// kStats: the per-column (mean, M2) of the tile's valid rows (rows past
+// M, which TMA filled with zeros, are left out of both passes) from the
+// f32 accumulator, the tile's mean first and then the squares about it:
+// no sum of squares cancels.  Written to row tile `rt` of the partials.
+// A thread holds rows 16 wi + g and + 8 of its warpgroup's 64, columns
+// 8t + 2q and + 1 (g = lane / 4, q = lane % 4).  Each pass, a 64-column
+// box at a time: a thread adds its two rows, the eight lanes of a q
+// reduce-and-scatter in three halvings (lane bits 2, 3, 4: 14 shuffles
+// for 16 column sums), leaving columns 8s + 2q, + 1 of the box's 64 with
+// lane g, s = g's three bits reversed; then thread c < TN adds the eight
+// warps' sums of column c in warp order.  Every sum runs in an order
+// fixed by the tile alone: the partials do not depend on the grid.
+// Only the 256 consumer threads run this (the producer warpgroup has
+// returned): they meet on named barrier 3, not __syncthreads.
+template <int TN>
+__device__ __forceinline__ void tile_stats(const float (&acc)[TN / 2],
+                                           float* red, const FwdArgs& p,
+                                           int row0, int col0, int rt,
+                                           int wg, int wi, int lane) {
+  const int g = lane / 4, q = lane % 4, warp = wg * 4 + wi;
+  const int s = (g & 1) << 2 | (g & 2) | g >> 2;
+  const int r = row0 + wg * 64 + wi * 16 + g;
+  const bool ok0 = r < p.rows, ok1 = r + 8 < p.rows;
+  const int nrows = min(BM, p.rows - row0);
+  float* mean = red + 2 * CONSUMER_WARPS * TN;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {  // the sums, then the squares
+    float* buf = red + pass * CONSUMER_WARPS * TN;
+#pragma unroll
+    for (int b = 0; b < TN / 64; ++b) {
+      float v[16];  // v[2u + e]: column 64b + 8u + 2q + e
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int t = 8 * b + u;
+        const float2 m = pass ? *reinterpret_cast<const float2*>(
+                                    mean + 64 * b + 8 * u + 2 * q)
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float me = e ? m.y : m.x;
+          const float d0 = ok0 ? acc[4 * t + e] - me : 0.f;
+          const float d1 = ok1 ? acc[4 * t + 2 + e] - me : 0.f;
+          v[2 * u + e] = pass ? d0 * d0 + d1 * d1 : d0 + d1;
+        }
+      }
+      halve<8>(v, g & 1, 4);
+      halve<4>(v, g & 2, 8);
+      halve<2>(v, g & 4, 16);
+      *reinterpret_cast<float2*>(buf + warp * TN + 64 * b + 8 * s + 2 * q) =
+          make_float2(v[0], v[1]);
+    }
+    named_bar_sync(3, 256);
+    const int c = threadIdx.x;  // 0 .. 255: the consumers
+    if (c < TN) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < CONSUMER_WARPS; ++w) sum += buf[w * TN + c];
+      if (pass == 0) {
+        mean[c] = sum / nrows;
+      } else if (col0 + c < p.cols) {
+        const long long o = static_cast<long long>(rt) * p.cols + col0 + c;
+        const int rtiles = (p.rows + BM - 1) / BM;
+        p.stats[o] = mean[c];
+        p.stats[static_cast<long long>(rtiles) * p.cols + o] = sum;
+      }
+    }
+    // pass 0: the means are written before pass 1 reads them.  After
+    // pass 1 none is needed: the next tile writes the pass-0 sums, last
+    // read before this barrier, and the means and pass-1 sums only
+    // after its own first barrier.
+    if (pass == 0) named_bar_sync(3, 256);
+  }
+}
+
+// The forward GEMM acc = x w^T over BM x TN output tiles, then the
+// epilogue EPI on the f32 accumulator: an activation code of kernel 5
+// (the bias added, z and y = act(z) stored), kBnRelu (y = max(acc
+// scale[c] + shift[c], 0) stored) or kStats (y = acc stored, then
+// `tile_stats`).
+template <int EPI, int TN>
 __device__ __forceinline__ void fwd_tc(const CUtensorMap& ta,
                                        const CUtensorMap& tb,
                                        const CUtensorMap& ty,
                                        const CUtensorMap& tz,
                                        const FwdArgs& p) {
-  using SM = FwdSmem;
+  using SM = FwdSmem<EPI, TN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + SM::BAR_OFF);
   uint64_t* empty = full + ST;
 
-  const int tiles_n = (p.cols + BN - 1) / BN;
-  const int tiles = tiles_n * ((p.rows + BM - 1) / BM);
+  const int tiles_n = (p.cols + TN - 1) / TN;
+  const int tiles = fwd_tiles<TN>(p.rows, p.cols);
   const int nk = (p.depth + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
@@ -574,7 +698,7 @@ __device__ __forceinline__ void fwd_tc(const CUtensorMap& ta,
     if (warp == CONSUMER_WARPS && lane == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int row0 = tile / tiles_n * BM, col0 = tile % tiles_n * BN;
+        const int row0 = tile / tiles_n * BM, col0 = tile % tiles_n * TN;
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int st = it % ST;
           mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
@@ -594,10 +718,10 @@ __device__ __forceinline__ void fwd_tc(const CUtensorMap& ta,
   const bool lead = lane == 0;
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = tile / tiles_n * BM, col0 = tile % tiles_n * BN;
-    float acc[BN / 2];
+    const int row0 = tile / tiles_n * BM, col0 = tile % tiles_n * TN;
+    float acc[TN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
+    for (int i = 0; i < TN / 2; ++i) {
       acc[i] = 0.f;
       fence_reg(acc[i]);
     }
@@ -611,81 +735,128 @@ __device__ __forceinline__ void fwd_tc(const CUtensorMap& ta,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_ss_m64n256k16(acc, desc_sw128(a + kk * 32, 16, 1024),
-                            desc_sw128(b + kk * 32, 16, 1024));
+        wgmma_ss<TN>(acc, desc_sw128(a + kk * 32, 16, 1024),
+                     desc_sw128(b + kk * 32, 16, 1024));
       wgmma_commit();
       wgmma_wait<1>();
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+      for (int i = 0; i < TN / 2; ++i) fence_reg(acc[i]);
       __syncwarp();
       if (kt > 0 && lead) mbar_arrive(&empty[(it - 1) % ST]);
     }
     wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+    for (int i = 0; i < TN / 2; ++i) fence_reg(acc[i]);
     __syncwarp();
     if (nk > 0 && lead) mbar_arrive(&empty[(it - 1) % ST]);
 
-    // the epilogue: z = acc + bias (in place), then y = act(z)
     const int q = lane % 4;
-    if (p.bias) {
+    if constexpr (EPI == kBnRelu) {
+      // y = max(acc scale + shift, 0), in place
 #pragma unroll
-      for (int t = 0; t < BN / 8; ++t) {
+      for (int t = 0; t < TN / 8; ++t) {
         const int c = col0 + 8 * t + 2 * q;
-        const float b0 = c < p.cols ? load_vec(p.bias, p.bias_dtype, c) : 0.f;
-        const float b1 =
-            c + 1 < p.cols ? load_vec(p.bias, p.bias_dtype, c + 1) : 0.f;
+        const bool in = c < p.cols;  // N is a multiple of 8
+        const float s0 = in ? p.scale[c] : 0.f, s1 = in ? p.scale[c + 1] : 0.f;
+        const float b0 = in ? p.shift[c] : 0.f, b1 = in ? p.shift[c + 1] : 0.f;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          acc[4 * t + 2 * h] += b0;
-          acc[4 * t + 2 * h + 1] += b1;
+          acc[4 * t + 2 * h] = fmaxf(acc[4 * t + 2 * h] * s0 + b0, 0.f);
+          acc[4 * t + 2 * h + 1] = fmaxf(acc[4 * t + 2 * h + 1] * s1 + b1, 0.f);
         }
       }
-    }
-    if (p.emit_z) {
-      stage_free(wg);
-      store_tile(acc, stg, &tz, row0, col0, p.rows, p.cols, wg, wi, lane);
-    }
-    // y = act(z) in place first: with act_fwd inside the staging loop
-    // ptxas interleaved enough exact-gelu evaluations to spill
+    } else if constexpr (EPI != kStats) {
+      // kernel 5: z = acc + bias (in place), then y = act(z)
+      if (p.bias) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = act_fwd<ACT>(acc[i]);
+        for (int t = 0; t < TN / 8; ++t) {
+          const int c = col0 + 8 * t + 2 * q;
+          const float b0 =
+              c < p.cols ? load_vec(p.bias, p.bias_dtype, c) : 0.f;
+          const float b1 =
+              c + 1 < p.cols ? load_vec(p.bias, p.bias_dtype, c + 1) : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[4 * t + 2 * h] += b0;
+            acc[4 * t + 2 * h + 1] += b1;
+          }
+        }
+      }
+      if (p.emit_z) {
+        stage_free(wg);
+        store_tile<TN>(acc, stg, &tz, row0, col0, p.rows, p.cols, wg, wi,
+                       lane);
+      }
+      // y = act(z) in place first: with act_fwd inside the staging loop
+      // ptxas interleaved enough exact-gelu evaluations to spill
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] = act_fwd<EPI>(acc[i]);
+    }
     stage_free(wg);
-    store_tile(acc, stg, &ty, row0, col0, p.rows, p.cols, wg, wi, lane);
+    store_tile<TN>(acc, stg, &ty, row0, col0, p.rows, p.cols, wg, wi, lane);
+    if constexpr (EPI == kStats)
+      tile_stats<TN>(acc, reinterpret_cast<float*>(sm + SM::RED_OFF), p,
+                     row0, col0, tile / tiles_n, wg, wi, lane);
   }
   if (threadIdx.x % 128 == 0) bulk_wait();  // before the CTA's shared
                                             // memory goes
 }
 
+// One launch of a forward kernel `kern` (EPI, TN) on `ctas` CTAs (at
+// most one a tile; fewer walk several tiles each; 0: one a tile).
+template <int EPI, int TN, typename Kern>
+cudaError_t launch_fwd_kernel(Kern kern, const CUtensorMap& ta,
+                              const CUtensorMap& tb, const CUtensorMap& ty,
+                              const CUtensorMap& tz, const FwdArgs& p,
+                              int ctas, cudaStream_t stream) {
+  constexpr int bytes = FwdSmem<EPI, TN>::ALLOC;
+  const int tiles = fwd_tiles<TN>(p.rows, p.cols);
+  if (ctas <= 0 || ctas > tiles) ctas = tiles;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<ctas, NT, bytes, stream>>>(ta, tb, ty, tz, p);
+  return cudaGetLastError();
+}
+
+// A 1x1-conv kernel `kern` (EPI, TN: kernels 10 and 11) on x [M, K], w
+// [N, K] and y [M, N] (p.rows, p.depth, p.cols): their maps, then the
+// launch.  A map that cuTensorMapEncodeTiled refuses (an unaligned base
+// or row stride) fails the launch.
+template <int EPI, int TN, typename Kern>
+cudaError_t launch_conv(Kern kern, const void* x, const void* w, void* y,
+                        const FwdArgs& p, int ctas, cudaStream_t stream) {
+  CUtensorMap ta, tb, ty;
+  if (!encode_map_2d(&ta, x, p.rows, p.depth, p.depth, BM) ||
+      !encode_map_2d(&tb, w, p.cols, p.depth, p.depth, TN) ||
+      !encode_map_2d(&ty, y, p.rows, p.cols, p.cols, 64))
+    return cudaErrorInvalidValue;
+  return launch_fwd_kernel<EPI, TN>(kern, ta, tb, ty, ty, p, ctas, stream);
+}
+
+// kernel 5: one name for every activation, 128 x 256 tiles
 template <int ACT>
 __global__ void __launch_bounds__(NT, 1)
     matmul_fwd_tc(const __grid_constant__ CUtensorMap ta,
                   const __grid_constant__ CUtensorMap tb,
                   const __grid_constant__ CUtensorMap ty,
                   const __grid_constant__ CUtensorMap tz, const FwdArgs p) {
-  fwd_tc<ACT>(ta, tb, ty, tz, p);
+  fwd_tc<ACT, BN>(ta, tb, ty, tz, p);
 }
 
 template <int ACT>
 cudaError_t launch_fwd_act(const CUtensorMap& ta, const CUtensorMap& tb,
                            const CUtensorMap& ty, const CUtensorMap& tz,
                            const FwdArgs& p, int ctas, cudaStream_t stream) {
-  constexpr int bytes = FwdSmem::ALLOC;
-  cudaError_t err = cudaFuncSetAttribute(
-      matmul_fwd_tc<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  matmul_fwd_tc<ACT><<<ctas, NT, bytes, stream>>>(ta, tb, ty, tz, p);
-  return cudaGetLastError();
+  return launch_fwd_kernel<ACT, BN>(matmul_fwd_tc<ACT>, ta, tb, ty, tz, p,
+                                    ctas, stream);
 }
 
-// The forward over maps made by the caller, on `ctas` CTAs (at most one
-// a tile; fewer walk several tiles each).
+// Kernel 5 over maps made by the caller, on `ctas` CTAs.
 inline cudaError_t launch_fwd(const CUtensorMap& ta, const CUtensorMap& tb,
                               const CUtensorMap& ty, const CUtensorMap& tz,
                               const FwdArgs& p, int act, int ctas,
                               cudaStream_t stream) {
-  const int tiles = ((p.cols + BN - 1) / BN) * ((p.rows + BM - 1) / BM);
-  if (ctas <= 0 || ctas > tiles) ctas = tiles;
   switch (act) {
     case kNone: return launch_fwd_act<kNone>(ta, tb, ty, tz, p, ctas, stream);
     case kRelu: return launch_fwd_act<kRelu>(ta, tb, ty, tz, p, ctas, stream);

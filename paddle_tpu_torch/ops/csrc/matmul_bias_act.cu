@@ -54,7 +54,7 @@ extern "C" int matmul_bias_act_fwd(const void* x, const void* w,
     p.ldb = K;
     p.ldc = N;
     p.bias_dtype = bias_dtype;
-    return launch<kFwd>(p, act, dtype, s);
+    return launch<kFwd>(p, act, s);
   }
   if (dtype != ptt::kBF16) return cudaErrorInvalidValue;
   CUtensorMap ta, tb, ty, tz;

@@ -53,7 +53,7 @@ extern "C" int matmul_bwd_dx(const void* g, const void* res, const void* w,
     p.lda = N;
     p.ldb = K;
     p.ldc = K;
-    return launch<kDx>(p, act, dtype, s);
+    return launch<kDx>(p, act, s);
   }
   if (dtype != ptt::kBF16 || (act != kNone) != (res != nullptr))
     return cudaErrorInvalidValue;
@@ -95,7 +95,7 @@ extern "C" int matmul_bwd_dw(const void* x, const void* g, const void* res,
     p.ldb = K;
     p.ldc = K;
     p.bias_dtype = bias_dtype;
-    return launch<kDw>(p, act, dtype, s);
+    return launch<kDw>(p, act, s);
   }
   if (dtype != ptt::kBF16 || (act != kNone) != (res != nullptr) ||
       chunk <= 0 || chunk % wg::BK)

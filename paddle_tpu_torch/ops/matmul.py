@@ -384,21 +384,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_tile_plan(m, n, ctas):
-    """The bf16 forward's tiles, CTA by CTA, as the kernel walks them:
-    CTA b takes tiles b, b + ctas, ... of the row-major order of the
-    ``ceil(m / 128) x ceil(n / 256)`` output tiles; each tile as (row
-    tile, column tile)."""
-    tiles_n = _cdiv(n, FWD_COLS)
-    tiles = fwd_tiles(m, n)
+def fwd_tile_plan(m, n, ctas, cols=FWD_COLS):
+    """The bf16 forward body's tiles, CTA by CTA, as the kernel walks
+    them: CTA b takes tiles b, b + ctas, ... of the row-major order of
+    the ``ceil(m / 128) x ceil(n / cols)`` output tiles; each tile as
+    (row tile, column tile).  ``cols``: 256 for kernel 5, the width
+    `conv_bn.conv_schedule` picks for kernels 10 and 11."""
+    tiles_n = _cdiv(n, cols)
+    tiles = fwd_tiles(m, n, cols)
     ctas = min(ctas, tiles)
     return [[divmod(t, tiles_n) for t in range(b, tiles, ctas)]
             for b in range(ctas)]
 
 
-def fwd_tiles(m, n):
-    """The bf16 forward's 128 x 256 output tiles."""
-    return _cdiv(n, FWD_COLS) * _cdiv(m, FWD_ROWS)
+def fwd_tiles(m, n, cols=FWD_COLS):
+    """The bf16 forward body's 128 x ``cols`` output tiles."""
+    return _cdiv(n, cols) * _cdiv(m, FWD_ROWS)
 
 
 def fwd_schedule(m, n, sms=H100_SMS):
