@@ -18,7 +18,13 @@ PADDLE_TPU_FUSED_FFN=1; trains it as `bench.py`'s flagship step does
 backward and the fused-epilogue FFN, with a profile of one step of each
 FFN; then serves a full-width TransformerLM through the paged generation
 engine and checks the streams against the port's sequential oracle and
-the dense engine; last, holds the 1x1 conv + BN + relu kernel against
+the dense engine; holds the engine's chunk path (more than one query
+row over the paged cache: 128-token chunks, and a prefix hit whose
+padded suffix runs past max_len) against the whole-prompt flash
+prefill, and serves shared-system-prompt traffic through the prefix
+cache with logprobs (greedy tokens and logprobs against a full causal
+forward) and phase 4's traffic through 128-token chunks (every stream
+against the sequential oracle with the same knob); last, holds the 1x1 conv + BN + relu kernel against
 its plain version (f32/bf16, the Pallas experiment's shape, ResNet-50's
 eight conv0 shapes at B=128 and a ragged one; in bf16 every tile width
 at the ragged shape, an M below one tile and a shape with fewer tiles
@@ -1360,6 +1366,8 @@ def serve(gen, model, reqs, **kw):
             raise AssertionError("%s: %d of %d tokens (%s)"
                                  % (r.request_id, len(s), r.max_new_tokens,
                                     h.finish_reason))
+    if eng.paged and eng._prefix is not None:
+        eng._prefix.evict(eng.cache.num_blocks - 1)  # the registry's refs
     if eng.paged and eng.cache.pool.used_blocks != 0:
         raise AssertionError("%d blocks never returned to the pool"
                              % eng.cache.pool.used_blocks)
@@ -1560,6 +1568,286 @@ def run_engine(ptt):
                                      for i in range(len(reqs))),
           "dense_tokens_per_s": n_tok / dense_wall,
           "dense_launches": dense_launches, "blocks_returned": True})
+
+    chunk_check(ptt, model)
+    launches["engine_prefix"] = engine_prefix(ptt, model, cfg)
+    launches["engine_chunked"] = engine_chunked(
+        ptt, model, reqs, itl_unchunked=(float(np.percentile(itl, 50)),
+                                         float(np.percentile(itl, 99))))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the engine's chunk path (C > 1 query rows over the paged
+# cache), prefix caching and chunked prefill
+# ---------------------------------------------------------------------------
+
+CHUNK_PROMPTS = (64, 700, 1000)
+CHUNK_WIDTH = 128
+# the 1000-token prompt's cached prefix: its 552-token suffix pads to the
+# 1024 bucket, so rows reach position 1471, past max_len and the model's
+# positions (their ids clamped, their K/V in the garbage block)
+PREFIX_CACHED = 448
+LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)          # as model_check
+KV_TOL = dict(atol=1e-5, rtol=1e-5)
+SYSTEM_PROMPT = 512
+
+
+class ChunkRecorder:
+    """Stands in for an engine's model: calls it, and keeps the start and
+    the logits of its last call with more than one row over the cache
+    (a chunk)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.last = None
+
+    def __call__(self, ids, pos, **kw):
+        out = self.model(ids, pos, **kw)
+        if kw.get("caches") is not None and ids.shape[1] > 1:
+            self.last = (int(kw["cache_positions"][0]), out[0][0].clone())
+        return out
+
+
+def _slot_rows(ops, eng, handle, n):
+    """K and V [L, n, H, D] of ``handle``'s first n positions, read
+    through its slot's block table."""
+    slot = next(s for s, st in enumerate(eng._slot_state)
+                if st is not None and st.handle is handle)
+    table = torch.from_numpy(eng.cache.table_row(slot)[None]).cuda()
+    return [torch.stack([ops.paged_gather_kv(p[li], table)[0, :n]
+                         for li in range(p.shape[0])])
+            for p in eng.cache.arrays()]
+
+
+def _prefill_via_engine(ptt, model, prompt, cached=None, **kw):
+    """One request through an engine until its prompt is in the cache:
+    the last chunk's logits row of the prompt's last token, and the K/V
+    rows the engine wrote.  ``cached``: a prompt served first, whose
+    full blocks the request then hits."""
+    gen = ptt.generation
+    eng = gen.GenerationEngine(model, slots=8, max_len=1024, **kw)
+    if cached is not None:
+        eng.submit(gen.GenerationRequest(cached, max_new_tokens=1))
+        eng.run_until_idle()
+    rec = eng.model = ChunkRecorder(eng.model)
+    h = eng.submit(gen.GenerationRequest(prompt, max_new_tokens=8))
+    while not any(st is not None and st.handle is h
+                  for st in eng._slot_state):
+        if h.done or not eng.step():
+            raise AssertionError("request of %d tokens never reached decode"
+                                 " (%s)" % (len(prompt), h.error))
+    k, v = _slot_rows(ptt.ops, eng, h, len(prompt))
+    start, logits = rec.last
+    row = logits[len(prompt) - 1 - start]
+    stats = eng.stats().get("prefix_cache")
+    eng.run_until_idle()
+    return row, k, v, stats
+
+
+def chunk_check(ptt, model):
+    """The chunk path's last-row logits and cache rows against the
+    whole-prompt flash prefill's, 128-token chunks and a prefix-hit
+    suffix; then the chunk path's device time beside kernel 1's at the
+    1000-token prompt."""
+    gen, ops = ptt.generation, ptt.ops
+    rng = np.random.RandomState(17)
+    buckets = gen.default_prefill_buckets(1024)
+    cases = []
+    for n in CHUNK_PROMPTS:
+        prompt = [int(t) for t in rng.randint(0, model.cfg.vocab_size, n)]
+        bucket = next(b for b in buckets if n <= b)
+        ids = torch.zeros((1, bucket), dtype=torch.long)
+        ids[0, :n] = torch.tensor(prompt)
+        with torch.inference_mode():
+            logits, kvs = model(ids.cuda(), torch.arange(bucket).cuda()[None],
+                                use_cache=True)
+            want = logits[0, n - 1]
+            want_k = torch.stack([k[0, :n] for k, _ in kvs])
+            want_v = torch.stack([v[0, :n] for _, v in kvs])
+            del logits, kvs
+            runs = [("chunk%d" % CHUNK_WIDTH, None,
+                     dict(prefill_chunk=CHUNK_WIDTH))]
+            if n == 1000:
+                runs.append(("prefix_hit", prompt[:PREFIX_CACHED] + [0],
+                             dict(prefix_cache=True)))
+            for tag, cached, kw in runs:
+                row, k, v, stats = _prefill_via_engine(ptt, model, prompt,
+                                                       cached, **kw)
+                if stats is not None and stats["hit_tokens"] != PREFIX_CACHED:
+                    raise AssertionError("prefix hit %s, wanted %d tokens"
+                                         % (stats, PREFIX_CACHED))
+                lerr, lshare = compare("%s n=%d logits" % (tag, n), row,
+                                       want, LOGIT_TOL)
+                kerr, kshare = compare("%s n=%d K" % (tag, n), k, want_k,
+                                       KV_TOL)
+                verr, vshare = compare("%s n=%d V" % (tag, n), v, want_v,
+                                       KV_TOL)
+                cases.append({"prompt": n, "path": tag,
+                              "logits_max_abs_err": lerr,
+                              "logits_limit_share": lshare,
+                              "kv_max_abs_err": max(kerr, verr),
+                              "kv_limit_share": max(kshare, vshare),
+                              "prefix_cache": stats})
+    emit({"phase": "chunk_check", "logits_tol": LOGIT_TOL, "kv_tol": KV_TOL,
+          "cases": cases})
+
+    # device time: one chunked prefill (8 chunks of 128) of the
+    # 1000-token prompt beside its whole-prompt flash prefill, and the
+    # card's time for the chunk attention alone (its last chunk over the
+    # gathered view, one layer) beside kernel 1 at S = 1024
+    prompt = [int(t) for t in rng.randint(0, model.cfg.vocab_size, 1000)]
+    prof = {}
+    for tag, kw in (("flash", {}), ("chunked", dict(
+            prefill_chunk=CHUNK_WIDTH))):
+        eng = gen.GenerationEngine(model, slots=8, max_len=1024, **kw)
+        eng.submit(gen.GenerationRequest(prompt, max_new_tokens=1))
+        eng.run_until_idle()          # warm-up
+        eng.submit(gen.GenerationRequest(prompt, max_new_tokens=1))
+        p = device_profile(eng.run_until_idle)
+        prof[tag] = {"device_busy_ms": p["device_busy_ms"],
+                     "by_category_ms": p["by_category_ms"]}
+    n_chunks = -(-1000 // CHUNK_WIDTH)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(1, CHUNK_WIDTH, H, D, device="cuda", generator=g)
+    kd, vd = (torch.randn(1, 1024, H, D, device="cuda", generator=g)
+              for _ in range(2))
+    pool = torch.randn(65, 16, H, D, device="cuda", generator=g)
+    table = torch.arange(1, 65, dtype=torch.int32, device="cuda")[None]
+    start = torch.tensor([1000 - CHUNK_WIDTH], dtype=torch.int32,
+                         device="cuda")
+    q1, k1, v1 = (torch.randn(1, 1024, H, D, device="cuda", generator=g)
+                  for _ in range(3))
+    emit({"phase": "chunk_profile", "prompt": 1000, "chunks": n_chunks,
+          "chunk_width": CHUNK_WIDTH,
+          "flash_prefill": prof["flash"],
+          "chunked_prefill": prof["chunked"],
+          "chunked_device_ms_per_chunk":
+              prof["chunked"]["device_busy_ms"] / n_chunks,
+          "chunk_attention_queued_ms": queued_ms(
+              lambda: ops.chunked_attention_reference(q, kd, vd, start)),
+          "chunk_gather_queued_ms": queued_ms(
+              lambda: ops.paged_gather_kv(pool, table)),
+          "flash_fwd_s1024_queued_ms": queued_ms(
+              lambda: ops.flash_attention(q1, k1, v1, causal=True))})
+
+
+def _ttft_ms(handles):
+    return [(h.t_first_token - h.t_submit) * 1e3 for h in handles]
+
+
+def _pcts(xs):
+    return ({"p50": float(np.percentile(xs, 50)),
+             "p99": float(np.percentile(xs, 99))} if len(xs) else None)
+
+
+def prefix_requests(gen, cfg, n=16, seed=13):
+    """A shared system prompt of 512 tokens, a private suffix of 16-192
+    and 32-64 new tokens a request; greedy and sampled alternate."""
+    rng = np.random.RandomState(seed)
+    sysp = list(rng.randint(0, cfg.vocab_size, SYSTEM_PROMPT))
+    reqs = []
+    for i in range(n):
+        suffix = list(rng.randint(0, cfg.vocab_size, int(rng.randint(16,
+                                                                     193))))
+        sp = (gen.SamplingParams.greedy() if i % 2 == 0 else
+              gen.SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
+                                 seed=2000 + i))
+        reqs.append(gen.GenerationRequest(
+            sysp + suffix, max_new_tokens=int(rng.randint(32, 65)),
+            sampling=sp, request_id="prefix%d" % i))
+    return reqs
+
+
+def engine_prefix(ptt, model, cfg):
+    """Shared-system-prompt traffic through ``prefix_cache=True,
+    logprobs=True``: one miss (the flash prefill), the rest served from
+    the cache (the chunk path); every greedy token the argmax of a full
+    causal forward of prompt + stream, every logprob that forward's."""
+    gen, ops = ptt.generation, ptt.ops
+    reqs = prefix_requests(gen, cfg)
+    serve(gen, model, reqs[:3], prefix_cache=True, logprobs=True)  # warm-up
+    ops.reset_launch_counts()
+    eng, handles, streams, wall = serve(gen, model, reqs, prefix_cache=True,
+                                        logprobs=True)
+    launches = ops.launch_counts()
+    st = eng.stats()["prefix_cache"]
+    if st["hits"] < len(reqs) - 1 or \
+            st["hit_tokens"] < (len(reqs) - 1) * SYSTEM_PROMPT:
+        raise AssertionError("prefix cache %s" % st)
+    for name in ("flash_fwd", "paged_attention"):
+        if launches[name] <= 0:
+            raise AssertionError("kernel %s never launched on the prefix "
+                                 "engine run" % name)
+    # the miss: the one request served before any block was cached
+    ttft = _ttft_ms(handles)
+    miss = [0] if st["misses"] == 1 else []
+    lp_err, greedy_gap = 0.0, 0.0
+    with torch.inference_mode():
+        for r, h, s in zip(reqs, handles, streams):
+            seq = r.prompt_ids + s[:-1]
+            n = len(r.prompt_ids)
+            lg = model(torch.tensor([seq]).cuda(),
+                       torch.arange(len(seq)).cuda()[None])[0, n - 1:]
+            toks = torch.tensor(s).cuda()
+            lp = torch.log_softmax(lg.float(), -1).gather(
+                1, toks[:, None])[:, 0]
+            lp_err = max(lp_err, (lp.cpu() - torch.tensor(
+                h.logprobs(0))).abs().max().item())
+            if r.sampling.temperature <= 0:
+                picked = lg.gather(1, toks[:, None])[:, 0]
+                gap = (lg.amax(-1) - picked) / torch.clamp(
+                    lg.abs().amax(-1), min=1.0)
+                greedy_gap = max(greedy_gap, gap.max().item())
+    if lp_err > 1e-4 or greedy_gap > 1e-4:
+        raise AssertionError("prefix run: logprob error %g, greedy gap %g "
+                             "(limits 1e-4)" % (lp_err, greedy_gap))
+    _, _, plain, _ = serve(gen, model, reqs)
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    n_tok = sum(len(s) for s in streams)
+    emit({"phase": "engine_prefix", "requests": len(reqs),
+          "system_prompt": SYSTEM_PROMPT, "tokens": n_tok, "wall_s": wall,
+          "tokens_per_s": n_tok / wall, "prefix_cache": st,
+          "ttft_ms_miss": _pcts([ttft[i] for i in miss]),
+          "ttft_ms_hit": _pcts([t for i, t in enumerate(ttft)
+                                if i not in miss]),
+          "logprob_max_abs_err": lp_err, "greedy_max_gap": greedy_gap,
+          "greedy_equal_plain_engine": sum(plain[i] == streams[i]
+                                           for i in greedy),
+          "greedy_streams": len(greedy), "blocks_returned": True,
+          "prompt_lens": [len(r.prompt_ids) for r in reqs],
+          "launches": launches})
+    return launches
+
+
+def engine_chunked(ptt, model, reqs, itl_unchunked):
+    """Phase 4's traffic through ``prefill_chunk=128``: every stream, greedy
+    and sampled, equals the sequential oracle built with the same knob."""
+    gen, ops = ptt.generation, ptt.ops
+    ops.reset_launch_counts()
+    eng, handles, streams, wall = serve(gen, model, reqs,
+                                        prefill_chunk=CHUNK_WIDTH)
+    launches = ops.launch_counts()
+    if launches["paged_attention"] <= 0:
+        raise AssertionError("paged_attention never launched on the chunked "
+                             "engine run")
+    oracle = gen.sequential_oracle(
+        lambda: gen.GenerationEngine(model, slots=8, max_len=1024,
+                                     prefill_chunk=CHUNK_WIDTH), reqs)
+    bad = [r.request_id for r, o, s in zip(reqs, oracle, streams) if o != s]
+    if bad:
+        raise AssertionError("chunked streams differ from sequential_oracle: "
+                             "%s" % bad)
+    itl = np.concatenate([np.diff(h.t_tokens) * 1e3 for h in handles])
+    n_tok = sum(len(s) for s in streams)
+    emit({"phase": "engine_chunked", "requests": len(reqs),
+          "chunk": CHUNK_WIDTH, "tokens": n_tok, "wall_s": wall,
+          "tokens_per_s": n_tok / wall, "ttft_ms": _pcts(_ttft_ms(handles)),
+          "itl_ms": _pcts(itl),
+          "itl_ms_unchunked": {"p50": itl_unchunked[0],
+                               "p99": itl_unchunked[1]},
+          "oracle_requests": len(reqs), "oracle_equal": True,
+          "blocks_returned": True, "launches": launches})
     return launches
 
 
@@ -2501,6 +2789,8 @@ def main():
                                       "library_ms", "bound_ms",
                                       "max_abs_err")} for r in d128_rows],
              engine_prefill={"launches": launches["flash_fwd"],
+                             "prefix_run_launches":
+                                 launches["engine_prefix"]["flash_fwd"],
                              **{k: prefill[k] for k in (
                                  "S", "dtype", "max_abs_err", "ms",
                                  "plain_ms", "bound_ms", "bound_by",
@@ -2527,7 +2817,10 @@ def main():
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
              replaces="paddle_tpu/ops/pallas/paged_attention.py:153",
-             launches=launches["paged_attention"], **paged_row),
+             launches=launches["paged_attention"],
+             prefix_run_launches=launches["engine_prefix"]["paged_attention"],
+             chunked_run_launches=launches["engine_chunked"][
+                 "paged_attention"], **paged_row),
     ]
 
     # the fused-epilogue GEMM kernels at the FFN's shape (M = 30720, K =

@@ -3,11 +3,13 @@ of `paddle_tpu.generation`, on PyTorch and the port's CUDA kernels.
 
 * `PagedKVCache` / `BlockPool` — the block-pool KV store and its
   refcounted lowest-id-first allocator (block 0 is the garbage block);
-  `KVCache` keeps the dense layout as the A/B baseline;
+  `KVCache` keeps the dense layout as the A/B baseline; `PrefixCache`
+  shares full prompt blocks between requests;
 * `GenerationEngine` — slot-based continuous batching, flash prefill
   over the bucket ladder, one decode step over all slots per iteration
   through the paged (or dense) decode kernel, preemption on pool
-  exhaustion; token-for-token equal to `sequential_oracle`;
+  exhaustion, prefix caching, chunked prefill and per-token logprobs;
+  token-for-token equal to `sequential_oracle`;
 * `SamplingParams` / `sample_tokens` — greedy, temperature, top-k,
   top-p with per-request (seed, step) random streams.
 """
@@ -26,6 +28,7 @@ from .kv_cache import (  # noqa: F401
     KVCache,
     PagedKVCache,
     PoolExhausted,
+    PrefixCache,
 )
 from .sampling import (  # noqa: F401
     SamplingParams,

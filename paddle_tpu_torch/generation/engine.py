@@ -14,22 +14,40 @@ Counterpart of `paddle_tpu.generation.engine`, run eagerly in PyTorch:
 * **paged KV** — the store is a block pool ``[L, num_blocks, block_size,
   H, D]`` plus a host per-slot block table (`kv_cache.PagedKVCache`).
   Slots allocate blocks as they grow; when the pool runs dry the engine
-  preempts the least-progressed slot (restart semantics) rather than
-  crashing.  ``paged=False`` keeps the dense layout as the A/B
-  baseline, decoding through the dense kernel.
+  evicts cached prefixes, then preempts the least-progressed slot
+  (restart semantics) rather than crashing.  ``paged=False`` keeps the
+  dense layout as the A/B baseline, decoding through the dense kernel.
+* **prefix caching** — with ``prefix_cache=True``, full prompt blocks
+  are published under a token-chain hash (`kv_cache.PrefixCache`).  A
+  new request sharing a cached prefix adopts those blocks by reference
+  and prefills only the suffix.  Only FULL blocks are shared, so the
+  writable tail is private and copy-on-write never arises.
+* **chunked prefill** — ``prefill_chunk=C`` feeds prompts through
+  C-token chunks, ONE chunk a slot per scheduler iteration, so decode
+  steps of running requests interleave with a long prefill; a prefix
+  hit's suffix rides the same path as one chunk of its ladder bucket.
+  A chunk is one model call that writes its rows into the slot's blocks
+  and attends row i over positions ``<= start + i``
+  (`ops.chunked_attention_reference`, plain PyTorch, as the reference's
+  jnp function is).
+* **logprobs** — with ``logprobs=True`` every token event carries the
+  token's log-probability under the raw logits
+  (`sampling.token_logprobs`), and `RequestHandle.logprobs` returns
+  them.
 
 Exactness: scheduling is invisible in the tokens.  Per-request random
 streams (`sampling.py`) and row-independent slot math make the output
 token-for-token identical to serving the same requests one at a time
-(`sequential_oracle`); paged and dense engines prefill through the same
-forward and decode through kernels that are bitwise equal on the card.
+(`sequential_oracle`, built with the same knobs: the same chunk
+boundaries give the same shapes); paged and dense engines prefill
+through the same forward and decode through kernels that are bitwise
+equal on the card.
 
 Not ported yet (the constructor raises `NotImplementedError` for each):
-prefix caching, chunked prefill, int8 KV, speculative decoding and
-logprobs; nor the disaggregated ``prefill_extract`` /
-``inject_prefilled`` pair and ``swap_params``.  The device cache is
-updated in place, so ``donate`` has nothing to select and is accepted
-for signature parity only.
+int8 KV and speculative decoding; nor the disaggregated
+``prefill_extract`` / ``inject_prefilled`` pair and ``swap_params``.
+The device cache is updated in place, so ``donate`` has nothing to
+select and is accepted for signature parity only.
 """
 
 from __future__ import annotations
@@ -47,8 +65,8 @@ from ..device import resolve_device
 from ..observability import locks as _locks
 from ..observability import trace as _trace
 from ..observability.metrics import default_registry, unique_instance_label
-from .kv_cache import KVCache, PagedKVCache, PoolExhausted
-from .sampling import SamplingParams, sample_tokens
+from .kv_cache import KVCache, PagedKVCache, PoolExhausted, PrefixCache
+from .sampling import SamplingParams, sample_tokens, token_logprobs
 
 __all__ = [
     "EngineDeadError",
@@ -111,15 +129,18 @@ class GenerationRequest:
 
 class RequestHandle:
     """The caller's end of one request: a stream of ``(index, token)``
-    plus terminal events.  ``restart`` events (preemption on pool
-    exhaustion re-runs the request from scratch) reset the index stream
-    to 0; a consumer discards what it saw before."""
+    plus terminal events (``("token", index, token, logprob)`` on an
+    engine built with ``logprobs=True``).  ``restart`` events
+    (preemption on pool exhaustion re-runs the request from scratch)
+    reset the index stream to 0; a consumer discards what it saw
+    before."""
 
     def __init__(self, request, trace=None):
         self.request = request
         self._q = queue.Queue()
         self._done = threading.Event()
         self._tokens = []
+        self._logprobs = []            # filled only on logprob engines
         self.finish_reason = None
         self.error = None
         self.t_submit = time.perf_counter()
@@ -129,7 +150,7 @@ class RequestHandle:
         self._sink = None              # engine's per-request record sink
 
     # -- engine side ------------------------------------------------------
-    def _emit(self, index, token):
+    def _emit(self, index, token, logprob=None):
         now = time.perf_counter()
         if index == 0:
             self.t_first_token = now
@@ -139,10 +160,17 @@ class RequestHandle:
         if tr.enabled:
             tr.async_instant("token", self.trace.trace_id,
                              cat="generation", args={"index": index})
-        self._q.put(("token", index, int(token)))
+        if logprob is None:
+            # logprobs off: the event is the 3-tuple of an engine
+            # without the knob
+            self._q.put(("token", index, int(token)))
+        else:
+            self._logprobs.append(float(logprob))
+            self._q.put(("token", index, int(token), float(logprob)))
 
     def _restart(self):
         self._tokens = []
+        self._logprobs = []
         self.t_tokens = []
         tr = _trace.default_tracer()
         if tr.enabled:
@@ -228,6 +256,17 @@ class RequestHandle:
             raise RuntimeError(self.error)
         return list(self._tokens)
 
+    def logprobs(self, timeout=30.0):
+        """Block until done; the generated tokens' log-probabilities
+        (`sampling.token_logprobs`).  Empty unless the engine was built
+        with ``logprobs=True``."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(
+                "request %s not finished" % self.request.request_id)
+        if self.error is not None:
+            raise RuntimeError(self.error)
+        return list(self._logprobs)
+
     @property
     def done(self):
         return self._done.is_set()
@@ -240,6 +279,18 @@ class _Slot:
         self.request = request
         self.handle = handle
         self.generated = 0
+
+
+class _ChunkState:
+    """A slot mid-way through chunked prefill (not yet decoding)."""
+
+    __slots__ = ("request", "handle", "pos", "t0")
+
+    def __init__(self, request, handle, pos, t0):
+        self.request = request
+        self.handle = handle
+        self.pos = pos                 # prompt tokens already in cache
+        self.t0 = t0
 
 
 class GenerationEngine:
@@ -256,7 +307,11 @@ class GenerationEngine:
     Paged knobs: ``paged`` (default True) selects the block pool;
     ``block_size`` is its row granularity; ``kv_blocks`` sizes it
     (default: dense parity — ``slots * ceil(max_len / block_size) + 1``;
-    provision below that and preemption absorbs the tail)."""
+    provision below that and preemption absorbs the tail).
+    ``prefix_cache`` enables full-block prefix reuse and
+    ``prefill_chunk`` chunk-prefills prompts C tokens per scheduler
+    iteration (both need ``paged``); ``logprobs`` adds each token's
+    log-probability to its event."""
 
     def __init__(self, model, *, slots=4, max_len=256,
                  prefill_buckets=None, max_queue=64, name="gen",
@@ -265,10 +320,7 @@ class GenerationEngine:
                  kv_blocks=None, prefix_cache=False, prefill_chunk=None,
                  kv_dtype=None, draft_model=None, draft_len=0,
                  request_sink=None, device=None):
-        for unported, knob in ((logprobs, "logprobs=True"),
-                               (prefix_cache, "prefix_cache"),
-                               (prefill_chunk, "prefill_chunk"),
-                               (kv_dtype is not None, "kv_dtype"),
+        for unported, knob in ((kv_dtype is not None, "kv_dtype"),
                                (draft_model is not None, "draft_model")):
             if unported:
                 raise NotImplementedError(
@@ -278,6 +330,7 @@ class GenerationEngine:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
+        self.return_logprobs = bool(logprobs)
         self.slots = int(slots)
         self.max_len = int(max_len)
         if self.max_len > cfg.max_position_embeddings:
@@ -292,6 +345,12 @@ class GenerationEngine:
                              % (self.prefill_buckets[-1], self.max_len))
         self.max_queue = int(max_queue)
         self.paged = bool(paged)
+        if not self.paged and (prefix_cache or prefill_chunk):
+            raise ValueError("prefix_cache / prefill_chunk require "
+                             "paged=True")
+        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
         dtype = self.model.word.weight.dtype
         n = self.slots
         if self.paged:
@@ -304,12 +363,15 @@ class GenerationEngine:
                 cfg.num_heads, cfg.head_dim, n, self.max_len, dtype=dtype,
                 device=self.device)
             self._slot_blocks = [[] for _ in range(n)]
+            self._prefix = (PrefixCache(self.cache.pool, self.block_size)
+                            if prefix_cache else None)
         else:
             self.block_size = None
             self.cache = KVCache(cfg.num_layers, n, self.max_len,
                                  cfg.num_heads, cfg.head_dim, dtype=dtype,
                                  device=self.device)
             self._slot_blocks = None
+            self._prefix = None
         # host mirrors of per-slot state (device state is ONLY the cache)
         self._lengths = np.zeros(n, np.int32)
         self._last_tokens = np.zeros(n, np.int64)
@@ -320,6 +382,7 @@ class GenerationEngine:
         self._top_p = np.ones(n, np.float32)
         self._active = np.zeros(n, bool)
         self._slot_state = [None] * n          # _Slot | None
+        self._chunking = [None] * n            # _ChunkState | None
         self._free = list(range(n))
         self._pending = []                     # [(request, handle)]
         self._lock = _locks.named_rlock("generation.engine",
@@ -374,6 +437,19 @@ class GenerationEngine:
             self._m_blocks_free = reg.gauge(
                 "generation_kv_blocks_free", "KV pool blocks free",
                 labelnames=lbl).labels(self._engine)
+        if self._prefix is not None:
+            self._m_prefix_hits = reg.counter(
+                "generation_prefix_hits_total",
+                "Prefill prefix-cache hits", labelnames=lbl).labels(
+                    self._engine)
+            self._m_prefix_misses = reg.counter(
+                "generation_prefix_misses_total",
+                "Prefill prefix-cache misses", labelnames=lbl).labels(
+                    self._engine)
+            self._m_prefix_tokens = reg.counter(
+                "generation_prefix_hit_tokens_total",
+                "Prompt tokens served from the prefix cache",
+                labelnames=lbl).labels(self._engine)
 
     # -- block accounting (paged) -----------------------------------------
     def _set_block_gauges(self):
@@ -381,15 +457,21 @@ class GenerationEngine:
         self._m_blocks_free.set(self.cache.pool.free_blocks)
 
     def _ensure_blocks(self, slot, n_tokens):
-        """Grow the slot's table to cover ``n_tokens`` cache rows; False
-        when the pool is dry (the caller preempts/sheds)."""
+        """Grow the slot's table to cover ``n_tokens`` cache rows.  Falls
+        back to prefix-cache eviction under pool pressure; False when the
+        pool is dry even then (the caller preempts/sheds)."""
         need = self.cache.blocks_for(n_tokens) - len(self._slot_blocks[slot])
         if need <= 0:
             return True
         try:
             ids = self.cache.pool.alloc(need)
         except PoolExhausted:
-            return False
+            if self._prefix is not None:
+                self._prefix.evict(need)
+            try:
+                ids = self.cache.pool.alloc(need)
+            except PoolExhausted:
+                return False
         base = len(self._slot_blocks[slot])
         for j, b in enumerate(ids):
             self.cache.assign(slot, base + j, b)
@@ -398,8 +480,9 @@ class GenerationEngine:
         return True
 
     def _release_blocks(self, slot):
-        """Return every block the slot holds and point its table row
-        back at the garbage block."""
+        """Drop the slot's reference on every block it holds (shared
+        prefix blocks stay alive under the registry's reference) and
+        point its table row back at the garbage block."""
         ids = self._slot_blocks[slot]
         if ids:
             self.cache.pool.decref(ids)
@@ -410,9 +493,10 @@ class GenerationEngine:
     def _preempt_slot(self, slot, why):
         """Pool-pressure eviction of a running request: every block
         returns to the pool and the request restarts from the front of
-        the queue (the handle's stream resets)."""
-        st = self._slot_state[slot]
-        self._slot_state[slot] = None
+        the queue (the handle's stream resets).  A slot mid-chunk goes
+        the same way."""
+        st = self._slot_state[slot] or self._chunking[slot]
+        self._slot_state[slot] = self._chunking[slot] = None
         self._active[slot] = False
         self._release_blocks(slot)
         self._free.append(slot)
@@ -426,17 +510,21 @@ class GenerationEngine:
 
     def _grow_or_preempt(self, slot, n_tokens):
         """Grow ``slot`` to ``n_tokens`` rows, preempting the least-
-        progressed OTHER slot (fewest generated tokens, lowest id) until
-        it fits; False when no victim is left."""
+        progressed OTHER slot (fewest generated tokens, a slot mid-chunk
+        counting 0, then lowest id) until it fits; False when no victim
+        is left."""
         while not self._ensure_blocks(slot, n_tokens):
             victims = [s for s in range(self.slots)
-                       if s != slot and self._slot_state[s] is not None]
+                       if s != slot and (self._slot_state[s] is not None
+                                         or self._chunking[s] is not None)]
             if not victims:
                 return False
-            self._preempt_slot(
-                min(victims, key=lambda s: (self._slot_state[s].generated,
-                                            s)),
-                "pool_exhausted")
+
+            def progress(s):
+                st = self._slot_state[s]
+                return (st.generated if st is not None else 0, s)
+
+            self._preempt_slot(min(victims, key=progress), "pool_exhausted")
         return True
 
     def _fail_slot(self, slot, msg):
@@ -451,7 +539,8 @@ class GenerationEngine:
     def _decode_tables(self):
         """The table operand for batched decode: rows of slots that are
         NOT decoding are zeroed so their dead-row writes land in the
-        reserved garbage block."""
+        reserved garbage block (a mid-chunk slot's real blocks must
+        never take a stale-position decode write)."""
         return np.where(self._active[:, None], self.cache.block_tables,
                         0).astype(np.int32)
 
@@ -528,13 +617,18 @@ class GenerationEngine:
 
     # -- scheduler ---------------------------------------------------------
     def step(self):
-        """One scheduler iteration: refill free slots (prefill), then one
-        decode step over the active batch.  Returns True when any work
+        """One scheduler iteration: advance every chunked prefill in
+        flight by ONE chunk, refill free slots (prefill), then one decode
+        step over the active batch.  Returns True when any work
         happened."""
         with self._lock:
             if self._dead:
                 raise EngineDeadError("engine %s is dead" % self._engine)
             progressed = False
+            for slot in range(self.slots):
+                if self._chunking[slot] is not None:
+                    self._chunk_step(slot)
+                    progressed = True
             while self._free and self._pending:
                 request, handle = self._pending.pop(0)
                 slot = self._free.pop(0)
@@ -548,7 +642,8 @@ class GenerationEngine:
                     # running request to free blocks — unless nothing
                     # is running, in which case it never will
                     self._free.insert(0, slot)
-                    if self._active.any():
+                    if self._active.any() or any(
+                            c is not None for c in self._chunking):
                         self._pending.insert(0, (request, handle))
                         self._m_queue.set(len(self._pending))
                         if tr.enabled:
@@ -584,18 +679,41 @@ class GenerationEngine:
 
     # -- prefill -----------------------------------------------------------
     def _prefill_into(self, slot, request, handle):
-        """Claim blocks (paged) and run the whole-prompt prefill: one
-        causal forward over the bucket-padded prompt, every layer's K/V
-        written into the slot's cache rows, token 0 sampled from the
-        last real position.  Returns False (nothing claimed) when the
-        pool is dry."""
+        """Claim blocks and start the prompt.  A prefix hit, or any prompt
+        when ``prefill_chunk`` is set, goes to the chunk path; the rest
+        runs the whole-prompt prefill: one causal forward over the
+        bucket-padded prompt on the flash kernel, every layer's K/V
+        written into the slot's cache rows, token 0 sampled from the last
+        real position.  Returns False (nothing claimed) when the pool is
+        dry."""
         sp = request.sampling
         n_prompt = len(request.prompt_ids)
         if self.paged:
-            self._slot_blocks[slot] = []
+            n_cached, shared = 0, []
+            if self._prefix is not None:
+                n_cached, shared = self._prefix.lookup(request.prompt_ids)
+                if n_cached:
+                    self._m_prefix_hits.inc()
+                    self._m_prefix_tokens.inc(n_cached)
+                else:
+                    self._m_prefix_misses.inc()
+            for j, b in enumerate(shared):
+                self.cache.assign(slot, j, b)
+            self._slot_blocks[slot] = list(shared)
             if not self._ensure_blocks(slot, n_prompt):
                 self._release_blocks(slot)
                 return False
+            if n_cached > 0 or self.prefill_chunk is not None:
+                tr = _trace.default_tracer()
+                if tr.enabled:
+                    tr.async_begin("prefill", handle.trace.trace_id,
+                                   cat="generation",
+                                   args={"chunked": True,
+                                         "prefix_cached": n_cached})
+                self._chunking[slot] = _ChunkState(
+                    request, handle, n_cached, time.perf_counter())
+                self._chunk_step(slot)
+                return True
         bucket = self._bucket_for(n_prompt)
         dev = self.device
         tokens = torch.zeros((1, bucket), dtype=torch.long)
@@ -632,18 +750,88 @@ class GenerationEngine:
                 for li, (k, v) in enumerate(kvs):
                     k_store[li, slot, :bucket] = k[0].to(k_store.dtype)
                     v_store[li, slot, :bucket] = v[0].to(v_store.dtype)
-            last = logits[0, n_prompt - 1:n_prompt]           # [1, V]
-            tok0 = int(sample_tokens(last, [sp.seed], [0], [sp.temperature],
-                                     [sp.top_k], [sp.top_p])[0])
+            tok0, lp0 = self._sample_first(
+                logits[0, n_prompt - 1:n_prompt], sp)
         self._m_prefill_ms.observe((time.perf_counter() - t0) * 1e3)
         if tr.enabled:
             tr.async_end("prefill", handle.trace.trace_id, cat="generation")
-        self._activate(slot, request, handle, tok0)
+        self._activate(slot, request, handle, tok0, lp0)
         return True
 
-    def _activate(self, slot, request, handle, tok0):
-        """Prompt in cache: arm the slot's decode state, emit token 0."""
+    def _sample_first(self, last, sp):
+        """Generated token 0 from the last real row's logits ``last``
+        [1, V] (step 0 of the request's stream), and its logprob when the
+        engine reports them."""
+        tok = sample_tokens(last, [sp.seed], [0], [sp.temperature],
+                            [sp.top_k], [sp.top_p])
+        lp = (float(token_logprobs(last, tok)[0]) if self.return_logprobs
+              else None)
+        return int(tok[0]), lp
+
+    def _chunk_step(self, slot):
+        """Advance one chunked prefill by one chunk: one model call that
+        writes up to ``width`` prompt tokens' K/V at ``pos ..`` through
+        the slot's table row and attends each row over the positions up
+        to its own.  The width is ``prefill_chunk`` when set, else the
+        whole remaining suffix bucketed to the prefill ladder (the
+        prefix-hit path).  Padded rows' positions are clamped to the
+        model's last position id (their outputs are ignored); their cache
+        rows land past the prompt or in the garbage block."""
+        cs = self._chunking[slot]
+        request, handle = cs.request, cs.handle
         sp = request.sampling
+        n_prompt = len(request.prompt_ids)
+        remaining = n_prompt - cs.pos
+        width = (self.prefill_chunk if self.prefill_chunk is not None
+                 else self._bucket_for(remaining))
+        c_real = min(width, remaining)
+        if not self._grow_or_preempt(slot, cs.pos + c_real):
+            self._chunking[slot] = None
+            self._release_blocks(slot)
+            self._free.append(slot)
+            handle._fail("kv pool exhausted mid-prefill for request %s"
+                         % request.request_id)
+            return
+        dev = self.device
+        tokens = torch.zeros((1, width), dtype=torch.long)
+        tokens[0, :c_real] = torch.tensor(
+            request.prompt_ids[cs.pos:cs.pos + c_real])
+        positions = (cs.pos + torch.arange(width)).clamp(
+            max=self.cfg.max_position_embeddings - 1)[None]
+        table = torch.from_numpy(
+            self.cache.table_row(slot)[None].astype(np.int32)).to(dev)
+        last = cs.pos + c_real >= n_prompt
+        with _trace.span("generation.prefill_chunk", cat="generation",
+                         args={"width": width, "slot": int(slot),
+                               "pos": cs.pos,
+                               "request_id": request.request_id}), \
+                torch.inference_mode():
+            logits, _ = self.model(
+                tokens.to(dev), positions.to(dev),
+                caches=self.cache.arrays(),
+                cache_positions=torch.tensor([cs.pos], dtype=torch.int32,
+                                             device=dev),
+                block_tables=table, block_size=self.block_size)
+            if last:
+                tok0, lp0 = self._sample_first(
+                    logits[0, c_real - 1:c_real], sp)
+        cs.pos += c_real
+        if last:
+            self._chunking[slot] = None
+            self._m_prefill_ms.observe((time.perf_counter() - cs.t0) * 1e3)
+            tr = _trace.default_tracer()
+            if tr.enabled:
+                tr.async_end("prefill", handle.trace.trace_id,
+                             cat="generation")
+            self._activate(slot, request, handle, tok0, lp0)
+
+    def _activate(self, slot, request, handle, tok0, lp0=None):
+        """Prompt in cache: publish its full blocks to the prefix cache,
+        arm the slot's decode state, emit token 0."""
+        sp = request.sampling
+        if self._prefix is not None:
+            self._prefix.register(request.prompt_ids,
+                                  self._slot_blocks[slot])
         st = _Slot(request, handle)
         self._slot_state[slot] = st
         self._lengths[slot] = len(request.prompt_ids)
@@ -654,7 +842,7 @@ class GenerationEngine:
         self._top_k[slot] = sp.top_k
         self._top_p[slot] = sp.top_p
         self._active[slot] = True
-        self._emit(slot, st, tok0)
+        self._emit(slot, st, tok0, lp0)
         self._m_ttft.observe((time.perf_counter() - handle.t_submit) * 1e3)
 
     # -- decode ------------------------------------------------------------
@@ -692,8 +880,10 @@ class GenerationEngine:
                                    caches=self.cache.arrays(),
                                    cache_positions=lengths, **kw)
             nxt = sample_tokens(logits[:, 0], self._seeds, self._steps,
-                                self._temp, self._top_k,
-                                self._top_p).cpu().numpy()
+                                self._temp, self._top_k, self._top_p)
+            lps = (token_logprobs(logits[:, 0], nxt).cpu().numpy()
+                   if self.return_logprobs else None)
+            nxt = nxt.cpu().numpy()
         self._decode_steps += 1
         dt_ms = (time.perf_counter() - t0) * 1e3
         # the step put every ACTIVE slot's new token at lengths; advance
@@ -704,13 +894,14 @@ class GenerationEngine:
             st = self._slot_state[slot]
             tok = int(nxt[slot])
             self._last_tokens[slot] = tok
-            self._emit(slot, st, tok)
+            self._emit(slot, st, tok,
+                       float(lps[slot]) if lps is not None else None)
             self._m_itl.observe(dt_ms)
 
     # -- token delivery ----------------------------------------------------
-    def _emit(self, slot, st, token):
+    def _emit(self, slot, st, token, logprob=None):
         """Deliver one generated token and apply stop conditions."""
-        st.handle._emit(st.generated, token)
+        st.handle._emit(st.generated, token, logprob)
         st.generated += 1
         self._m_tokens.inc()
         reason = None
@@ -743,6 +934,9 @@ class GenerationEngine:
             if st is not None:
                 affected.append(st.handle)
                 self._slot_state[slot] = None
+            if self._chunking[slot] is not None:
+                affected.append(self._chunking[slot].handle)
+                self._chunking[slot] = None
             if self.paged and self._slot_blocks[slot]:
                 self._release_blocks(slot)
         self._active[:] = False
@@ -782,7 +976,9 @@ class GenerationEngine:
             with self._lock:
                 if self._stop or self._dead:
                     return
-                if not (self._pending or self._active.any()):
+                busy = (bool(self._pending) or bool(self._active.any())
+                        or any(c is not None for c in self._chunking))
+                if not busy:
                     self._work.wait(0.05)
                     continue
             try:
@@ -809,6 +1005,7 @@ class GenerationEngine:
             return {
                 "slots": self.slots,
                 "active": int(self._active.sum()),
+                "chunking": sum(c is not None for c in self._chunking),
                 "free": len(self._free),
                 "pending": len(self._pending),
             }
@@ -825,6 +1022,8 @@ class GenerationEngine:
             "cache": self.cache.describe(),
             "preempted": int(self._m_preempt.value),
         })
+        if self._prefix is not None:
+            occ["prefix_cache"] = self._prefix.stats()
         return occ
 
     # -- convenience -------------------------------------------------------

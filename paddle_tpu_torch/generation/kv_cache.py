@@ -11,15 +11,19 @@ Counterpart of `paddle_tpu.generation.kv_cache`.
 * `BlockPool` — the refcounted allocator.  It always hands out the
   LOWEST free block id (a heap), and block 0 is the reserved garbage
   block: inactive slots' table rows point at it, so the batched decode
-  step's dead-row writes land somewhere nobody reads.
+  step's dead-row writes land somewhere nobody reads;
+* `PrefixCache` — full-block prefix reuse over the pool: a token-chain
+  hash names each full prompt block, the registry holds one reference
+  per cached block, and eviction is leaf-first LRU.  Pure host code.
 
 The device tensors are updated in place by the model (PyTorch has no
 donation; in-place writes are what donation bought the JAX engine).
-Left for later slices: `PrefixCache` and int8 pools.
+Left for a later slice: int8 pools.
 """
 
 from __future__ import annotations
 
+import hashlib
 import heapq
 
 import numpy as np
@@ -27,7 +31,8 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["BlockPool", "KVCache", "PagedKVCache", "PoolExhausted"]
+__all__ = ["BlockPool", "KVCache", "PagedKVCache", "PoolExhausted",
+           "PrefixCache"]
 
 
 class KVCache:
@@ -132,6 +137,115 @@ class BlockPool:
 
     def refcount(self, block_id):
         return int(self._ref[block_id])
+
+
+class PrefixCache:
+    """Refcounted full-block prefix reuse keyed by a token-chain hash.
+
+    Key of block j = H(key_{j-1} || tokens of block j), sha1 over the
+    literal token bytes: a chain, so a lookup walks the prompt's full
+    blocks until the first miss and every hit is an exact token-prefix
+    match (hash collisions aside).  The registry holds one pool
+    reference per cached block; each slot using a block holds another,
+    so a shared block frees only when the last user AND the registry
+    let go.  Eviction is LRU over chains with no registry children and
+    no outside users, triggered by allocation pressure."""
+
+    def __init__(self, pool, block_size):
+        self.pool = pool
+        self.block_size = int(block_size)
+        # key -> [block_id, parent_key, last_use, n_child]
+        self._entries = {}
+        self._clock = 0
+        self.hits = 0
+        self.misses = 0
+        self.hit_tokens = 0
+
+    def __len__(self):
+        return len(self._entries)
+
+    @staticmethod
+    def _key(parent, tokens):
+        h = hashlib.sha1()
+        h.update(parent.encode() if parent else b"root")
+        h.update(np.asarray(tokens, np.int64).tobytes())
+        return h.hexdigest()
+
+    def _chain_keys(self, prompt_ids, max_tokens):
+        """Keys of the full blocks covering <= max_tokens prompt tokens,
+        in order."""
+        bs = self.block_size
+        keys, parent = [], ""
+        for j in range(max_tokens // bs):
+            parent = self._key(parent, prompt_ids[j * bs:(j + 1) * bs])
+            keys.append(parent)
+        return keys
+
+    def lookup(self, prompt_ids):
+        """Longest cached prefix of ``prompt_ids``, capped one token short
+        of the full prompt (a hit must still leave >= 1 token to prefill:
+        its logits seed generation).  Returns ``(n_tokens, block_ids)``
+        with one pool reference taken per returned block (the caller's
+        to decref on release)."""
+        keys = self._chain_keys(prompt_ids, len(prompt_ids) - 1)
+        blocks = []
+        for key in keys:
+            ent = self._entries.get(key)
+            if ent is None:
+                break
+            self._clock += 1
+            ent[2] = self._clock
+            blocks.append(ent[0])
+        if blocks:
+            self.pool.incref(blocks)
+            self.hits += 1
+            self.hit_tokens += len(blocks) * self.block_size
+        else:
+            self.misses += 1
+        return len(blocks) * self.block_size, blocks
+
+    def register(self, prompt_ids, block_ids):
+        """Publish a prefilled prompt's FULL blocks.  The registry increfs
+        what it adopts; prefixes already registered (the ones this
+        request was served from among them) are left alone."""
+        keys = self._chain_keys(prompt_ids, len(prompt_ids))
+        parent = ""
+        for j, key in enumerate(keys):
+            if key not in self._entries:
+                self._clock += 1
+                self.pool.incref([block_ids[j]])
+                self._entries[key] = [block_ids[j], parent, self._clock, 0]
+                if parent:
+                    self._entries[parent][3] += 1
+            parent = key
+
+    def evict(self, n_blocks_needed):
+        """Free LRU chains (leaf-first, registry-only references) until
+        ``n_blocks_needed`` blocks are free or nothing evictable is left.
+        Returns the number of blocks actually freed."""
+        freed = 0
+        while self.pool.free_blocks < n_blocks_needed:
+            victims = [
+                (ent[2], key) for key, ent in self._entries.items()
+                if ent[3] == 0 and self.pool.refcount(ent[0]) == 1
+            ]
+            if not victims:
+                break
+            _, key = min(victims)
+            ent = self._entries.pop(key)
+            if ent[1]:
+                self._entries[ent[1]][3] -= 1
+            freed += len(self.pool.decref([ent[0]]))
+        return freed
+
+    def stats(self):
+        total = self.hits + self.misses
+        return {
+            "entries": len(self._entries),
+            "hits": self.hits, "misses": self.misses,
+            "hit_rate": (self.hits / total) if total else 0.0,
+            "hit_tokens": self.hit_tokens,
+        }
 
 
 class PagedKVCache:

@@ -6,8 +6,9 @@ token-type embeddings, post-LN encoder layers (fused-QKV self-attention
 through the flash kernels, exact-erf gelu FFN), the MLM head over the
 masked positions with the decoder tied to the word embeddings, and the
 NSP head.  `MultiHeadAttention` also carries the engine's prefill
-(``use_cache``) and single-token decode (``cache``) hooks, dense and f32
-paged.
+(``use_cache``) and cache-attention (``cache``) hooks, dense and f32
+paged: one query row a slot (the decode step) or C > 1 (a chunked
+prefill).
 
 The reference's two environment knobs of `bench.py --autotune`:
 ``PADDLE_TPU_FUSED_FFN=1`` runs the FFN's fc1 + gelu through the
@@ -15,9 +16,8 @@ fused-epilogue GEMM (`nn.functional.fused_linear`);
 ``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD`` materializes the head transposes
 around the flash op (the default BSHD reads strided views, no copy).
 
-Not ported yet, and raising `NotImplementedError`: cross attention,
-chunked/verify attention (C > 1 query rows over a cache) and int8 pools
-(the rest of the generation engine).
+Not ported yet, and raising `NotImplementedError`: cross attention and
+int8 pools (the 7-tuple cache of the int8 engine).
 
 State-dict keys match the JAX package (``bert.encoder.0.attn.qkv_proj
 .weight`` ...); the Linear weights are PyTorch's ``[out, in]``
@@ -38,7 +38,8 @@ from ..nn.functional import fused_linear
 from ..ops import nn_ops
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.decode_attention import decode_attention
-from ..ops.paged_attention import paged_decode_attention
+from ..ops.paged_attention import (chunked_attention_reference,
+                                   paged_decode_attention, paged_gather_kv)
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertForPretraining", "BertModel",
            "Dropout", "LayerNorm", "MultiHeadAttention",
@@ -183,58 +184,75 @@ class MultiHeadAttention(nn.Module):
         return out
 
     def _decode_with_cache(self, q, k, v, cache):
-        """Write the new token's K/V, then attend over the cache with
-        ``lengths = pos + 1`` (the token sees itself).
+        """Attention over a cache: write the C query rows' K/V at
+        positions ``pos .. pos + C - 1``, then attend row i over
+        positions ``<= pos + i`` (the row sees itself).  C == 1 is the
+        decode step, through the decode kernels; C > 1 is a chunked
+        prefill, through `chunked_attention_reference`.
 
-        * dense — ``(k_cache, v_cache, pos)``: ``[B, T, H, Dh]`` caches,
-          row ``pos`` written (clamped to ``T - 1``, as
-          ``dynamic_update_slice`` clamps);
+        * dense — ``(k_cache, v_cache, pos)``: ``[B, T, H, Dh]`` caches;
+          the C rows land at ``pos`` clamped to ``T - C`` (as
+          ``dynamic_update_slice`` clamps), while the mask keeps ``pos``;
         * paged — ``(k_pool, v_pool, pos, tables, block_size)``:
           ``[NB, bs, H, Dh]`` pools; position p goes to pool block
           ``tables[n, p // bs]``, row ``p % bs``.  Inactive slots have
           all-zero table rows, so their writes land in the garbage
-          block 0.
+          block 0, and so do rows at ``p >= max_blocks * bs`` (padding
+          past the slot's capacity; the reference clips those onto the
+          slot's last block instead).
 
         The caches are updated IN PLACE (the JAX version returns new
         arrays); the same tensors are returned.  Returns ``(out,
         cache arrays)``."""
         b, c_len = q.shape[0], q.shape[1]
-        if c_len != 1:
-            raise NotImplementedError(
-                "attention over a cache with %d query rows (chunked "
-                "prefill / speculative verify) is not ported yet" % c_len)
         scale = self.d_head ** -0.5
-        q1 = q[:, 0].contiguous()                            # [B, H, Dh]
-        k1, v1 = k[:, 0], v[:, 0]
+        dev = q.device
+        steps = torch.arange(c_len, device=dev)
         if len(cache) == 3:                                  # dense
             k_cache, v_cache, pos = cache
-            pos = pos.to(device=q.device, dtype=torch.long)
-            rows = torch.arange(b, device=q.device)
-            p = pos.clamp(0, k_cache.shape[1] - 1)
-            k_cache[rows, p] = k1.to(k_cache.dtype)
-            v_cache[rows, p] = v1.to(v_cache.dtype)
-            ctx = decode_attention(q1, k_cache, v_cache,
-                                   (pos + 1).to(torch.int32), scale=scale)
+            pos = pos.to(device=dev, dtype=torch.long)
+            p0 = pos.clamp(0, k_cache.shape[1] - c_len)
+            rows = torch.arange(b, device=dev)[:, None]
+            at = p0[:, None] + steps[None]
+            k_cache[rows, at] = k.to(k_cache.dtype)
+            v_cache[rows, at] = v.to(v_cache.dtype)
+            if c_len == 1:
+                ctx = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                                       (pos + 1).to(torch.int32),
+                                       scale=scale)[:, None]
+            else:
+                ctx = chunked_attention_reference(q, k_cache, v_cache, pos,
+                                                  scale=scale)
             new_cache = (k_cache, v_cache)
         elif len(cache) == 5:                                # paged
             k_pool, v_pool, pos, tables, bs = cache
             bs = int(bs)
-            pos = pos.to(device=q.device, dtype=torch.long)
-            tables = tables.to(device=q.device, dtype=torch.int32)
-            logical = (pos // bs).clamp(0, tables.shape[1] - 1)
-            bi = tables.gather(1, logical[:, None])[:, 0].long()
-            off = pos % bs
-            k_pool[bi, off] = k1.to(k_pool.dtype)
-            v_pool[bi, off] = v1.to(v_pool.dtype)
-            ctx = paged_decode_attention(q1, k_pool, v_pool, tables,
-                                         (pos + 1).to(torch.int32),
-                                         scale=scale)
+            pos = pos.to(device=dev, dtype=torch.long)
+            tables = tables.to(device=dev, dtype=torch.int32)
+            nb = tables.shape[1]
+            p = pos[:, None] + steps[None]                   # [B, C]
+            logical = p // bs
+            bi = torch.where(
+                logical < nb,
+                tables.gather(1, logical.clamp(0, nb - 1)).long(), 0)
+            off = p % bs
+            k_pool[bi, off] = k.to(k_pool.dtype)
+            v_pool[bi, off] = v.to(v_pool.dtype)
+            if c_len == 1:
+                ctx = paged_decode_attention(q[:, 0].contiguous(), k_pool,
+                                             v_pool, tables,
+                                             (pos + 1).to(torch.int32),
+                                             scale=scale)[:, None]
+            else:
+                ctx = chunked_attention_reference(
+                    q, paged_gather_kv(k_pool, tables),
+                    paged_gather_kv(v_pool, tables), pos, scale=scale)
             new_cache = (k_pool, v_pool)
         else:
             raise NotImplementedError(
                 "cache tuple must have 3 (dense) or 5 (paged f32) entries, "
                 "got %d (int8 pools are not ported yet)" % len(cache))
-        ctxv = ctx.reshape(b, 1, self.n_head * self.d_head)
+        ctxv = ctx.reshape(b, c_len, self.n_head * self.d_head)
         return self.dropout(self.out_proj(ctxv)), new_cache
 
 

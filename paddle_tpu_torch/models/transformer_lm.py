@@ -8,9 +8,12 @@ embeddings (``logits = h @ word.weight.T``).  Three forward modes:
 * ``forward(ids, pos)`` — full causal forward;
 * ``forward(..., use_cache=True)`` — prefill: the same math through the
   flash kernel, also returning every layer's ``(k, v)`` ``[B, S, H, Dh]``;
-* ``forward(..., caches=..., cache_positions=pos)`` — decode: one token
-  per row, K/V written into the cache stacks at ``pos`` (in place) and
-  attention over the cache through the decode kernels.
+* ``forward(..., caches=..., cache_positions=pos)`` — attention over a
+  cache: the S tokens of a row have their K/V written into the cache
+  stacks at ``pos .. pos + S - 1`` (in place), and token i attends the
+  cache positions ``<= pos + i``.  S == 1 is the decode step, through
+  the decode kernels; S > 1 a prefill chunk (or a prefix-hit suffix),
+  through `ops.chunked_attention_reference`.
 """
 
 from __future__ import annotations
@@ -138,11 +141,12 @@ class TransformerLM(nn.Module):
     def forward(self, input_ids, position_ids, caches=None,
                 cache_positions=None, use_cache=False, block_tables=None,
                 block_size=None):
-        """input_ids/position_ids: [B, S] int.  With ``caches`` (decode:
-        one token per row written at ``cache_positions``) the return is
-        ``(logits [B, 1, V], cache stacks)``; with ``use_cache=True``
-        (prefill) it is ``(logits, [(k, v), ...])`` per layer; otherwise
-        just ``logits [B, S, V]``.
+        """input_ids/position_ids: [B, S] int.  With ``caches`` (S tokens
+        a row written from ``cache_positions`` [B] on, token i attending
+        positions ``<= cache_positions + i``) the return is ``(logits
+        [B, S, V], cache stacks)``; with ``use_cache=True`` (prefill) it
+        is ``(logits, [(k, v), ...])`` per layer; otherwise just
+        ``logits [B, S, V]``.
 
         ``caches`` is dense ``(k_stack, v_stack)`` of ``[L, B, T, H, Dh]``,
         or — when ``block_tables`` ``[B, max_blocks]`` and ``block_size``

@@ -38,6 +38,7 @@ from .decode_attention import (  # noqa: F401
     decode_attention_reference,
 )
 from .paged_attention import (  # noqa: F401
+    chunked_attention_reference,
     paged_decode_attention,
     paged_decode_attention_reference,
     paged_gather_kv,

@@ -16,6 +16,10 @@ j to a pool block.
   blocks.
 * `paged_decode_attention_reference` — the plain version: gather, then
   the dense decode reference.
+* `chunked_attention_reference` — C query rows per slot over a dense
+  cache view with per-row causal limits ``t <= start + i``: the chunked
+  prefill (and, later, speculative verify) math.  The reference computes
+  it in jnp outside any Pallas kernel, so it is plain PyTorch here too.
 
 Left for the int8 slice: int8 pools with per-row scales (``quantize_kv``).
 """
@@ -27,13 +31,13 @@ import ctypes
 import torch
 
 from . import _build
-from .decode_attention import (check_decode_operands,
+from .decode_attention import (NEG_INF, check_decode_operands,
                                decode_attention_reference,
                                decode_head_groups, decode_split_plan,
                                split_workspace)
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_reference",
-           "paged_gather_kv"]
+__all__ = ["chunked_attention_reference", "paged_decode_attention",
+           "paged_decode_attention_reference", "paged_gather_kv"]
 
 # paged_decode_attention(q, k_pool, v_pool, o, tables, lengths, acc, ml,
 #                        counters, N, H, D, bs, max_blocks, chunk, chunks,
@@ -59,6 +63,44 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, lengths,
     k = paged_gather_kv(k_pool, tables)
     v = paged_gather_kv(v_pool, tables)
     return decode_attention_reference(q, k, v, lengths, scale)
+
+
+def chunked_attention_reference(q, k_cache, v_cache, start, n_real=None,
+                                scale=None):
+    """C query rows per slot over a dense cache view: row i attends cache
+    positions ``t <= start + i``.
+
+    q [N, C, H, D]; k/v_cache [N, T, H, D]; start [N] int (the position
+    of row 0, whose K/V must already be in the cache, as in the decode
+    step's write-then-attend contract).  Scores and the PV product are
+    f32; a row with no live position returns 0.  C == 1 equals
+    `decode_attention_reference` with ``lengths = start + 1``.  Rows past
+    ``n_real`` are padding whose output the caller ignores (the argument
+    is accepted for parity with the reference and changes nothing).
+
+    Positions past every row's limit may hold anything (a gathered view
+    reads the garbage block there): V is zeroed at them so that a masked
+    weight of exactly 0 never meets an inf or NaN."""
+    if scale is None:
+        scale = float(q.shape[-1]) ** -0.5
+    c, t = q.shape[1], k_cache.shape[1]
+    dev = q.device
+    s = torch.einsum("nchd,nthd->nhct", q.float(), k_cache.float()) * scale
+    pos = torch.arange(t, device=dev)
+    limit = (start.to(dev).long()[:, None]
+             + torch.arange(c, device=dev)[None, :])           # [N, C]
+    valid = pos[None, None, :] <= limit[:, :, None]            # [N, C, T]
+    s = torch.where(valid[:, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    safe_m = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - safe_m))
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.clamp(l, min=1e-30)
+    live = pos[None, :] <= limit[:, -1:]                       # [N, T]
+    v = torch.where(live[:, :, None, None], v_cache.float(), 0.0)
+    out = torch.einsum("nhct,nthd->nchd", p, v)
+    dead = (m <= NEG_INF / 2).permute(0, 2, 1, 3)              # [N, C, H, 1]
+    return torch.where(dead, 0.0, out).to(q.dtype)
 
 
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths, scale=None):

@@ -8,7 +8,8 @@ the JAX engine and against its own sequential oracle.
   `sequential_oracle` (sampled streams are the port's own: torch and
   JAX draw other random numbers from one seed);
 * a pool too small for the load preempts and still completes every
-  stream; unported knobs raise; the package imports neither JAX nor
+  stream; unported knobs raise, and the prefix and chunk knobs need the
+  paged cache; the package imports neither JAX nor
   `paddle_tpu`; and an entry point with no device raises on a box
   without a card.
 """
@@ -135,8 +136,8 @@ def test_background_loop_generate_and_stats(pair):
     st = eng.stats()
     assert st["device"] == "cpu" and st["decode_steps"] > 0
     assert st["cache"]["paged"] and st["cache"]["block_size"] == 16
-    assert eng.occupancy() == {"slots": 3, "active": 0, "free": 3,
-                               "pending": 0}
+    assert eng.occupancy() == {"slots": 3, "active": 0, "chunking": 0,
+                               "free": 3, "pending": 0}
 
 
 def test_admission_sheds_and_refuses(pair):
@@ -153,12 +154,19 @@ def test_admission_sheds_and_refuses(pair):
 
 
 @pytest.mark.parametrize("knob", [
-    {"prefix_cache": True}, {"prefill_chunk": 8}, {"kv_dtype": "int8"},
-    {"draft_model": "draft", "draft_len": 2}, {"logprobs": True}])
+    {"kv_dtype": "int8"}, {"draft_model": "draft", "draft_len": 2}])
 def test_unported_knobs_raise(pair, knob):
     _, tm = pair
     with pytest.raises(NotImplementedError):
         make_engine(tm, **knob)
+
+
+@pytest.mark.parametrize("knob", [{"prefix_cache": True},
+                                  {"prefill_chunk": 8}])
+def test_prefix_and_chunk_need_paged(pair, knob):
+    _, tm = pair
+    with pytest.raises(ValueError, match="paged=True"):
+        make_engine(tm, paged=False, **knob)
 
 
 def test_default_device_raises_without_a_card(monkeypatch, pair):
