@@ -586,18 +586,18 @@ DECODE_LENGTHS = (0, 1, 17, 1024, 300, 511, 64, 900)
 
 
 def decode_inputs(ops, gen, lengths_l, d=D, dt=torch.float32, t=DECODE_T,
-                  bs=DECODE_BS, stale=False):
-    """One decode step's operands: q [N, H, d], K and V pools [N * t / bs
-    + 1, bs, H, d] shuffled so that slot n's live blocks are scattered
+                  bs=DECODE_BS, stale=False, h=H):
+    """One decode step's operands: q [N, h, d], K and V pools [N * t / bs
+    + 1, bs, h, d] shuffled so that slot n's live blocks are scattered
     pool blocks, tables whose entries past ceil(len / bs) are 0 (the
     garbage block) or, with ``stale``, other slots' live blocks, the
     gathered dense caches and the int32 lengths."""
     n, mb = len(lengths_l), t // bs
     lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
-    q = torch.randn(n, H, d, device="cuda", generator=gen).to(dt)
+    q = torch.randn(n, h, d, device="cuda", generator=gen).to(dt)
     nb = n * mb + 1
-    k_pool = torch.randn(nb, bs, H, d, device="cuda", generator=gen).to(dt)
-    v_pool = torch.randn(nb, bs, H, d, device="cuda", generator=gen).to(dt)
+    k_pool = torch.randn(nb, bs, h, d, device="cuda", generator=gen).to(dt)
+    v_pool = torch.randn(nb, bs, h, d, device="cuda", generator=gen).to(dt)
     perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2))
     tables = torch.zeros(n, mb, dtype=torch.int32)
     used = 0
@@ -614,28 +614,29 @@ def decode_inputs(ops, gen, lengths_l, d=D, dt=torch.float32, t=DECODE_T,
     return q, k_pool, v_pool, tables, k_dense, v_dense, lengths
 
 
-def decode_bytes(lengths_l, d, dt, bs=DECODE_BS):
+def decode_bytes(lengths_l, d, dt, bs=DECODE_BS, h=H):
     """(bytes, flops) of one decode step: q and the output, each live K
     and V row once, the lengths (the paged kernel adds its live table
     entries: 4 bytes a live block)."""
     elt = torch.finfo(dt).bits // 8
     live = sum(lengths_l)
-    nbytes = 2 * len(lengths_l) * H * d * elt + 2 * live * H * d * elt \
+    nbytes = 2 * len(lengths_l) * h * d * elt + 2 * live * h * d * elt \
         + 4 * len(lengths_l)
-    return nbytes, 4 * live * H * d
+    return nbytes, 4 * live * h * d
 
 
-def decode_case(ops, gen, lengths_l, d=D, dt=torch.float32, stale=False):
+def decode_case(ops, gen, lengths_l, d=D, dt=torch.float32, stale=False,
+                h=H):
     """The dense and paged kernels on one step, each launched twice:
     raises unless the four outputs are bitwise equal, an empty slot
     emits zeros and both lie within TOL of their plain versions (f32,
     on the same inputs upcast).  Returns (error, limit share, operands)."""
     q, k_pool, v_pool, tables, k_dense, v_dense, lengths = decode_inputs(
-        ops, gen, lengths_l, d, dt, stale=stale)
+        ops, gen, lengths_l, d, dt, stale=stale, h=h)
     scale = d ** -0.5
-    name = "decode N=%d D=%d %s%s" % (len(lengths_l), d,
-                                      str(dt).replace("torch.", ""),
-                                      " stale" if stale else "")
+    name = "decode N=%d H=%d D=%d %s%s" % (len(lengths_l), h, d,
+                                           str(dt).replace("torch.", ""),
+                                           " stale" if stale else "")
     outs = [ops.decode_attention(q, k_dense, v_dense, lengths, scale=scale),
             ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths,
                                        scale=scale)]
@@ -750,6 +751,76 @@ def check_decode(ops):
           "launches_bitwise": True, "one_slot_limit_share": one_share,
           "cases": rows, **paged_row})
     return dense_row, paged_row
+
+
+# the speculative engine's draft model (`generation_bench.py:254-263`):
+# hidden 256 in 4 heads of 64, 2 layers; its prefill runs kernel 1 and
+# its decode kernel 8 at 4 heads, where every other phase runs 12
+DRAFT_H, DRAFT_LAYERS, DRAFT_LEN = 4, 2, 3
+
+
+def check_draft_kernels(ops):
+    """Kernel 8 at the draft's decode shape (8 slots of a 1024-position
+    dense cache, 4 heads, f32, phase 2's lengths) and kernel 1 at its
+    prefill shape (B=1, S=1024, 4 heads, f32, causal), each against its
+    plain version within TOL, timed beside its bound and its library
+    call."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.decode_attention import decode_head_groups
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lengths_l = list(DECODE_LENGTHS)
+    t, dt = DECODE_T, torch.float32
+    err, share, ins = decode_case(ops, gen, lengths_l, h=DRAFT_H)
+    q, _, _, _, k_dense, v_dense, lengths, scale = ins
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qs = q[:, :, None]
+    kt, vt = k_dense.transpose(1, 2), v_dense.transpose(1, 2)
+    call = lambda: ops.decode_attention(  # noqa: E731
+        q, k_dense, v_dense, lengths, scale=scale)
+    plain = lambda: ops.decode_attention_reference(  # noqa: E731
+        q, k_dense, v_dense, lengths, scale)
+    bms, by = bound(*decode_bytes(lengths_l, D, dt, h=DRAFT_H), dt)
+    decode_row = {
+        "N": len(lengths_l), "T": t, "H": DRAFT_H, "D": D,
+        "dtype": "float32", "lengths": lengths_l,
+        "heads_a_cta": decode_head_groups(DRAFT_H),
+        "max_abs_err": err, "limit_share": share,
+        "ms": queued_ms(call), "call_ms": time_ms(call),
+        "plain_ms": queued_ms(plain),
+        "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, scale=scale)),
+        "bound_ms": bms, "bound_by": by}
+
+    s = 1024
+    qf, kf, vf = (torch.randn(1, s, DRAFT_H, D, device="cuda", generator=gen)
+                  for _ in range(3))
+    out = ops.flash_attention(qf, kf, vf, scale=scale, causal=True)
+    want = ops.flash_attention_reference(qf, kf, vf, scale=scale,
+                                         causal=True)[0]
+    torch.cuda.synchronize()
+    ferr, fshare = compare("draft flash S=%d H=%d" % (s, DRAFT_H), out, want,
+                           TOL[dt])
+    fcall = lambda: ops.flash_attention(  # noqa: E731
+        qf, kf, vf, scale=scale, causal=True)
+    qt, kt2, vt2 = (x.transpose(1, 2) for x in (qf, kf, vf))
+    fbms, fby = bound(4 * s * DRAFT_H * D * 4,
+                      4 * DRAFT_H * D * s * (s + 1) // 2, dt)
+    flash_row = {
+        "B": 1, "S": s, "H": DRAFT_H, "D": D, "dtype": "float32",
+        "causal": True, "max_abs_err": ferr, "limit_share": fshare,
+        "ms": time_ms(fcall), "queued_ms": queued_ms(fcall),
+        "plain_ms": time_ms(lambda: ops.flash_attention_reference(
+            qf, kf, vf, scale=scale, causal=True)[0]),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt2, vt2, is_causal=True, scale=scale)),
+        "bound_ms": fbms, "bound_by": fby}
+    emit({"phase": "draft_kernels", "tol": {"atol": TOL[dt]["atol"],
+                                            "rtol": TOL[dt]["rtol"]},
+          "decode_attention": decode_row, "flash_fwd": flash_row})
+    return decode_row, flash_row
 
 
 # ---------------------------------------------------------------------------
@@ -1574,6 +1645,10 @@ def run_engine(ptt):
     launches["engine_chunked"] = engine_chunked(
         ptt, model, reqs, itl_unchunked=(float(np.percentile(itl, 50)),
                                          float(np.percentile(itl, 99))))
+    int8_check(ptt, model)
+    launches["engine_int8"] = engine_int8(ptt, model, reqs, streams)
+    launches["engine_speculative"] = engine_speculative(ptt, model, cfg, reqs,
+                                                        streams)
     return launches
 
 
@@ -1595,29 +1670,32 @@ SYSTEM_PROMPT = 512
 
 class ChunkRecorder:
     """Stands in for an engine's model: calls it, and keeps the start and
-    the logits of its last call with more than one row over the cache
-    (a chunk)."""
+    the logits of its last call with at least ``min_rows`` rows over the
+    cache (a chunk, by default)."""
 
-    def __init__(self, model):
+    def __init__(self, model, min_rows=2):
         self.model = model
+        self.min_rows = min_rows
         self.last = None
 
     def __call__(self, ids, pos, **kw):
         out = self.model(ids, pos, **kw)
-        if kw.get("caches") is not None and ids.shape[1] > 1:
+        if kw.get("caches") is not None and ids.shape[1] >= self.min_rows:
             self.last = (int(kw["cache_positions"][0]), out[0][0].clone())
         return out
 
 
 def _slot_rows(ops, eng, handle, n):
     """K and V [L, n, H, D] of ``handle``'s first n positions, read
-    through its slot's block table."""
+    through its slot's block table (dequantized from an int8 pool)."""
     slot = next(s for s, st in enumerate(eng._slot_state)
                 if st is not None and st.handle is handle)
     table = torch.from_numpy(eng.cache.table_row(slot)[None]).cuda()
-    return [torch.stack([ops.paged_gather_kv(p[li], table)[0, :n]
-                         for li in range(p.shape[0])])
-            for p in eng.cache.arrays()]
+    c = eng.cache
+    scales = (c.k_scale, c.v_scale) if c.quantized else (None, None)
+    return [torch.stack([ops.paged_gather_kv(
+        p[li], table, None if sc is None else sc[li])[0, :n]
+        for li in range(p.shape[0])]) for p, sc in zip((c.k, c.v), scales)]
 
 
 def _prefill_via_engine(ptt, model, prompt, cached=None, **kw):
@@ -1759,6 +1837,32 @@ def prefix_requests(gen, cfg, n=16, seed=13):
     return reqs
 
 
+def _forward_check(model, reqs, streams, handles=None):
+    """Each stream against a full causal forward of prompt + stream: the
+    largest gap of a greedy token below its row's maximum, over max(1,
+    max |logit|), and (given a logprob engine's ``handles``) the largest
+    logprob error."""
+    lp_err, greedy_gap = 0.0, 0.0
+    with torch.inference_mode():
+        for i, (r, s) in enumerate(zip(reqs, streams)):
+            seq = r.prompt_ids + s[:-1]
+            n = len(r.prompt_ids)
+            lg = model(torch.tensor([seq]).cuda(),
+                       torch.arange(len(seq)).cuda()[None])[0, n - 1:]
+            toks = torch.tensor(s).cuda()
+            if handles is not None:
+                lp = torch.log_softmax(lg.float(), -1).gather(
+                    1, toks[:, None])[:, 0]
+                lp_err = max(lp_err, (lp.cpu() - torch.tensor(
+                    handles[i].logprobs(0))).abs().max().item())
+            if r.sampling.temperature <= 0:
+                picked = lg.gather(1, toks[:, None])[:, 0]
+                gap = (lg.amax(-1) - picked) / torch.clamp(
+                    lg.abs().amax(-1), min=1.0)
+                greedy_gap = max(greedy_gap, gap.max().item())
+    return lp_err, greedy_gap
+
+
 def engine_prefix(ptt, model, cfg):
     """Shared-system-prompt traffic through ``prefix_cache=True,
     logprobs=True``: one miss (the flash prefill), the rest served from
@@ -1782,23 +1886,7 @@ def engine_prefix(ptt, model, cfg):
     # the miss: the one request served before any block was cached
     ttft = _ttft_ms(handles)
     miss = [0] if st["misses"] == 1 else []
-    lp_err, greedy_gap = 0.0, 0.0
-    with torch.inference_mode():
-        for r, h, s in zip(reqs, handles, streams):
-            seq = r.prompt_ids + s[:-1]
-            n = len(r.prompt_ids)
-            lg = model(torch.tensor([seq]).cuda(),
-                       torch.arange(len(seq)).cuda()[None])[0, n - 1:]
-            toks = torch.tensor(s).cuda()
-            lp = torch.log_softmax(lg.float(), -1).gather(
-                1, toks[:, None])[:, 0]
-            lp_err = max(lp_err, (lp.cpu() - torch.tensor(
-                h.logprobs(0))).abs().max().item())
-            if r.sampling.temperature <= 0:
-                picked = lg.gather(1, toks[:, None])[:, 0]
-                gap = (lg.amax(-1) - picked) / torch.clamp(
-                    lg.abs().amax(-1), min=1.0)
-                greedy_gap = max(greedy_gap, gap.max().item())
+    lp_err, greedy_gap = _forward_check(model, reqs, streams, handles)
     if lp_err > 1e-4 or greedy_gap > 1e-4:
         raise AssertionError("prefix run: logprob error %g, greedy gap %g "
                              "(limits 1e-4)" % (lp_err, greedy_gap))
@@ -1847,6 +1935,255 @@ def engine_chunked(ptt, model, reqs, itl_unchunked):
           "itl_ms_unchunked": {"p50": itl_unchunked[0],
                                "p99": itl_unchunked[1]},
           "oracle_requests": len(reqs), "oracle_equal": True,
+          "blocks_returned": True, "launches": launches})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the int8 KV cache and speculative decoding
+# ---------------------------------------------------------------------------
+
+INT8_BYTES_SHARE = 0.27          # (D + 4) / 4D = 0.266 at D = 64
+# half an int8 step, amax / 254, widened by the f32 rounding of x / scale,
+# of the scale and of q * scale: at most 4.6e-5 of it for |q| <= 127
+KV_ROUNDING = 1 + 1e-4
+
+
+def _chunk_prompt(cfg):
+    """chunk_check's 1000-token prompt (its generator's third draw)."""
+    rng = np.random.RandomState(17)
+    for n in CHUNK_PROMPTS:
+        prompt = [int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+    return prompt
+
+
+def _slot_int8(eng, handle, n):
+    """The int8 K and V [L, n, H, D] of ``handle``'s first n positions
+    and their scales [L, n, H], as stored, through its slot's table."""
+    slot = next(s for s, st in enumerate(eng._slot_state)
+                if st is not None and st.handle is handle)
+    blocks = torch.from_numpy(eng.cache.table_row(slot)).cuda().long()
+    c = eng.cache
+    return [p[:, blocks].flatten(1, 2)[:, :n]
+            for p in (c.k, c.v, c.k_scale, c.v_scale)]
+
+
+def int8_check(ptt, model):
+    """The 1000-token prompt through an int8 and an f32 engine: every
+    dequantized K/V row of the whole-prompt prefill within amax|row| / 254
+    (half an int8 step: the error of a quantizer that rounds to nearest,
+    `KV_ROUNDING`) + 1e-6 of the f32 engine's row, a head at a time, the
+    stored int8 rows
+    and scales bitwise equal to `quantize_kv` of the f32 engine's rows,
+    and the int8 cache at most 0.27 of the f32 cache's bytes.  Reported,
+    not gated: the logits' drift from f32, max |delta| / max |logit|, of
+    the first decode step and of the last row of a 128-token chunked
+    prefill (the reference's int8 is opt-in under a documented
+    tolerance)."""
+    gen, ops = ptt.generation, ptt.ops
+    prompt = _chunk_prompt(model.cfg)
+    n = len(prompt)
+    rows, decode_row, chunk_row, nbytes = {}, {}, {}, {}
+    for tag, kw in (("f32", {}), ("int8", {"kv_dtype": "int8"})):
+        eng = gen.GenerationEngine(model, slots=8, max_len=1024, **kw)
+        rec = eng.model = ChunkRecorder(eng.model, min_rows=1)
+        h = eng.submit(gen.GenerationRequest(prompt, max_new_tokens=3))
+        eng.step()                    # the prefill and one decode step
+        rows[tag] = _slot_rows(ops, eng, h, n)
+        if kw:
+            stored = _slot_int8(eng, h, n)
+        decode_row[tag] = rec.last[1][0]
+        nbytes[tag] = eng.cache.nbytes
+        eng.run_until_idle()
+        chunk_row[tag] = _prefill_via_engine(ptt, model, prompt,
+                                             prefill_chunk=CHUNK_WIDTH,
+                                             **kw)[0]
+        del eng, rec
+    worst = 0.0
+    for got, want in zip(rows["int8"], rows["f32"]):
+        limit = want.abs().amax(-1, keepdim=True) / 254 * KV_ROUNDING + 1e-6
+        share = ((got - want).abs() / limit).max().item()
+        worst = max(worst, share)
+    if not worst <= 1.0:
+        raise AssertionError("int8 K/V rows use %.6g of the amax / 254 "
+                             "bound" % worst)
+    (kq, ks), (vq, vs) = (ops.quantize_kv(r) for r in rows["f32"])
+    mismatched = [int((a != b).sum()) for a, b in zip(stored,
+                                                      (kq, vq, ks, vs))]
+    if any(mismatched):
+        raise AssertionError("stored int8 K, V, K scales, V scales differ "
+                             "from quantize_kv of the f32 rows in %s "
+                             "entries" % mismatched)
+    share = nbytes["int8"] / nbytes["f32"]
+    if share > INT8_BYTES_SHARE:
+        raise AssertionError("int8 cache %d bytes, %.4f of f32's"
+                             % (nbytes["int8"], share))
+
+    def drift(rows_):
+        return ((rows_["int8"] - rows_["f32"]).abs().max()
+                / rows_["f32"].abs().max()).item()
+
+    emit({"phase": "int8_check", "prompt": n, "kv_bound_share": worst,
+          "kv_bound": "amax / 254 * %r + 1e-6" % KV_ROUNDING, "stored_equal_quantize_kv": True,
+          "bytes": nbytes, "bytes_share": share,
+          "bytes_share_limit": INT8_BYTES_SHARE,
+          "decode_logit_drift": drift(decode_row),
+          "chunk_last_row_logit_drift": drift(chunk_row)})
+
+
+def _step_profile(gen, model, reqs, **kw):
+    """Device time of one engine iteration over eight decoding slots,
+    after their prefills and a first iteration."""
+    eng = gen.GenerationEngine(model, slots=8, max_len=1024, **kw)
+    for r in reqs[:8]:
+        eng.submit(r)
+    eng.step()                        # eight prefills and an iteration
+    eng.step()
+    p = device_profile(eng.step)
+    return eng, {"device_busy_ms": p["device_busy_ms"],
+                 "by_category_ms": dict(list(p["by_category_ms"].items())[:8])}
+
+
+def engine_int8(ptt, model, reqs, f32_streams):
+    """Phase 4's traffic with ``kv_dtype="int8"``: every stream, sampled
+    ones too, equals the sequential oracle built with the same knob; the
+    paged decode kernel (9) never launches, since the reference dispatches
+    an int8 pool to its gather-dequantize plain path."""
+    gen, ops = ptt.generation, ptt.ops
+    kw = {"kv_dtype": "int8"}
+    serve(gen, model, reqs[:2], **kw)            # warm-up
+    ops.reset_launch_counts()
+    eng, handles, streams, wall = serve(gen, model, reqs, **kw)
+    launches = ops.launch_counts()
+    if launches["paged_attention"] != 0 or launches["flash_fwd"] <= 0:
+        raise AssertionError("int8 engine launches %s: want flash_fwd > 0, "
+                             "paged_attention 0" % launches)
+    oracle = gen.sequential_oracle(
+        lambda: gen.GenerationEngine(model, slots=8, max_len=1024, **kw),
+        reqs)
+    bad = [r.request_id for r, o, s in zip(reqs, oracle, streams) if o != s]
+    if bad:
+        raise AssertionError("int8 streams differ from sequential_oracle: %s"
+                             % bad)
+    itl = np.concatenate([np.diff(h.t_tokens) * 1e3 for h in handles])
+    n_tok = sum(len(s) for s in streams)
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    prof = {}
+    for tag, pkw in (("f32", {}), ("int8", kw)):
+        _, prof[tag] = _step_profile(gen, model, reqs, **pkw)
+    emit({"phase": "engine_int8", "requests": len(reqs), "tokens": n_tok,
+          "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "ttft_ms": _pcts(_ttft_ms(handles)), "itl_ms": _pcts(itl),
+          "oracle_requests": len(reqs), "oracle_equal": True,
+          "greedy_equal_f32_engine": sum(streams[i] == f32_streams[i]
+                                         for i in greedy),
+          "greedy_streams": len(greedy),
+          "cache_bytes": eng.cache.nbytes,
+          "paged_attention_launches_why": "0: an int8 pool takes the "
+          "gather-dequantize plain path, as the reference dispatches it",
+          "decode_step_profile": prof, "blocks_returned": True,
+          "launches": launches})
+    return launches
+
+
+def _spec_profile(gen, model, reqs, draft):
+    """Device time of one speculative iteration over eight decoding slots,
+    split into the draft's k proposals and the verify call, and whole."""
+    eng, whole = _step_profile(gen, model, reqs, draft_model=draft,
+                               draft_len=DRAFT_LEN)
+    tok_in = np.concatenate([eng._last_tokens[:, None], eng._draft_propose()],
+                            axis=1)
+    out = {"iteration": whole}
+    for tag, run in (("draft", eng._draft_propose),
+                     ("verify", lambda: eng._verify(tok_in))):
+        run()                                    # warm-up
+        p = device_profile(run)
+        out[tag] = {"device_busy_ms": p["device_busy_ms"],
+                    "by_category_ms": dict(
+                        list(p["by_category_ms"].items())[:6])}
+    return out
+
+
+def engine_speculative(ptt, model, cfg, reqs, plain_streams):
+    """Phase 4's traffic with the reference bench's draft model
+    (`generation_bench.py:254-263`: hidden 256, 2 layers, 4 heads, FFN
+    1024, seed 23) and ``draft_len=3``: every stream equals the
+    speculative sequential oracle, every greedy token is the argmax of a
+    full causal forward (within 1e-4 of the row's scale), kernel 1 runs
+    the target's and the draft's prefills (16 x (12 + 2) launches) and
+    kernel 8 the draft's decode: 2 layers x (3 + 1) steps an iteration,
+    every iteration speculative (the last step writes the row of the
+    third proposal, `GenerationEngine._draft_propose`).  Then the
+    target as its own draft: greedy acceptance >= 0.9 and the greedy
+    streams phase 4's."""
+    gen, models, ops = ptt.generation, ptt.models, ptt.ops
+    dcfg = models.TransformerLMConfig(
+        vocab_size=cfg.vocab_size, hidden_size=256, num_layers=DRAFT_LAYERS,
+        num_heads=DRAFT_H, intermediate_size=1024,
+        max_position_embeddings=cfg.max_position_embeddings, dropout=0.0)
+    draft = models.TransformerLM(dcfg, device="cuda")
+    draft.load_state_dict(models.from_jax_state_dict(
+        models.init_params(dcfg, seed=23)))
+    draft.eval()
+    kw = {"draft_model": draft, "draft_len": DRAFT_LEN}
+    serve(gen, model, reqs[:2], **kw)            # warm-up
+    ops.reset_launch_counts()
+    eng, handles, streams, wall = serve(gen, model, reqs, **kw)
+    launches = ops.launch_counts()
+    spec = eng.stats()["speculative"]
+    want_flash = len(reqs) * (cfg.num_layers + dcfg.num_layers)
+    want8 = eng.stats()["decode_steps"] * DRAFT_LAYERS * (DRAFT_LEN + 1)
+    if launches["flash_fwd"] != want_flash or \
+            launches["decode_attention"] != want8 or want8 <= 0:
+        raise AssertionError("speculative launches %s: want flash_fwd %d, "
+                             "decode_attention %d" % (launches, want_flash,
+                                                      want8))
+    if not (spec["proposed"] > 0 and 0 <= spec["acceptance_rate"] <= 1):
+        raise AssertionError("speculative stats %s" % spec)
+    oracle = gen.sequential_oracle(
+        lambda: gen.GenerationEngine(model, slots=8, max_len=1024, **kw),
+        reqs)
+    bad = [r.request_id for r, o, s in zip(reqs, oracle, streams) if o != s]
+    if bad:
+        raise AssertionError("speculative streams differ from "
+                             "sequential_oracle: %s" % bad)
+    _, greedy_gap = _forward_check(model, reqs, streams)
+    if greedy_gap > 1e-4:
+        raise AssertionError("speculative greedy gap %g (limit 1e-4)"
+                             % greedy_gap)
+    itl = np.concatenate([np.diff(h.t_tokens) * 1e3 for h in handles])
+    n_tok = sum(len(s) for s in streams)
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    sampled = [i for i in range(len(reqs)) if i not in greedy]
+    prof = _spec_profile(gen, model, reqs, draft)
+
+    twin = models.TransformerLM(cfg, device="cuda")
+    twin.load_state_dict(model.state_dict())
+    twin.eval()
+    seng, _, sstreams, swall = serve(gen, model, reqs, draft_model=twin,
+                                     draft_len=DRAFT_LEN)
+    sspec = seng.stats()["speculative"]
+    bad = [reqs[i].request_id for i in greedy
+           if sstreams[i] != plain_streams[i]]
+    if sspec["acceptance_rate"] < 0.9 or bad:
+        raise AssertionError("self-draft: %s, greedy streams off phase 4's: "
+                             "%s" % (sspec, bad))
+    emit({"phase": "engine_speculative", "requests": len(reqs),
+          "draft": {"hidden": 256, "layers": DRAFT_LAYERS, "heads": DRAFT_H,
+                    "ffn": 1024, "seed": 23}, "draft_len": DRAFT_LEN,
+          "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "ttft_ms": _pcts(_ttft_ms(handles)), "itl_ms": _pcts(itl),
+          "iteration_ms": eng._m_itl.summary(), "speculative": spec,
+          "decode_steps": eng.stats()["decode_steps"],
+          "oracle_requests": len(reqs), "oracle_equal": True,
+          "greedy_max_gap": greedy_gap,
+          "sampled_equal_plain_engine": sum(streams[i] == plain_streams[i]
+                                            for i in sampled),
+          "sampled_streams": len(sampled), "profile": prof,
+          "self_draft": {"speculative": sspec, "tokens_per_s": sum(
+              len(x) for x in sstreams) / swall,
+                         "decode_steps": seng.stats()["decode_steps"],
+                         "greedy_equal_plain_engine": len(greedy)},
           "blocks_returned": True, "launches": launches})
     return launches
 
@@ -2745,6 +3082,7 @@ def main():
     main = check_flash_main_shape(ops)
     check_bwd_crossover(ops)
     dense_row, paged_row = check_decode(ops)
+    draft_decode_row, draft_flash_row = check_draft_kernels(ops)
     check_matmul(ops)
     mm_main = check_matmul_main_shape(ops)
     train_model_check(ptt)
@@ -2791,10 +3129,14 @@ def main():
              engine_prefill={"launches": launches["flash_fwd"],
                              "prefix_run_launches":
                                  launches["engine_prefix"]["flash_fwd"],
+                             "int8_run_launches":
+                                 launches["engine_int8"]["flash_fwd"],
                              **{k: prefill[k] for k in (
                                  "S", "dtype", "max_abs_err", "ms",
                                  "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")}}),
+                                 "library_ms")}},
+             draft_prefill=dict(draft_flash_row, speculative_run_launches=(
+                 launches["engine_speculative"]["flash_fwd"]))),
         dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
                          pair_launches["flash_bwd_dq"], err["pair_dq"],
                          main["dq_ms"], main["plain_bwd_ms"],
@@ -2813,13 +3155,19 @@ def main():
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="paddle_tpu/ops/pallas/decode_attention.py:73",
-             launches=launches["decode_attention"], **dense_row),
+             launches=launches["decode_attention"],
+             draft_decode=dict(draft_decode_row, speculative_run_launches=(
+                 launches["engine_speculative"]["decode_attention"])),
+             **dense_row),
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
              replaces="paddle_tpu/ops/pallas/paged_attention.py:153",
              launches=launches["paged_attention"],
              prefix_run_launches=launches["engine_prefix"]["paged_attention"],
              chunked_run_launches=launches["engine_chunked"][
+                 "paged_attention"],
+             int8_run_launches=launches["engine_int8"]["paged_attention"],
+             speculative_run_launches=launches["engine_speculative"][
                  "paged_attention"], **paged_row),
     ]
 

@@ -34,6 +34,23 @@ Counterpart of `paddle_tpu.generation.engine`, run eagerly in PyTorch:
   token's log-probability under the raw logits
   (`sampling.token_logprobs`), and `RequestHandle.logprobs` returns
   them.
+* **int8 KV** — ``kv_dtype="int8"`` stores the pool quantized with
+  per-row per-head scales (`ops.quantize_kv`).  Decode reads the
+  dequantized gather (`ops.paged_decode_attention_reference` with the
+  scales, plain PyTorch on every device, as the reference's dispatch
+  does: it has no int8 kernel).  Opt-in under a documented tolerance: logits move
+  within quantization error, so streams may differ from the f32
+  engine's.
+* **speculative decoding** — with ``draft_model`` and ``draft_len=k``,
+  a small draft LM with its own dense cache proposes k greedy tokens
+  (decode steps of the draft, the dense decode kernel; one more step
+  writes the last proposal's row, which the reference leaves
+  unwritten), and ONE verify call of the target scores all k + 1
+  positions over the paged cache (the chunk path).  Greedy slots accept
+  the longest draft prefix the target agrees with plus the target's
+  correction token, so their streams are the target's own greedy
+  streams; sampled slots take row 0 only, sampled at their own step, so
+  their streams stay those of plain decode.
 
 Exactness: scheduling is invisible in the tokens.  Per-request random
 streams (`sampling.py`) and row-independent slot math make the output
@@ -43,11 +60,11 @@ boundaries give the same shapes); paged and dense engines prefill
 through the same forward and decode through kernels that are bitwise
 equal on the card.
 
-Not ported yet (the constructor raises `NotImplementedError` for each):
-int8 KV and speculative decoding; nor the disaggregated
-``prefill_extract`` / ``inject_prefilled`` pair and ``swap_params``.
-The device cache is updated in place, so ``donate`` has nothing to
-select and is accepted for signature parity only.
+Not ported yet: the disaggregated ``prefill_extract`` /
+``inject_prefilled`` pair, ``swap_params`` / ``snapshot_params`` and
+``affected_on_death`` / ``recent_requests``.  The device cache is
+updated in place, so ``donate`` has nothing to select and is accepted
+for signature parity only.
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ from ..device import resolve_device
 from ..observability import locks as _locks
 from ..observability import trace as _trace
 from ..observability.metrics import default_registry, unique_instance_label
+from ..ops.paged_attention import quantize_kv
 from .kv_cache import KVCache, PagedKVCache, PoolExhausted, PrefixCache
 from .sampling import SamplingParams, sample_tokens, token_logprobs
 
@@ -310,8 +328,10 @@ class GenerationEngine:
     provision below that and preemption absorbs the tail).
     ``prefix_cache`` enables full-block prefix reuse and
     ``prefill_chunk`` chunk-prefills prompts C tokens per scheduler
-    iteration (both need ``paged``); ``logprobs`` adds each token's
-    log-probability to its event."""
+    iteration; ``kv_dtype="int8"`` quantizes the pool; ``draft_model``
+    (moved to ``device``, eval mode) with ``draft_len`` >= 1 enables
+    speculative decoding (all four need ``paged``); ``logprobs`` adds
+    each token's log-probability to its event."""
 
     def __init__(self, model, *, slots=4, max_len=256,
                  prefill_buckets=None, max_queue=64, name="gen",
@@ -320,12 +340,6 @@ class GenerationEngine:
                  kv_blocks=None, prefix_cache=False, prefill_chunk=None,
                  kv_dtype=None, draft_model=None, draft_len=0,
                  request_sink=None, device=None):
-        for unported, knob in ((kv_dtype is not None, "kv_dtype"),
-                               (draft_model is not None, "draft_model")):
-            if unported:
-                raise NotImplementedError(
-                    "GenerationEngine(%s): not ported to paddle_tpu_torch "
-                    "yet" % knob)
         cfg = model.cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -345,9 +359,10 @@ class GenerationEngine:
                              % (self.prefill_buckets[-1], self.max_len))
         self.max_queue = int(max_queue)
         self.paged = bool(paged)
-        if not self.paged and (prefix_cache or prefill_chunk):
-            raise ValueError("prefix_cache / prefill_chunk require "
-                             "paged=True")
+        if not self.paged and (prefix_cache or prefill_chunk
+                               or kv_dtype is not None):
+            raise ValueError("prefix_cache / prefill_chunk / kv_dtype "
+                             "require paged=True")
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
         if self.prefill_chunk is not None and self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
@@ -361,7 +376,7 @@ class GenerationEngine:
             self.cache = PagedKVCache(
                 cfg.num_layers, int(kv_blocks), self.block_size,
                 cfg.num_heads, cfg.head_dim, n, self.max_len, dtype=dtype,
-                device=self.device)
+                kv_dtype=kv_dtype, device=self.device)
             self._slot_blocks = [[] for _ in range(n)]
             self._prefix = (PrefixCache(self.cache.pool, self.block_size)
                             if prefix_cache else None)
@@ -372,6 +387,26 @@ class GenerationEngine:
                                  device=self.device)
             self._slot_blocks = None
             self._prefix = None
+        # speculative decoding: the draft proposes, one verify call scores
+        self.draft_len = int(draft_len) if draft_model is not None else 0
+        self.draft_model = draft_model if self.draft_len > 0 else None
+        if draft_model is not None and draft_len < 1:
+            raise ValueError("draft_model needs draft_len >= 1")
+        if self.draft_model is not None and not self.paged:
+            raise ValueError("speculative decoding requires paged=True")
+        self._draft_cache = None
+        if self.draft_model is not None:
+            dcfg = self.draft_model.cfg
+            if self.max_len > dcfg.max_position_embeddings:
+                raise ValueError("draft model max_position_embeddings %d "
+                                 "< engine max_len %d"
+                                 % (dcfg.max_position_embeddings,
+                                    self.max_len))
+            self.draft_model = self.draft_model.to(self.device).eval()
+            self._draft_cache = KVCache(
+                dcfg.num_layers, n, self.max_len, dcfg.num_heads,
+                dcfg.head_dim, dtype=self.draft_model.word.weight.dtype,
+                device=self.device)
         # host mirrors of per-slot state (device state is ONLY the cache)
         self._lengths = np.zeros(n, np.int32)
         self._last_tokens = np.zeros(n, np.int64)
@@ -449,6 +484,15 @@ class GenerationEngine:
             self._m_prefix_tokens = reg.counter(
                 "generation_prefix_hit_tokens_total",
                 "Prompt tokens served from the prefix cache",
+                labelnames=lbl).labels(self._engine)
+        if self.draft_model is not None:
+            self._m_spec_proposed = reg.counter(
+                "generation_spec_proposed_total",
+                "Draft tokens proposed to greedy slots",
+                labelnames=lbl).labels(self._engine)
+            self._m_spec_accepted = reg.counter(
+                "generation_spec_accepted_total",
+                "Draft tokens accepted by the verify step",
                 labelnames=lbl).labels(self._engine)
 
     # -- block accounting (paged) -----------------------------------------
@@ -730,7 +774,8 @@ class GenerationEngine:
                          trace_id=handle.trace.trace_id), \
                 torch.inference_mode():
             logits, kvs = self.model(tokens.to(dev), pos, use_cache=True)
-            k_store, v_store = self.cache.arrays()
+            arrays = self.cache.arrays()
+            k_store, v_store = arrays[:2]
             if self.paged:
                 # position p -> pool block table[p // bs], row p % bs;
                 # padded positions past the allocated blocks hit table
@@ -744,8 +789,15 @@ class GenerationEngine:
                 ).to(dev)
                 off = torch.from_numpy(p % bs).to(dev)
                 for li, (k, v) in enumerate(kvs):
-                    k_store[li, bi, off] = k[0].to(k_store.dtype)
-                    v_store[li, bi, off] = v[0].to(v_store.dtype)
+                    if self.cache.quantized:
+                        k_sc, v_sc = arrays[2:]
+                        k_store[li, bi, off], k_sc[li, bi, off] = \
+                            quantize_kv(k[0])
+                        v_store[li, bi, off], v_sc[li, bi, off] = \
+                            quantize_kv(v[0])
+                    else:
+                        k_store[li, bi, off] = k[0].to(k_store.dtype)
+                        v_store[li, bi, off] = v[0].to(v_store.dtype)
             else:
                 for li, (k, v) in enumerate(kvs):
                     k_store[li, slot, :bucket] = k[0].to(k_store.dtype)
@@ -827,11 +879,14 @@ class GenerationEngine:
 
     def _activate(self, slot, request, handle, tok0, lp0=None):
         """Prompt in cache: publish its full blocks to the prefix cache,
-        arm the slot's decode state, emit token 0."""
+        prefill the draft model, arm the slot's decode state, emit token
+        0."""
         sp = request.sampling
         if self._prefix is not None:
             self._prefix.register(request.prompt_ids,
                                   self._slot_blocks[slot])
+        if self.draft_model is not None:
+            self._draft_prefill(slot, request)
         st = _Slot(request, handle)
         self._slot_state[slot] = st
         self._lengths[slot] = len(request.prompt_ids)
@@ -854,7 +909,10 @@ class GenerationEngine:
                 self._die("injected death at decode step %d"
                           % self._decode_steps)
                 raise
-        # make room for ONE new row per active slot
+        if self.draft_model is not None and self._spec_viable():
+            self._spec_once()
+            return
+        # plain step: make room for ONE new row per active slot
         if self.paged:
             for slot in list(np.nonzero(self._active)[0]):
                 if not self._active[slot]:
@@ -896,6 +954,143 @@ class GenerationEngine:
             self._last_tokens[slot] = tok
             self._emit(slot, st, tok,
                        float(lps[slot]) if lps is not None else None)
+            self._m_itl.observe(dt_ms)
+
+    # -- speculative decoding ----------------------------------------------
+    def _draft_prefill(self, slot, request):
+        """Write the prompt's K/V into the draft's dense cache: one
+        bucket-padded causal forward of the draft (the flash kernel on
+        the card) fills rows ``0 .. bucket - 1`` of the slot.  No
+        sampling: the draft only proposes from decode."""
+        n_prompt = len(request.prompt_ids)
+        bucket = self._bucket_for(n_prompt)
+        dev = self.device
+        tokens = torch.zeros((1, bucket), dtype=torch.long)
+        tokens[0, :n_prompt] = torch.tensor(request.prompt_ids)
+        kd, vd = self._draft_cache.arrays()
+        with torch.inference_mode():
+            _, kvs = self.draft_model(
+                tokens.to(dev), torch.arange(bucket, device=dev)[None],
+                use_cache=True)
+            for li, (k, v) in enumerate(kvs):
+                kd[li, slot, :bucket] = k[0].to(kd.dtype)
+                vd[li, slot, :bucket] = v[0].to(vd.dtype)
+
+    def _draft_decode(self, positions, tokens):
+        """One greedy draft decode step over ALL slots through the dense
+        draft cache (the dense decode kernel on the card): ``tokens``
+        [N] at ``positions`` [N]; returns the argmax tokens [N] (host)."""
+        dev = self.device
+        with torch.inference_mode():
+            pos = torch.from_numpy(positions.astype(np.int32)).to(dev)
+            logits, _ = self.draft_model(
+                torch.from_numpy(tokens).to(dev)[:, None],
+                pos.long()[:, None], caches=self._draft_cache.arrays(),
+                cache_positions=pos)
+            return logits[:, 0].argmax(dim=-1).cpu().numpy()
+
+    def _draft_propose(self):
+        """The draft's k greedy proposals [N, k] (host): k + 1 decode
+        steps over all slots, step i feeding the token at position L + i
+        and writing its row.  The last step only writes d_k's row, so
+        that after a verify that accepts all k the next proposals see a
+        whole draft cache (the reference takes k steps and leaves that
+        row unwritten; ROADMAP Queue C).  An inactive slot's stale
+        length may pass ``max_len - 1 - i``: its ignored rows stay inside
+        the dense draft cache."""
+        k = self.draft_len
+        drafts = np.zeros((self.slots, k), np.int64)
+        cur = self._last_tokens
+        for i in range(k + 1):
+            nxt = self._draft_decode(
+                np.minimum(self._lengths + i, self.max_len - 1), cur)
+            if i < k:
+                drafts[:, i] = cur = nxt
+        return drafts
+
+    def _verify(self, tok_in):
+        """Speculative verify: ``tok_in`` [N, k + 1] holds ``[last, d_1
+        .. d_k]`` a slot, fed at positions ``L .. L + k`` in ONE model
+        call over the paged cache (the chunk path, C = k + 1).  Row i is
+        sampled with the slot's seed at ``steps + i``, so accepted tokens
+        use exactly the random streams plain decode would have.  Returns
+        the host tokens [N, k + 1] and, on a logprob engine, their
+        logprobs (else None)."""
+        s_len = self.draft_len + 1
+        dev = self.device
+        with torch.inference_mode():
+            lengths = torch.from_numpy(self._lengths).to(dev)
+            # an inactive slot's stale length may sit within k of
+            # max_len: clamp its (ignored) rows' position ids into the
+            # table (active slots keep L + k < max_len, `_spec_viable`)
+            positions = (lengths.long()[:, None]
+                         + torch.arange(s_len, device=dev)[None]).clamp(
+                max=self.cfg.max_position_embeddings - 1)
+            logits, _ = self.model(
+                torch.from_numpy(tok_in).to(dev), positions,
+                caches=self.cache.arrays(), cache_positions=lengths,
+                block_tables=torch.from_numpy(self._decode_tables()).to(dev),
+                block_size=self.block_size)
+            toks = torch.stack(
+                [sample_tokens(logits[:, i], self._seeds, self._steps + i,
+                               self._temp, self._top_k, self._top_p)
+                 for i in range(s_len)], dim=1)                # [N, S]
+            lps = None
+            if self.return_logprobs:
+                lps = torch.stack([token_logprobs(logits[:, i], toks[:, i])
+                                   for i in range(s_len)],
+                                  dim=1).cpu().numpy()
+            return toks.cpu().numpy(), lps
+
+    def _spec_viable(self):
+        """A verify step writes draft_len + 1 rows a slot: every active
+        slot needs that much max_len headroom, and the pool must cover
+        it (otherwise this iteration takes a plain step, which needs one
+        row)."""
+        active = np.nonzero(self._active)[0]
+        if len(active) == 0:
+            return False
+        s_len = self.draft_len + 1
+        if not (self._lengths[active] + s_len <= self.max_len).all():
+            return False
+        for slot in active:
+            if not self._ensure_blocks(slot,
+                                       int(self._lengths[slot]) + s_len):
+                return False
+        return True
+
+    def _spec_once(self):
+        """Draft k greedy proposals (`_draft_propose`), ONE batched
+        verify, host-side acceptance: a greedy slot emits the longest
+        draft prefix the target agrees with plus the correction token; a
+        sampled slot emits exactly its row-0 sample (its random stream
+        untouched).
+        Cache rows of rejected drafts are garbage past the new length
+        that later writes overwrite."""
+        k = self.draft_len
+        t0 = time.perf_counter()
+        drafts = self._draft_propose()
+        tok_in = np.concatenate([self._last_tokens[:, None], drafts], axis=1)
+        toks, lps = self._verify(tok_in)
+        self._decode_steps += 1
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        for slot in np.nonzero(self._active)[0]:
+            j = 0
+            if self._temp[slot] <= 0.0:
+                while j < k and drafts[slot, j] == toks[slot, j]:
+                    j += 1
+                self._m_spec_proposed.inc(k)
+                self._m_spec_accepted.inc(j)
+            st = self._slot_state[slot]
+            for i in range(j + 1):
+                self._lengths[slot] += 1
+                self._steps[slot] += 1
+                tok = int(toks[slot, i])
+                self._last_tokens[slot] = tok
+                self._emit(slot, st, tok,
+                           float(lps[slot, i]) if lps is not None else None)
+                if not self._active[slot]:
+                    break              # stop token / limits mid-accept
             self._m_itl.observe(dt_ms)
 
     # -- token delivery ----------------------------------------------------
@@ -1024,6 +1219,16 @@ class GenerationEngine:
         })
         if self._prefix is not None:
             occ["prefix_cache"] = self._prefix.stats()
+        if self.draft_model is not None:
+            proposed = int(self._m_spec_proposed.value)
+            accepted = int(self._m_spec_accepted.value)
+            occ["speculative"] = {
+                "draft_len": self.draft_len,
+                "proposed": proposed,
+                "accepted": accepted,
+                "acceptance_rate": (accepted / proposed) if proposed
+                else 0.0,
+            }
         return occ
 
     # -- convenience -------------------------------------------------------

@@ -7,7 +7,8 @@ Counterpart of `paddle_tpu.generation.kv_cache`.
 * `PagedKVCache` — a block pool ``[L, num_blocks, block_size, H, D]``
   (k and v) every slot draws from, plus a host per-slot block table
   ``[slots, max_blocks_per_slot]`` int32 mapping logical block j to a
-  pool block;
+  pool block; with ``kv_dtype="int8"`` the pools are int8 beside f32
+  per-row per-head scales ``[L, num_blocks, block_size, H]``;
 * `BlockPool` — the refcounted allocator.  It always hands out the
   LOWEST free block id (a heap), and block 0 is the reserved garbage
   block: inactive slots' table rows point at it, so the batched decode
@@ -18,7 +19,6 @@ Counterpart of `paddle_tpu.generation.kv_cache`.
 
 The device tensors are updated in place by the model (PyTorch has no
 donation; in-place writes are what donation bought the JAX engine).
-Left for a later slice: int8 pools.
 """
 
 from __future__ import annotations
@@ -252,14 +252,16 @@ class PagedKVCache:
     """Host-side handle of the paged device pool (see module doc).
 
     ``num_blocks`` INCLUDES block 0 (the reserved garbage block); the
-    usable capacity is ``(num_blocks - 1) * block_size`` token rows."""
+    usable capacity is ``(num_blocks - 1) * block_size`` token rows.
+    ``kv_dtype="int8"`` stores the pools quantized (`ops.quantize_kv`)
+    with their scales; ``dtype`` is then the model's, not the store's."""
 
     def __init__(self, num_layers, num_blocks, block_size, num_heads,
                  head_dim, slots, max_len, dtype=torch.float32,
                  kv_dtype=None, device=None):
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                "kv_dtype=%r: int8 KV pools are not ported yet" % (kv_dtype,))
+        if kv_dtype not in (None, "int8"):
+            raise ValueError("kv_dtype must be None or 'int8', got %r"
+                             % (kv_dtype,))
         self.num_layers = int(num_layers)
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
@@ -269,12 +271,20 @@ class PagedKVCache:
         self.max_len = int(max_len)
         self.max_blocks_per_slot = -(-self.max_len // self.block_size)
         self.dtype = dtype
-        self.kv_dtype = None
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype == "int8"
         self.device = resolve_device(device)
         shape = (self.num_layers, self.num_blocks, self.block_size,
                  self.num_heads, self.head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        store = torch.int8 if self.quantized else dtype
+        self.k = torch.zeros(shape, dtype=store, device=self.device)
+        self.v = torch.zeros(shape, dtype=store, device=self.device)
+        if self.quantized:
+            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
+        else:
+            self.k_scale = self.v_scale = None
         self.pool = BlockPool(self.num_blocks)
         self.block_tables = np.zeros(
             (self.slots, self.max_blocks_per_slot), np.int32)
@@ -285,13 +295,17 @@ class PagedKVCache:
 
     @property
     def nbytes(self):
-        return int(2 * self.k.numel() * self.k.element_size())
+        return sum(int(a.numel() * a.element_size()) for a in self.arrays())
 
     @property
     def capacity_tokens(self):
         return (self.num_blocks - 1) * self.block_size
 
     def arrays(self):
+        """The device tensors, in the model's cache-tuple order: ``(k,
+        v)``, or ``(k, v, k_scale, v_scale)`` for an int8 pool."""
+        if self.quantized:
+            return self.k, self.v, self.k_scale, self.v_scale
         return self.k, self.v
 
     # -- slot bookkeeping (host) ------------------------------------------
@@ -318,7 +332,7 @@ class PagedKVCache:
             "block_size": self.block_size,
             "num_blocks": self.num_blocks,
             "capacity_tokens": self.capacity_tokens,
-            "kv_dtype": str(self.dtype),
+            "kv_dtype": self.kv_dtype or str(self.dtype),
             "blocks_used": self.pool.used_blocks,
             "blocks_free": self.pool.free_blocks,
         }

@@ -6,9 +6,9 @@ token-type embeddings, post-LN encoder layers (fused-QKV self-attention
 through the flash kernels, exact-erf gelu FFN), the MLM head over the
 masked positions with the decoder tied to the word embeddings, and the
 NSP head.  `MultiHeadAttention` also carries the engine's prefill
-(``use_cache``) and cache-attention (``cache``) hooks, dense and f32
-paged: one query row a slot (the decode step) or C > 1 (a chunked
-prefill).
+(``use_cache``) and cache-attention (``cache``) hooks, dense, paged and
+paged int8: one query row a slot (the decode step) or C > 1 (a chunked
+prefill or a speculative verify).
 
 The reference's two environment knobs of `bench.py --autotune`:
 ``PADDLE_TPU_FUSED_FFN=1`` runs the FFN's fc1 + gelu through the
@@ -16,8 +16,7 @@ fused-epilogue GEMM (`nn.functional.fused_linear`);
 ``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD`` materializes the head transposes
 around the flash op (the default BSHD reads strided views, no copy).
 
-Not ported yet, and raising `NotImplementedError`: cross attention and
-int8 pools (the 7-tuple cache of the int8 engine).
+Not ported yet, and raising `NotImplementedError`: cross attention.
 
 State-dict keys match the JAX package (``bert.encoder.0.attn.qkv_proj
 .weight`` ...); the Linear weights are PyTorch's ``[out, in]``
@@ -39,7 +38,9 @@ from ..ops import nn_ops
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.decode_attention import decode_attention
 from ..ops.paged_attention import (chunked_attention_reference,
-                                   paged_decode_attention, paged_gather_kv)
+                                   paged_decode_attention,
+                                   paged_decode_attention_reference,
+                                   paged_gather_kv, quantize_kv)
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertForPretraining", "BertModel",
            "Dropout", "LayerNorm", "MultiHeadAttention",
@@ -199,11 +200,17 @@ class MultiHeadAttention(nn.Module):
           all-zero table rows, so their writes land in the garbage
           block 0, and so do rows at ``p >= max_blocks * bs`` (padding
           past the slot's capacity; the reference clips those onto the
-          slot's last block instead).
+          slot's last block instead);
+        * paged int8 — ``(k_pool, v_pool, k_scale, v_scale, pos, tables,
+          block_size)``: int8 pools and their f32 ``[NB, bs, H]``
+          scales, written as above with each row quantized
+          (`ops.quantize_kv`); attention reads the dequantized view, C
+          == 1 through `paged_decode_attention_reference` with the
+          scales (the reference's dispatch: no int8 kernel).
 
         The caches are updated IN PLACE (the JAX version returns new
         arrays); the same tensors are returned.  Returns ``(out,
-        cache arrays)``."""
+        cache arrays)``, ``out`` in the model's dtype."""
         b, c_len = q.shape[0], q.shape[1]
         scale = self.d_head ** -0.5
         dev = q.device
@@ -224,8 +231,12 @@ class MultiHeadAttention(nn.Module):
                 ctx = chunked_attention_reference(q, k_cache, v_cache, pos,
                                                   scale=scale)
             new_cache = (k_cache, v_cache)
-        elif len(cache) == 5:                                # paged
-            k_pool, v_pool, pos, tables, bs = cache
+        elif len(cache) in (5, 7):                           # paged
+            if len(cache) == 5:
+                k_pool, v_pool, pos, tables, bs = cache
+                k_scale = v_scale = None
+            else:
+                k_pool, v_pool, k_scale, v_scale, pos, tables, bs = cache
             bs = int(bs)
             pos = pos.to(device=dev, dtype=torch.long)
             tables = tables.to(device=dev, dtype=torch.int32)
@@ -236,22 +247,36 @@ class MultiHeadAttention(nn.Module):
                 logical < nb,
                 tables.gather(1, logical.clamp(0, nb - 1)).long(), 0)
             off = p % bs
-            k_pool[bi, off] = k.to(k_pool.dtype)
-            v_pool[bi, off] = v.to(v_pool.dtype)
-            if c_len == 1:
-                ctx = paged_decode_attention(q[:, 0].contiguous(), k_pool,
-                                             v_pool, tables,
-                                             (pos + 1).to(torch.int32),
-                                             scale=scale)[:, None]
+            if k_scale is None:
+                k_pool[bi, off] = k.to(k_pool.dtype)
+                v_pool[bi, off] = v.to(v_pool.dtype)
+            else:
+                # an int8 pool takes quantized rows only: a plain
+                # assignment would truncate the floats
+                k_pool[bi, off], k_scale[bi, off] = quantize_kv(k)
+                v_pool[bi, off], v_scale[bi, off] = quantize_kv(v)
+            if c_len == 1 and k_scale is None:
+                ctx = paged_decode_attention(
+                    q[:, 0].contiguous(), k_pool, v_pool, tables,
+                    (pos + 1).to(torch.int32), scale=scale)[:, None]
+            elif c_len == 1:
+                # the reference has no int8 kernel: an int8 pool is read
+                # through the dequantized gather
+                ctx = paged_decode_attention_reference(
+                    q[:, 0], k_pool, v_pool, tables,
+                    (pos + 1).to(torch.int32), scale=scale,
+                    k_scale=k_scale, v_scale=v_scale)[:, None]
             else:
                 ctx = chunked_attention_reference(
-                    q, paged_gather_kv(k_pool, tables),
-                    paged_gather_kv(v_pool, tables), pos, scale=scale)
-            new_cache = (k_pool, v_pool)
+                    q, paged_gather_kv(k_pool, tables, k_scale),
+                    paged_gather_kv(v_pool, tables, v_scale), pos,
+                    scale=scale)
+            new_cache = ((k_pool, v_pool) if k_scale is None
+                         else (k_pool, v_pool, k_scale, v_scale))
         else:
-            raise NotImplementedError(
-                "cache tuple must have 3 (dense) or 5 (paged f32) entries, "
-                "got %d (int8 pools are not ported yet)" % len(cache))
+            raise ValueError(
+                "cache tuple must have 3 (dense), 5 (paged) or 7 (paged "
+                "int8) entries, got %d" % len(cache))
         ctxv = ctx.reshape(b, c_len, self.n_head * self.d_head)
         return self.dropout(self.out_proj(ctxv)), new_cache
 

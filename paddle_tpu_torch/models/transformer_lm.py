@@ -12,8 +12,8 @@ embeddings (``logits = h @ word.weight.T``).  Three forward modes:
   cache: the S tokens of a row have their K/V written into the cache
   stacks at ``pos .. pos + S - 1`` (in place), and token i attends the
   cache positions ``<= pos + i``.  S == 1 is the decode step, through
-  the decode kernels; S > 1 a prefill chunk (or a prefix-hit suffix),
-  through `ops.chunked_attention_reference`.
+  the decode kernels; S > 1 a prefill chunk (or a prefix-hit suffix, or
+  a speculative verify), through `ops.chunked_attention_reference`.
 """
 
 from __future__ import annotations
@@ -150,8 +150,9 @@ class TransformerLM(nn.Module):
 
         ``caches`` is dense ``(k_stack, v_stack)`` of ``[L, B, T, H, Dh]``,
         or — when ``block_tables`` ``[B, max_blocks]`` and ``block_size``
-        are given — a paged ``[L, NB, bs, H, Dh]`` pool pair.  The stacks
-        are updated in place and returned."""
+        are given — a paged ``[L, NB, bs, H, Dh]`` pool pair, or the int8
+        pools with their ``[L, NB, bs, H]`` f32 scales, ``(k, v, k_scale,
+        v_scale)``.  The stacks are updated in place and returned."""
         h = self.dropout(self.word(input_ids) + self.position(position_ids))
         new_kv = []
         if caches is not None:

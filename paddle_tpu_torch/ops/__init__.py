@@ -39,9 +39,11 @@ from .decode_attention import (  # noqa: F401
 )
 from .paged_attention import (  # noqa: F401
     chunked_attention_reference,
+    dequantize_kv,
     paged_decode_attention,
     paged_decode_attention_reference,
     paged_gather_kv,
+    quantize_kv,
 )
 
 # kernel name (the csrc/ source it builds from) -> its wrapper

@@ -13,15 +13,20 @@ j to a pool block.
   chunk plan (block size 16, the engine's default); any block size
   works.  CPU tensors take the plain version.
 * `paged_gather_kv` — the dense ``[N, T, H, D]`` view of each slot's
-  blocks.
+  blocks (dequantized f32 when the pool is int8 and its scales are
+  given).
 * `paged_decode_attention_reference` — the plain version: gather, then
   the dense decode reference.
 * `chunked_attention_reference` — C query rows per slot over a dense
   cache view with per-row causal limits ``t <= start + i``: the chunked
-  prefill (and, later, speculative verify) math.  The reference computes
-  it in jnp outside any Pallas kernel, so it is plain PyTorch here too.
+  prefill and speculative verify math.  The reference computes it in
+  jnp outside any Pallas kernel, so it is plain PyTorch here too.
 
-Left for the int8 slice: int8 pools with per-row scales (``quantize_kv``).
+int8 KV: pools may be int8 with per-row per-head f32 scales
+``[num_blocks, block_size, H]`` (`quantize_kv` / `dequantize_kv`).  A
+quantized pool is read through `paged_decode_attention_reference` with
+its scales, on every device, as the reference's dispatch reads it: it
+has no int8 kernel.  `paged_decode_attention` refuses an int8 pool.
 """
 
 from __future__ import annotations
@@ -36,8 +41,9 @@ from .decode_attention import (NEG_INF, check_decode_operands,
                                decode_head_groups, decode_split_plan,
                                split_workspace)
 
-__all__ = ["chunked_attention_reference", "paged_decode_attention",
-           "paged_decode_attention_reference", "paged_gather_kv"]
+__all__ = ["chunked_attention_reference", "dequantize_kv",
+           "paged_decode_attention", "paged_decode_attention_reference",
+           "paged_gather_kv", "quantize_kv"]
 
 # paged_decode_attention(q, k_pool, v_pool, o, tables, lengths, acc, ml,
 #                        counters, N, H, D, bs, max_blocks, chunk, chunks,
@@ -47,21 +53,46 @@ _PAGED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def paged_gather_kv(pool, tables):
+def quantize_kv(x, axis=-1):
+    """Symmetric int8 quantization of KV rows with per-head scales.
+
+    x [..., H, D] float -> (q int8 [..., H, D], scale f32 [..., H]) where
+    ``scale = max(amax(|x|, D) / 127, 1e-8)`` (floored away from zero so
+    that an all-zero row round-trips to exact zeros).  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    x = x.float()
+    amax = x.abs().amax(dim=axis)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale):
+    """Inverse of `quantize_kv`: int8 [..., H, D] * f32 [..., H]."""
+    return q.float() * scale[..., None].float()
+
+
+def paged_gather_kv(pool, tables, scale_pool=None):
     """Dense [N, T, H, D] view of each slot's table-mapped blocks:
-    pool [NB, bs, H, D]; tables [N, max_blocks]; T = max_blocks * bs."""
+    pool [NB, bs, H, D]; tables [N, max_blocks]; T = max_blocks * bs.
+    With ``scale_pool`` [NB, bs, H] the pool is int8 and the view is
+    dequantized f32."""
     n, nb = tables.shape
     bs, h, d = pool.shape[1], pool.shape[2], pool.shape[3]
-    return pool[tables.long()].reshape(n, nb * bs, h, d)
+    g = pool[tables.long()].reshape(n, nb * bs, h, d)
+    if scale_pool is not None:
+        g = dequantize_kv(g, scale_pool[tables.long()].reshape(n, nb * bs, h))
+    return g
 
 
 def paged_decode_attention_reference(q, k_pool, v_pool, tables, lengths,
-                                     scale=None):
+                                     scale=None, k_scale=None, v_scale=None):
     """Plain version: q [N, H, D]; pools [NB, bs, H, D]; tables
-    [N, max_blocks]; lengths [N].  Equals the dense decode reference on
-    the gathered view."""
-    k = paged_gather_kv(k_pool, tables)
-    v = paged_gather_kv(v_pool, tables)
+    [N, max_blocks]; lengths [N]; int8 pools with their ``k_scale`` /
+    ``v_scale`` [NB, bs, H].  Equals the dense decode reference on the
+    gathered (dequantized) view."""
+    k = paged_gather_kv(k_pool, tables, k_scale)
+    v = paged_gather_kv(v_pool, tables, v_scale)
     return decode_attention_reference(q, k, v, lengths, scale)
 
 
@@ -109,9 +140,18 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, scale=None):
     q [N, H, D]; pools [NB, bs, H, D]; tables [N, max_blocks] int32;
     lengths [N] int32 (positions ``t < lengths[n]`` attended).  Only
     the first ``ceil(lengths[n] / bs)`` table entries of a slot are
-    read.  Returns [N, H, D]."""
+    read.  Returns [N, H, D].
+
+    Pools of another dtype than q's raise, on the CPU too: nothing is
+    cast silently.  An int8 pool is read through
+    `paged_decode_attention_reference` with its scales."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError("paged_decode_attention: pools of %s / %s do not "
+                         "fit q of %s (an int8 pool is read through "
+                         "paged_decode_attention_reference with its scales)"
+                         % (k_pool.dtype, v_pool.dtype, q.dtype))
     if not q.is_cuda:
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
                                                 lengths, scale)

@@ -8,10 +8,10 @@ the JAX engine and against its own sequential oracle.
   `sequential_oracle` (sampled streams are the port's own: torch and
   JAX draw other random numbers from one seed);
 * a pool too small for the load preempts and still completes every
-  stream; unported knobs raise, and the prefix and chunk knobs need the
-  paged cache; the package imports neither JAX nor
-  `paddle_tpu`; and an entry point with no device raises on a box
-  without a card.
+  stream; the int8 and speculative knobs refuse what the reference
+  refuses, and the prefix and chunk knobs need the paged cache; the
+  package imports neither JAX nor `paddle_tpu`; and an entry point with
+  no device raises on a box without a card.
 """
 
 import ast
@@ -153,11 +153,32 @@ def test_admission_sheds_and_refuses(pair):
         eng.submit(gen.GenerationRequest([1], max_new_tokens=64))
 
 
-@pytest.mark.parametrize("knob", [
-    {"kv_dtype": "int8"}, {"draft_model": "draft", "draft_len": 2}])
-def test_unported_knobs_raise(pair, knob):
+def _draft(max_positions=128):
+    cfg = models.TransformerLMConfig(**dict(
+        KW, hidden_size=64, num_layers=1, num_heads=1,
+        intermediate_size=128, max_position_embeddings=max_positions))
+    return models.TransformerLM(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob,match", [
+    (dict(draft=128, draft_len=0), "draft_model needs draft_len >= 1"),
+    (dict(draft=128, draft_len=2, paged=False),
+     "speculative decoding requires paged=True"),
+    (dict(kv_dtype="int8", paged=False),
+     "prefix_cache / prefill_chunk / kv_dtype require paged=True"),
+    (dict(draft=32, draft_len=2),
+     "draft model max_position_embeddings 32 < engine max_len 64"),
+    (dict(kv_dtype="fp8"), "kv_dtype must be None or 'int8'")],
+    ids=["draft_len0", "draft_dense", "int8_dense", "draft_short",
+         "fp8"])
+def test_unported_knobs_raise(pair, knob, match):
+    """The int8 and speculative knobs, once unported, now raise the
+    reference's ValueErrors on the combinations it refuses."""
     _, tm = pair
-    with pytest.raises(NotImplementedError):
+    knob = dict(knob)
+    if "draft" in knob:
+        knob["draft_model"] = _draft(knob.pop("draft"))
+    with pytest.raises(ValueError, match=match):
         make_engine(tm, **knob)
 
 

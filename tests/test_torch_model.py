@@ -300,6 +300,10 @@ def test_paged_cache_shapes_and_table():
     assert c.table_row(1).tolist() == [5, 0, 0]
     c.clear_slot(1)
     assert not c.block_tables.any()
-    with pytest.raises(NotImplementedError):
+    i8 = kv_cache.PagedKVCache(2, 9, 16, 2, 64, slots=3, max_len=40,
+                               kv_dtype="int8", device="cpu")
+    assert [tuple(a.shape) for a in i8.arrays()] == \
+        [(2, 9, 16, 2, 64)] * 2 + [(2, 9, 16, 2)] * 2
+    with pytest.raises(ValueError, match="kv_dtype"):
         kv_cache.PagedKVCache(2, 9, 16, 2, 64, slots=3, max_len=40,
-                              kv_dtype="int8", device="cpu")
+                              kv_dtype="fp8", device="cpu")
