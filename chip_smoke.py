@@ -24,7 +24,13 @@ padded suffix runs past max_len) against the whole-prompt flash
 prefill, and serves shared-system-prompt traffic through the prefix
 cache with logprobs (greedy tokens and logprobs against a full causal
 forward) and phase 4's traffic through 128-token chunks (every stream
-against the sequential oracle with the same knob); last, holds the 1x1 conv + BN + relu kernel against
+against the sequential oracle with the same knob), through an int8 KV
+pool and with a draft model; then serves phase 4's traffic through the
+serving tier: a two-replica GenerationFleet, a canary weight swap, the
+HTTP front driven by tools/generation_ctl.py, a replica-death requeue
+drill, and a disaggregated prefill / decode pair in f32 and int8 whose
+decode engine launches no flash kernel (every stream phase 4's, or the
+int8 engine's); last, holds the 1x1 conv + BN + relu kernel against
 its plain version (f32/bf16, the Pallas experiment's shape, ResNet-50's
 eight conv0 shapes at B=128 and a ragged one; in bf16 every tile width
 at the ragged shape, an M below one tile and a shape with fewer tiles
@@ -1646,9 +1652,14 @@ def run_engine(ptt):
         ptt, model, reqs, itl_unchunked=(float(np.percentile(itl, 50)),
                                          float(np.percentile(itl, 99))))
     int8_check(ptt, model)
-    launches["engine_int8"] = engine_int8(ptt, model, reqs, streams)
+    launches["engine_int8"], int8_streams = engine_int8(ptt, model, reqs,
+                                                        streams)
     launches["engine_speculative"] = engine_speculative(ptt, model, cfg, reqs,
                                                         streams)
+    launches.update(run_serving(
+        ptt, model, cfg, reqs, streams, int8_streams,
+        {"tokens_per_s": n_tok / wall, "ttft_ms": _pcts(ttft),
+         "itl_ms": _pcts(itl)}))
     return launches
 
 
@@ -2083,7 +2094,7 @@ def engine_int8(ptt, model, reqs, f32_streams):
           "gather-dequantize plain path, as the reference dispatches it",
           "decode_step_profile": prof, "blocks_returned": True,
           "launches": launches})
-    return launches
+    return launches, streams
 
 
 def _spec_profile(gen, model, reqs, draft):
@@ -2186,6 +2197,371 @@ def engine_speculative(ptt, model, cfg, reqs, plain_streams):
                          "greedy_equal_plain_engine": len(greedy)},
           "blocks_returned": True, "launches": launches})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the serving tier over the engine (the generation fleet, its
+# death drill, weight swap and HTTP front) and the disaggregated prefill /
+# decode pair, all on phase 4's model and traffic
+# ---------------------------------------------------------------------------
+
+SERVE_TIMEOUT = 300.0        # s a handle may wait for its next event
+SWAP_SEED = 8                # the second model's weights, init_params
+
+
+def _fleet(ptt, model, replicas=2, **kw):
+    return ptt.serving.GenerationFleet(model, replicas=replicas, slots=8,
+                                       max_len=1024, **kw)
+
+
+def _results(handles):
+    return [h.result(timeout=SERVE_TIMEOUT) for h in handles]
+
+
+def _same_streams(tag, reqs, got, want):
+    bad = [r.request_id for r, g, w in zip(reqs, got, want) if g != w]
+    if bad:
+        raise AssertionError("%s: streams differ: %s" % (tag, bad))
+
+
+def _client_latency(handles, wall):
+    """tokens/s over ``wall`` and TTFT / ITL percentiles as the clients
+    saw them (after a restart, a stream's tokens since it)."""
+    n_tok = sum(len(h._tokens) for h in handles)
+    itl = np.concatenate([np.diff(h.t_tokens) * 1e3 for h in handles])
+    return {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_ms": _pcts(_ttft_ms(handles)), "itl_ms": _pcts(itl)}
+
+
+def serving_fleet(ptt, model, reqs, streams, phase4):
+    """Phase 4's 16 requests through a 2-replica `GenerationFleet` on the
+    card: every stream (sampled ones too) phase 4's, both replicas
+    decoding, kernels 1 and 9 launched.  The replicas' scheduler threads
+    share one interpreter, so whether the fleet beats one engine is a
+    measurement, not a given."""
+    ops = ptt.ops
+    fleet = _fleet(ptt, model).start()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [fleet.submit(r) for r in reqs]
+    got = _results(handles)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if launches["flash_fwd"] <= 0 or launches["paged_attention"] <= 0:
+        raise AssertionError("fleet run launches %s: want flash_fwd and "
+                             "paged_attention > 0" % launches)
+    _same_streams("serving_fleet vs phase 4", reqs, got, streams)
+    steps = [r.engine.stats()["decode_steps"] for r in fleet.replicas]
+    if min(steps) <= 0:
+        raise AssertionError("a replica took no decode step: %s" % steps)
+    lat = _client_latency(handles, wall)
+    emit({"phase": "serving_fleet", "replicas": 2, "requests": len(reqs),
+          **lat, "streams_equal_phase4": len(reqs),
+          "decode_steps_by_replica": steps,
+          "requests_by_replica": [r.engine._m_requests.value
+                                  for r in fleet.replicas],
+          "phase4": phase4,
+          "fleet_beats_one_engine": lat["tokens_per_s"]
+          > phase4["tokens_per_s"],
+          "live_summary": fleet.live_summary(), "launches": launches})
+    return fleet, launches
+
+
+def serving_swap(ptt, model, cfg, fleet, reqs, streams):
+    """A canary swap on the running fleet: `init_params(cfg, seed=8)`
+    through `from_jax_state_dict` onto replica 1 only.  Its greedy
+    streams are then a single seed-8 engine's, replica 0's and the
+    caller's model stay phase 4's; a swap back from `snapshot_params`
+    restores phase 4's streams on replica 1, and a swap with one wrong
+    shape raises ValueError and moves no stream.  The first swap costs
+    about one copy of the weights on the card (copy-on-swap)."""
+    gen, models = ptt.generation, ptt.models
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    greq = [reqs[i] for i in greedy]
+    gwant = [streams[i] for i in greedy]
+
+    def served(*replicas):
+        hs = [[fleet.replicas[i].engine.submit(r) for r in greq]
+              for i in replicas]
+        return [_results(h) for h in hs]
+
+    snap = fleet.snapshot_params()
+    p8 = models.from_jax_state_dict(models.init_params(cfg, seed=SWAP_SEED))
+    r1 = fleet.replicas[1].replica_id
+    param_bytes = sum(v.numel() * v.element_size() for v in snap.values())
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    swapped = fleet.swap_params(p8, replica_ids=[r1])
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    mem1 = torch.cuda.memory_allocated()
+    if swapped != [r1]:
+        raise AssertionError("swap reached %s, want [%s]" % (swapped, r1))
+    model8 = models.TransformerLM(cfg, device="cuda")
+    model8.load_state_dict(p8)
+    want8 = serve(gen, model8.eval(), greq)[2]
+    del model8
+    got0, got1 = served(0, 1)
+    _same_streams("replica 0 after the canary swap", greq, got0, gwant)
+    _same_streams("replica 1 vs a seed-8 engine", greq, got1, want8)
+    moved = sum(a != b for a, b in zip(want8, gwant))
+    if moved == 0:
+        raise AssertionError("the seed-8 model's greedy streams equal the "
+                             "seed-7 model's: the swap check sees nothing")
+    caller = {k: v.cpu() for k, v in model.state_dict().items()}
+    if not all(torch.equal(caller[k], v) for k, v in snap.items()):
+        raise AssertionError("the canary swap changed the caller's model")
+    t0 = time.perf_counter()
+    fleet.swap_params(snap, replica_ids=[r1])
+    torch.cuda.synchronize()
+    back_ms = (time.perf_counter() - t0) * 1e3
+    mem2 = torch.cuda.memory_allocated()
+    _same_streams("replica 1 after the swap back", greq, served(1)[0], gwant)
+    bad = dict(snap, **{"ln_f.weight": torch.zeros(cfg.hidden_size + 1)})
+    try:
+        fleet.swap_params(bad, replica_ids=[r1])
+    except ValueError as e:
+        bad_error = str(e)
+    else:
+        raise AssertionError("a swap with a wrong shape was taken")
+    _same_streams("replica 1 after the refused swap", greq, served(1)[0],
+                  gwant)
+    emit({"phase": "serving_swap", "replica": r1, "seed": SWAP_SEED,
+          "greedy_requests": len(greq), "seed8_streams_differ": int(moved),
+          "swap_ms": swap_ms, "swap_back_ms": back_ms,
+          "param_bytes": param_bytes,
+          "memory_allocated_delta_bytes": mem1 - mem0,
+          "memory_after_swap_back_delta_bytes": mem2 - mem0,
+          "replica0_equal_phase4": True, "replica1_equal_seed8": True,
+          "caller_model_unchanged": True, "swap_back_equal_phase4": True,
+          "wrong_shape_error": bad_error[:120]})
+
+
+def _ctl(port, *args):
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "generation_ctl.py")
+    out = subprocess.run(
+        [sys.executable, tool, "--endpoint", "http://127.0.0.1:%d" % port,
+         "--json", *args], capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError("generation_ctl %s: rc %d %s %s"
+                             % (args[0], out.returncode, out.stdout[-500:],
+                                out.stderr[-500:]))
+    return json.loads(out.stdout)
+
+
+def serving_http(ptt, fleet, reqs, streams):
+    """`serve_generation_http` on the fleet, bound to 127.0.0.1: a
+    streamed POST /generate equals the in-process stream,
+    `tools/generation_ctl.py` ``smoke`` and ``kv`` exit 0, GET /slo
+    answers and the fleet's SLO engine holds phase 4's 16 records."""
+    import http.client
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    httpd = ptt.serving.serve_generation_http(fleet, port=port, block=False)
+    try:
+        r = reqs[0]
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=SERVE_TIMEOUT)
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", json.dumps({
+            "prompt": r.prompt_ids, "max_new_tokens": r.max_new_tokens,
+            "stream": True, "request_id": "http0"}),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        records = [json.loads(ln) for ln in resp.read().splitlines() if ln]
+        http_ms = (time.perf_counter() - t0) * 1e3
+        conn.close()
+        tokens = [x["token"] for x in records if "token" in x]
+        if resp.status != 200 or tokens != streams[0] or \
+                records[-1].get("reason") != "max_new_tokens":
+            raise AssertionError("POST /generate: HTTP %d, %d tokens, last "
+                                 "record %s" % (resp.status, len(tokens),
+                                                records[-1]))
+        smoke = _ctl(port, "smoke", "--requests", "8", "--max-new", "8")
+        kv = _ctl(port, "kv")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/slo")
+        resp = conn.getresponse()
+        report = json.loads(resp.read())
+        conn.close()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    held = {rec["request_id"] for rec in fleet.slo._records}
+    missing = [q.request_id for q in reqs if q.request_id not in held]
+    if not smoke["ok"] or len(kv["replicas"]) != 2 or resp.status != 200 \
+            or missing:
+        raise AssertionError("smoke %s, kv %s, /slo HTTP %d, records "
+                             "missing %s" % (smoke, kv, resp.status,
+                                             missing))
+    emit({"phase": "serving_http", "stream_tokens": len(tokens),
+          "stream_equal_in_process": True, "stream_ms": http_ms,
+          "ctl_smoke": smoke, "ctl_kv": kv,
+          "slo": {k: report[k] for k in ("window", "goodput", "alerts",
+                                         "objectives")},
+          "slo_holds_phase4_records": len(reqs)})
+
+
+def serving_kill(ptt, model, reqs, streams):
+    """The fleet under `FaultPlan` ``kill_replica`` (replica 0 before its
+    decode step 5): one death, every affected request requeued once on
+    replica 1, every stream phase 4's.  Then a 1-replica fleet's death
+    fails every request with "no alive replicas" inside SERVE_TIMEOUT."""
+    FaultPlan = ptt.incubate.fault.FaultPlan
+    ops = ptt.ops
+    fleet = _fleet(ptt, model, fault_plan=FaultPlan([], rank=0).add(
+        "kill_replica", replica=0, request=5)).start()
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = [fleet.submit(r) for r in reqs]
+        got = _results(handles)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        fleet.stop()
+    requeued = [h for h in handles if h.requeued]
+    affected = fleet.replicas[0].engine.affected_on_death
+    if int(fleet._m_deaths.value) != 1 or not requeued or \
+            int(fleet._m_requeued.value) != len(requeued) or \
+            set(requeued) != set(affected):
+        raise AssertionError("deaths %d, requeued %d (counter %d), "
+                             "affected %d" % (fleet._m_deaths.value,
+                                              len(requeued),
+                                              fleet._m_requeued.value,
+                                              len(affected)))
+    _same_streams("serving_kill vs phase 4", reqs, got, streams)
+
+    lone = _fleet(ptt, model, replicas=1, fault_plan=FaultPlan(
+        [], rank=0).add("kill_replica", replica=0, request=2)).start()
+    try:
+        t1 = time.perf_counter()
+        lost = [lone.submit(r) for r in reqs[:3]]
+        errors = []
+        for h in lost:
+            try:
+                h.result(timeout=SERVE_TIMEOUT)
+                errors.append("finished")
+            except RuntimeError as e:
+                errors.append(str(e))
+        fail_s = time.perf_counter() - t1
+    finally:
+        lone.stop()
+    if not all("no alive replicas" in e for e in errors):
+        raise AssertionError("1-replica death: %s" % errors)
+    emit({"phase": "serving_kill", "requests": len(reqs),
+          **_client_latency(handles, wall), "deaths": 1,
+          "requeued": len(requeued), "streams_equal_phase4": len(reqs),
+          "requeued_ttft_ms": _pcts(_ttft_ms(requeued)),
+          "survivor_decode_steps": fleet.replicas[1].engine.stats()[
+              "decode_steps"],
+          "lone_fleet_failed": len(errors), "lone_fleet_fail_s": fail_s,
+          "launches": launches})
+    return launches
+
+
+def disagg(ptt, model, reqs, want, kv_dtype=None):
+    """A `DisaggPair` of two engines on the card: `prefill_extract` of all
+    16 requests first (kernel 1, 16 x 12 launches), then their injection
+    and decode on the decode engine, which launches kernel 1 zero times
+    and runs no prefill (its executables["prefill"] all 0); every stream
+    ``want``'s.  An int8 pair's handoff carries int8 pages and their f32
+    scales, and its decode takes the plain path (kernel 9 unlaunched, as
+    engine_int8)."""
+    gen, ops = ptt.generation, ptt.ops
+    cfg = model.cfg
+    pair = ptt.tp_serving.DisaggPair(*[
+        gen.GenerationEngine(model, slots=8, max_len=1024, kv_dtype=kv_dtype)
+        for _ in range(2)])
+    ops.reset_launch_counts()
+    handles, extract_ms = [], []
+    for r in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles.append(pair.submit(r))
+        torch.cuda.synchronize()
+        extract_ms.append((time.perf_counter() - t0) * 1e3)
+    prefill_launches = ops.launch_counts()
+    handoffs = [e for e, _ in pair.decode._pending]
+    dtypes = sorted({str(p.dtype) for h in handoffs for p in h.pages})
+    want_dtypes = (["torch.float32", "torch.int8"] if kv_dtype
+                   else ["torch.float32"])
+    if len(handoffs) != len(reqs) or dtypes != want_dtypes or any(
+            len(h.pages) != (4 if kv_dtype else 2) for h in handoffs):
+        raise AssertionError("%d handoffs, page dtypes %s"
+                             % (len(handoffs), dtypes))
+    nbytes = [h.nbytes for h in handoffs]
+    inject_ms = []
+    inject = pair.decode._inject_into
+
+    def timed_inject(slot, handoff, handle):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = inject(slot, handoff, handle)
+        torch.cuda.synchronize()
+        inject_ms.append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    pair.decode._inject_into = timed_inject
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pair.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode_launches = ops.launch_counts()
+    got = [h.result(timeout=0) for h in handles]
+    dex = pair.decode.stats()["executables"]
+    want9 = 0 if kv_dtype else 1
+    if prefill_launches["flash_fwd"] != len(reqs) * cfg.num_layers or \
+            prefill_launches["paged_attention"] != 0 or \
+            decode_launches["flash_fwd"] != 0 or \
+            (decode_launches["paged_attention"] > 0) != bool(want9) or \
+            any(dex["prefill"].values()) or dex["decode_step"] != 1:
+        raise AssertionError("disagg launches: prefill %s, decode %s, "
+                             "decode executables %s"
+                             % (prefill_launches, decode_launches, dex))
+    _same_streams("disagg (%s)" % (kv_dtype or "f32"), reqs, got, want)
+    if pair.prefill.cache.pool.used_blocks or \
+            pair.decode.cache.pool.used_blocks:
+        raise AssertionError("disagg blocks never returned to the pools")
+    emit({"phase": "disagg", "kv_dtype": kv_dtype or "float32",
+          "requests": len(reqs), **_client_latency(handles, wall),
+          "streams_equal": "phase 4's" if kv_dtype is None
+          else "engine_int8's", "handoff_bytes_sum": sum(nbytes),
+          "handoff_bytes_max": max(nbytes), "page_dtypes": dtypes,
+          "pair_stats": pair.stats(), "extract_ms": _pcts(extract_ms),
+          "extract_ms_sum": sum(extract_ms), "inject_ms": _pcts(inject_ms),
+          "inject_ms_sum": sum(inject_ms),
+          "decode_executables": dex, "prefill_launches": prefill_launches,
+          "decode_launches": decode_launches})
+    return prefill_launches, decode_launches
+
+
+def run_serving(ptt, model, cfg, reqs, streams, int8_streams, phase4):
+    """The serving phases; returns their launch counts by phase."""
+    fleet, fleet_launches = serving_fleet(ptt, model, reqs, streams, phase4)
+    try:
+        serving_swap(ptt, model, cfg, fleet, reqs, streams)
+        serving_http(ptt, fleet, reqs, streams)
+    finally:
+        fleet.stop()
+    del fleet
+    kill_launches = serving_kill(ptt, model, reqs, streams)
+    pre, dec = disagg(ptt, model, reqs, streams)
+    pre8, dec8 = disagg(ptt, model, reqs, int8_streams, kv_dtype="int8")
+    return {"serving_fleet": fleet_launches, "serving_kill": kill_launches,
+            "disagg_prefill": pre, "disagg_decode": dec,
+            "disagg_int8_prefill": pre8, "disagg_int8_decode": dec8}
 
 
 # ---------------------------------------------------------------------------
@@ -3131,6 +3507,18 @@ def main():
                                  launches["engine_prefix"]["flash_fwd"],
                              "int8_run_launches":
                                  launches["engine_int8"]["flash_fwd"],
+                             "serving_fleet_run_launches":
+                                 launches["serving_fleet"]["flash_fwd"],
+                             "serving_kill_run_launches":
+                                 launches["serving_kill"]["flash_fwd"],
+                             "disagg_prefill_launches": [
+                                 launches[k]["flash_fwd"] for k in (
+                                     "disagg_prefill",
+                                     "disagg_int8_prefill")],
+                             "disagg_decode_launches": [
+                                 launches[k]["flash_fwd"] for k in (
+                                     "disagg_decode",
+                                     "disagg_int8_decode")],
                              **{k: prefill[k] for k in (
                                  "S", "dtype", "max_abs_err", "ms",
                                  "plain_ms", "bound_ms", "bound_by",
@@ -3168,7 +3556,13 @@ def main():
                  "paged_attention"],
              int8_run_launches=launches["engine_int8"]["paged_attention"],
              speculative_run_launches=launches["engine_speculative"][
-                 "paged_attention"], **paged_row),
+                 "paged_attention"],
+             serving_fleet_run_launches=launches["serving_fleet"][
+                 "paged_attention"],
+             serving_kill_run_launches=launches["serving_kill"][
+                 "paged_attention"],
+             disagg_decode_launches=[launches[k]["paged_attention"] for k in (
+                 "disagg_decode", "disagg_int8_decode")], **paged_row),
     ]
 
     # the fused-epilogue GEMM kernels at the FFN's shape (M = 30720, K =

@@ -7,14 +7,15 @@ Pallas kernel on the ported path is a hand-written CUDA kernel under
 
 Covered so far: `models.TransformerLM` served through
 `generation.GenerationEngine` (bucketed flash prefill, paged and dense
-decode), and `models.BertForPretraining` trained by
-`distributed.ShardedTrainStep` under `optimizer.AdamWOptimizer` (flash
-forward and backward kernels; with ``PADDLE_TPU_FUSED_FFN=1`` the FFN's
-fc1 + gelu through the fused-epilogue GEMM kernels,
-`nn.functional.fused_linear`), and `models.resnet50` (and the rest of
-the ResNet family) served in eval mode, each bottleneck block's 1x1
-conv + BN + relu through one kernel (`ops.conv1x1_bn_relu`).  See
-README "PyTorch/CUDA port".
+decode; behind `serving.GenerationFleet` and its HTTP front, or split
+into prefill and decode engines by `tp_serving.DisaggPair`), and
+`models.BertForPretraining` trained by `distributed.ShardedTrainStep`
+under `optimizer.AdamWOptimizer` (flash forward and backward kernels;
+with ``PADDLE_TPU_FUSED_FFN=1`` the FFN's fc1 + gelu through the
+fused-epilogue GEMM kernels, `nn.functional.fused_linear`), and
+`models.resnet50` (and the rest of the ResNet family) served in eval
+mode, each bottleneck block's 1x1 conv + BN + relu through one kernel
+(`ops.conv1x1_bn_relu`).  See README "PyTorch/CUDA port".
 
 Device rule: every entry point takes ``device=``; with none given it is
 ``"cuda"``, and a box without a CUDA device raises (`device.resolve_device`)
@@ -26,8 +27,9 @@ CPU-only box and imports neither JAX nor `paddle_tpu`.
 
 import importlib
 
-_SUBMODULES = ("device", "distributed", "generation", "models", "nn",
-               "observability", "ops", "optimizer")
+_SUBMODULES = ("device", "distributed", "generation", "incubate",
+               "models", "nn", "observability", "ops", "optimizer",
+               "serving", "tp_serving")
 
 __all__ = list(_SUBMODULES)
 

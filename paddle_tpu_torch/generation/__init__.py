@@ -8,8 +8,11 @@ of `paddle_tpu.generation`, on PyTorch and the port's CUDA kernels.
 * `GenerationEngine` — slot-based continuous batching, flash prefill
   over the bucket ladder, one decode step over all slots per iteration
   through the paged (or dense) decode kernel, preemption on pool
-  exhaustion, prefix caching, chunked prefill and per-token logprobs;
-  token-for-token equal to `sequential_oracle`;
+  exhaustion, prefix caching, chunked prefill, per-token logprobs, an
+  int8 pool and speculative decoding; token-for-token equal to
+  `sequential_oracle`.  Its serving API (death hook, request window,
+  weight swap, launch signatures, disaggregated prefill / decode)
+  carries `serving.GenerationFleet` and `tp_serving.DisaggPair`;
 * `SamplingParams` / `sample_tokens` — greedy, temperature, top-k,
   top-p with per-request (seed, step) random streams.
 """

@@ -60,20 +60,46 @@ boundaries give the same shapes); paged and dense engines prefill
 through the same forward and decode through kernels that are bitwise
 equal on the card.
 
-Not ported yet: the disaggregated ``prefill_extract`` /
-``inject_prefilled`` pair, ``swap_params`` / ``snapshot_params`` and
-``affected_on_death`` / ``recent_requests``.  The device cache is
-updated in place, so ``donate`` has nothing to select and is accepted
-for signature parity only.
+The serving tier's API (`serving.GenerationFleet`,
+`tp_serving.DisaggPair`):
+
+* **death** — `kill()` or a step hook raising `EngineDeadError`
+  collects the handles in flight, chunking or queued
+  (`affected_on_death`); an ``on_death(engine, handles)`` hook takes
+  them (the fleet requeues each once), else they fail;
+* **request window** — every per-request record is kept in a window of
+  the last 256 (`recent_requests`) and forwarded to ``request_sink``;
+* **weight swap** — `snapshot_params` / `swap_params` read and replace
+  the serving weights (the model's ``state_dict`` names and layout)
+  under the engine lock, between two steps.  Engines built from one
+  module share it until their first swap, which gives the swapping
+  engine its own copy built from the new tensors (copy-on-swap): a swap
+  never reaches another engine or the caller's model, and the decode
+  step gains no work;
+* **disaggregated prefill / decode** — `prefill_extract` runs one
+  whole-prompt prefill and lifts the slot's pages into a
+  `tp_serving.KVHandoff`; `inject_prefilled` queues one for a decode
+  engine, which copies the pages into fresh blocks and decodes without
+  ever running a prefill;
+* **launch signatures** — PyTorch compiles nothing, so where the
+  reference counts the executables each jitted path compiled,
+  `stats()["executables"]` counts the distinct launch signatures
+  (shapes and dtypes of the model call's inputs) each path has run:
+  one decode step signature an engine, one a prefill bucket used.
+
+The device cache is updated in place, so ``donate`` has nothing to
+select and is accepted for signature parity only.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import math
 import queue
 import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -104,8 +130,9 @@ class EngineDeadError(RuntimeError):
 
 class ShedError(RuntimeError):
     """Request refused at admission.  `reason` is the policy that fired;
-    `retry_after_s` is the integer seconds for the Retry-After header
-    (`paddle_tpu.serving.admission.ShedError`)."""
+    `retry_after_s` is the integer seconds for the Retry-After header.
+    `serving.admission` exports this same class, so the fleet catches
+    what the engine raises."""
 
     def __init__(self, reason, retry_after_s=1, detail=""):
         self.reason = reason
@@ -113,6 +140,19 @@ class ShedError(RuntimeError):
         super().__init__(
             "request shed (%s)%s; retry after %ds"
             % (reason, (": " + detail) if detail else "", self.retry_after_s))
+
+
+def _entry_request(entry):
+    """Pending-queue entries are `GenerationRequest`s or
+    `tp_serving.KVHandoff`s (which carry one)."""
+    return entry if isinstance(entry, GenerationRequest) \
+        else entry.request
+
+
+def _signature(*inputs):
+    """The launch signature of one model call: its inputs' shapes and
+    dtypes (the port's stand-in for a jitted executable's identity)."""
+    return tuple((tuple(t.shape), t.dtype) for t in inputs)
 
 
 def default_prefill_buckets(max_len):
@@ -148,10 +188,11 @@ class GenerationRequest:
 class RequestHandle:
     """The caller's end of one request: a stream of ``(index, token)``
     plus terminal events (``("token", index, token, logprob)`` on an
-    engine built with ``logprobs=True``).  ``restart`` events
-    (preemption on pool exhaustion re-runs the request from scratch)
-    reset the index stream to 0; a consumer discards what it saw
-    before."""
+    engine built with ``logprobs=True``).  ``restart`` events (the
+    fleet's requeue after a replica death and preemption on pool
+    exhaustion both re-run the request from scratch) reset the index
+    stream to 0; a consumer discards what it saw before.  ``requeued``
+    is the fleet's requeue-once latch."""
 
     def __init__(self, request, trace=None):
         self.request = request
@@ -161,6 +202,7 @@ class RequestHandle:
         self._logprobs = []            # filled only on logprob engines
         self.finish_reason = None
         self.error = None
+        self.requeued = False
         self.t_submit = time.perf_counter()
         self.t_first_token = None
         self.t_tokens = []             # host clock at each token's delivery
@@ -316,11 +358,13 @@ class GenerationEngine:
 
     ``model`` is a `models.TransformerLM` (or anything with its forward
     contract and a ``cfg``); the engine moves it to ``device`` (default:
-    the card; raises when there is none) and into eval mode.
+    the card; raises when there is none) and into eval mode, and serves
+    it shared until its first `swap_params`.
     ``slots`` x ``max_len`` sizes the cache; ``prefill_buckets`` is the
     prompt-length ladder (default: pow2).  ``max_queue`` bounds the
     pending queue — beyond it `submit` sheds (`ShedError`).
-    ``step_hook(step_no)`` runs before every decode step.
+    ``step_hook(step_no)`` runs before every decode step (the drills'
+    kill seam: raising `EngineDeadError` there kills the engine).
 
     Paged knobs: ``paged`` (default True) selects the block pool;
     ``block_size`` is its row granularity; ``kv_blocks`` sizes it
@@ -430,8 +474,24 @@ class GenerationEngine:
         self._thread = None
         self._decode_steps = 0
         self._step_hook = step_hook
+        self.on_death = None           # fleet requeue hook
+        self._affected_on_death = []
         self._t0 = time.perf_counter()
+        # per-request records: a bounded local window plus the optional
+        # forwarding sink (the fleet's SLOEngine.record)
         self._request_sink = request_sink
+        self._recent = deque(maxlen=256)
+        # False while self.model is the module the engine was given
+        # (shared with its other users); True after the first swap
+        self._owns_model = False
+        # launch signatures by path, read by stats()["executables"]
+        self._sigs = {"decode_step": set(),
+                      "prefill": {b: set() for b in self.prefill_buckets},
+                      "chunk": {}}
+        if self.draft_model is not None:
+            self._sigs.update(
+                verify=set(), draft_decode=set(),
+                draft_prefill={b: set() for b in self.prefill_buckets})
 
         reg = metrics_registry or default_registry()
         self.metrics_registry = reg
@@ -592,7 +652,9 @@ class GenerationEngine:
     def submit(self, request, _handle=None):
         """Queue a request; returns its `RequestHandle`.  Sheds
         (`ShedError`, reason ``slots_full``) when the pending queue is
-        at ``max_queue``; refuses requests that can never fit."""
+        at ``max_queue``; refuses requests that can never fit.
+        ``_handle`` re-attaches an existing handle (the fleet's requeue
+        after a replica death: the stream restarts, the handle stays)."""
         if not isinstance(request, GenerationRequest):
             request = GenerationRequest(request)
         if len(request.prompt_ids) > self.prefill_buckets[-1]:
@@ -630,8 +692,14 @@ class GenerationEngine:
             tr = _trace.default_tracer()
             if tr.enabled:
                 tid = handle.trace.trace_id
-                tr.async_begin("request", tid, cat="generation",
-                               args={"request_id": request.request_id})
+                if _handle is not None:
+                    # requeue after a death: the same trace id, so death,
+                    # requeue and restart land on one track
+                    tr.async_instant("requeue", tid, cat="generation",
+                                     args={"engine": self._engine})
+                else:
+                    tr.async_begin("request", tid, cat="generation",
+                                   args={"request_id": request.request_id})
                 tr.async_begin("queue", tid, cat="generation")
             self._pending.append((request, handle))
             self._m_requests.inc()
@@ -645,19 +713,26 @@ class GenerationEngine:
         rate = self._m_tokens.value / elapsed if elapsed > 0 else 0.0
         if rate <= 0:
             return 1
-        backlog = sum(r.max_new_tokens for r, _ in self._pending) or 1
+        backlog = sum(_entry_request(e).max_new_tokens
+                      for e, _ in self._pending) or 1
         return max(1.0, backlog / rate)
 
     def _record_request(self, rec):
-        """Sink for per-request SLO records: stamp the engine and forward
-        to ``request_sink``.  Never raises into the serving path."""
+        """Sink for per-request SLO records: stamp the engine, keep the
+        bounded window and forward to ``request_sink``.  Never raises
+        into the serving path."""
         rec = dict(rec, engine=self._engine)
+        self._recent.append(rec)
         sink = self._request_sink
         if sink is not None:
             try:
                 sink(rec)
             except Exception:
                 pass
+
+    def recent_requests(self):
+        """The last 256 per-request records, oldest first."""
+        return list(self._recent)
 
     # -- scheduler ---------------------------------------------------------
     def step(self):
@@ -674,21 +749,27 @@ class GenerationEngine:
                     self._chunk_step(slot)
                     progressed = True
             while self._free and self._pending:
-                request, handle = self._pending.pop(0)
+                entry, handle = self._pending.pop(0)
                 slot = self._free.pop(0)
                 self._m_queue.set(len(self._pending))
                 tr = _trace.default_tracer()
                 if tr.enabled:
                     tr.async_end("queue", handle.trace.trace_id,
                                  cat="generation")
-                if not self._prefill_into(slot, request, handle):
+                # a request prefills here; a KVHandoff from a prefill
+                # engine brings its pages (a decode engine never
+                # prefills it)
+                admit = (self._prefill_into
+                         if isinstance(entry, GenerationRequest)
+                         else self._inject_into)
+                if not admit(slot, entry, handle):
                     # pool dry at admission: requeue and wait for a
                     # running request to free blocks — unless nothing
                     # is running, in which case it never will
                     self._free.insert(0, slot)
                     if self._active.any() or any(
                             c is not None for c in self._chunking):
-                        self._pending.insert(0, (request, handle))
+                        self._pending.insert(0, (entry, handle))
                         self._m_queue.set(len(self._pending))
                         if tr.enabled:
                             tr.async_begin("queue", handle.trace.trace_id,
@@ -697,7 +778,7 @@ class GenerationEngine:
                         handle._fail(
                             "kv pool exhausted: request %s needs more "
                             "blocks than the pool can ever free"
-                            % request.request_id)
+                            % _entry_request(entry).request_id)
                     break
                 progressed = True
             if self._active.any():
@@ -725,11 +806,8 @@ class GenerationEngine:
     def _prefill_into(self, slot, request, handle):
         """Claim blocks and start the prompt.  A prefix hit, or any prompt
         when ``prefill_chunk`` is set, goes to the chunk path; the rest
-        runs the whole-prompt prefill: one causal forward over the
-        bucket-padded prompt on the flash kernel, every layer's K/V
-        written into the slot's cache rows, token 0 sampled from the last
-        real position.  Returns False (nothing claimed) when the pool is
-        dry."""
+        runs the whole-prompt flash prefill (`_flash_prefill`).  Returns
+        False (nothing claimed) when the pool is dry."""
         sp = request.sampling
         n_prompt = len(request.prompt_ids)
         if self.paged:
@@ -758,22 +836,36 @@ class GenerationEngine:
                     request, handle, n_cached, time.perf_counter())
                 self._chunk_step(slot)
                 return True
+        tok0, lp0 = self._flash_prefill(slot, request,
+                                        handle.trace.trace_id)
+        self._activate(slot, request, handle, tok0, lp0, sp.seed)
+        return True
+
+    def _flash_prefill(self, slot, request, trace_id):
+        """The whole-prompt prefill of ``request`` into ``slot``: one
+        causal forward over the bucket-padded prompt on the flash kernel,
+        every layer's K/V written into the slot's cache rows, token 0
+        sampled from the last real position.  Returns ``(tok0, lp0)``."""
+        sp = request.sampling
+        n_prompt = len(request.prompt_ids)
         bucket = self._bucket_for(n_prompt)
         dev = self.device
         tokens = torch.zeros((1, bucket), dtype=torch.long)
         tokens[0, :n_prompt] = torch.tensor(request.prompt_ids)
+        tokens = tokens.to(dev)
         pos = torch.arange(bucket, device=dev)[None]
         t0 = time.perf_counter()
         tr = _trace.default_tracer()
         if tr.enabled:
-            tr.async_begin("prefill", handle.trace.trace_id,
-                           cat="generation", args={"bucket": bucket})
+            tr.async_begin("prefill", trace_id, cat="generation",
+                           args={"bucket": bucket, "engine": self._engine})
         with _trace.span("generation.prefill", cat="generation",
                          args={"bucket": bucket, "slot": int(slot),
                                "request_id": request.request_id},
-                         trace_id=handle.trace.trace_id), \
+                         trace_id=trace_id), \
                 torch.inference_mode():
-            logits, kvs = self.model(tokens.to(dev), pos, use_cache=True)
+            self._sigs["prefill"][bucket].add(_signature(tokens, pos))
+            logits, kvs = self.model(tokens, pos, use_cache=True)
             arrays = self.cache.arrays()
             k_store, v_store = arrays[:2]
             if self.paged:
@@ -806,9 +898,8 @@ class GenerationEngine:
                 logits[0, n_prompt - 1:n_prompt], sp)
         self._m_prefill_ms.observe((time.perf_counter() - t0) * 1e3)
         if tr.enabled:
-            tr.async_end("prefill", handle.trace.trace_id, cat="generation")
-        self._activate(slot, request, handle, tok0, lp0)
-        return True
+            tr.async_end("prefill", trace_id, cat="generation")
+        return tok0, lp0
 
     def _sample_first(self, last, sp):
         """Generated token 0 from the last real row's logits ``last``
@@ -858,12 +949,14 @@ class GenerationEngine:
                                "pos": cs.pos,
                                "request_id": request.request_id}), \
                 torch.inference_mode():
+            tokens, positions = tokens.to(dev), positions.to(dev)
+            start = torch.tensor([cs.pos], dtype=torch.int32, device=dev)
+            self._sigs["chunk"].setdefault(width, set()).add(
+                _signature(tokens, positions, start, table))
             logits, _ = self.model(
-                tokens.to(dev), positions.to(dev),
-                caches=self.cache.arrays(),
-                cache_positions=torch.tensor([cs.pos], dtype=torch.int32,
-                                             device=dev),
-                block_tables=table, block_size=self.block_size)
+                tokens, positions, caches=self.cache.arrays(),
+                cache_positions=start, block_tables=table,
+                block_size=self.block_size)
             if last:
                 tok0, lp0 = self._sample_first(
                     logits[0, c_real - 1:c_real], sp)
@@ -875,12 +968,13 @@ class GenerationEngine:
             if tr.enabled:
                 tr.async_end("prefill", handle.trace.trace_id,
                              cat="generation")
-            self._activate(slot, request, handle, tok0, lp0)
+            self._activate(slot, request, handle, tok0, lp0,
+                           sp.seed)
 
-    def _activate(self, slot, request, handle, tok0, lp0=None):
+    def _activate(self, slot, request, handle, tok0, lp0, seed):
         """Prompt in cache: publish its full blocks to the prefix cache,
-        prefill the draft model, arm the slot's decode state, emit token
-        0."""
+        prefill the draft model, arm the slot's decode state (``seed``
+        names the request's random stream), emit token 0."""
         sp = request.sampling
         if self._prefix is not None:
             self._prefix.register(request.prompt_ids,
@@ -892,7 +986,7 @@ class GenerationEngine:
         self._lengths[slot] = len(request.prompt_ids)
         self._last_tokens[slot] = tok0
         self._steps[slot] = 1
-        self._seeds[slot] = sp.seed
+        self._seeds[slot] = seed
         self._temp[slot] = sp.temperature
         self._top_k[slot] = sp.top_k
         self._top_p[slot] = sp.top_p
@@ -929,12 +1023,16 @@ class GenerationEngine:
         with torch.inference_mode():
             lengths = torch.from_numpy(self._lengths).to(dev)
             tokens = torch.from_numpy(self._last_tokens).to(dev)[:, None]
-            kw = {}
+            positions = lengths.long()[:, None]
+            kw, inputs = {}, (tokens, positions, lengths)
             if self.paged:
-                kw = {"block_tables": torch.from_numpy(
-                          self._decode_tables()).to(dev),
-                      "block_size": self.block_size}
-            logits, _ = self.model(tokens, lengths.long()[:, None],
+                tables = torch.from_numpy(self._decode_tables()).to(dev)
+                kw = {"block_tables": tables, "block_size": self.block_size}
+                inputs += (tables,)
+            if not self._sigs["decode_step"]:
+                # fixed when the engine is built: learn it once
+                self._sigs["decode_step"].add(_signature(*inputs))
+            logits, _ = self.model(tokens, positions,
                                    caches=self.cache.arrays(),
                                    cache_positions=lengths, **kw)
             nxt = sample_tokens(logits[:, 0], self._seeds, self._steps,
@@ -969,9 +1067,10 @@ class GenerationEngine:
         tokens[0, :n_prompt] = torch.tensor(request.prompt_ids)
         kd, vd = self._draft_cache.arrays()
         with torch.inference_mode():
-            _, kvs = self.draft_model(
-                tokens.to(dev), torch.arange(bucket, device=dev)[None],
-                use_cache=True)
+            tokens = tokens.to(dev)
+            pos = torch.arange(bucket, device=dev)[None]
+            self._sigs["draft_prefill"][bucket].add(_signature(tokens, pos))
+            _, kvs = self.draft_model(tokens, pos, use_cache=True)
             for li, (k, v) in enumerate(kvs):
                 kd[li, slot, :bucket] = k[0].to(kd.dtype)
                 vd[li, slot, :bucket] = v[0].to(vd.dtype)
@@ -983,9 +1082,12 @@ class GenerationEngine:
         dev = self.device
         with torch.inference_mode():
             pos = torch.from_numpy(positions.astype(np.int32)).to(dev)
+            tok = torch.from_numpy(tokens).to(dev)[:, None]
+            if not self._sigs["draft_decode"]:
+                # all slots, one row: fixed when the engine is built
+                self._sigs["draft_decode"].add(_signature(tok, pos))
             logits, _ = self.draft_model(
-                torch.from_numpy(tokens).to(dev)[:, None],
-                pos.long()[:, None], caches=self._draft_cache.arrays(),
+                tok, pos.long()[:, None], caches=self._draft_cache.arrays(),
                 cache_positions=pos)
             return logits[:, 0].argmax(dim=-1).cpu().numpy()
 
@@ -1026,10 +1128,15 @@ class GenerationEngine:
             positions = (lengths.long()[:, None]
                          + torch.arange(s_len, device=dev)[None]).clamp(
                 max=self.cfg.max_position_embeddings - 1)
+            tok = torch.from_numpy(tok_in).to(dev)
+            tables = torch.from_numpy(self._decode_tables()).to(dev)
+            if not self._sigs["verify"]:
+                # all slots, k + 1 rows: fixed when the engine is built
+                self._sigs["verify"].add(_signature(tok, positions,
+                                                    lengths, tables))
             logits, _ = self.model(
-                torch.from_numpy(tok_in).to(dev), positions,
-                caches=self.cache.arrays(), cache_positions=lengths,
-                block_tables=torch.from_numpy(self._decode_tables()).to(dev),
+                tok, positions, caches=self.cache.arrays(),
+                cache_positions=lengths, block_tables=tables,
                 block_size=self.block_size)
             toks = torch.stack(
                 [sample_tokens(logits[:, i], self._seeds, self._steps + i,
@@ -1137,13 +1244,25 @@ class GenerationEngine:
         self._active[:] = False
         affected.extend(h for _, h in self._pending)
         self._pending = []
+        self._affected_on_death = affected
         _trace.instant("generation.engine_death", cat="generation",
                        args={"engine": self._engine, "why": why})
-        for h in affected:
-            h._fail("engine %s died: %s" % (self._engine, why))
+        tr = _trace.default_tracer()
+        if tr.enabled:
+            for h in affected:
+                tr.async_instant("replica_death", h.trace.trace_id,
+                                 cat="generation",
+                                 args={"engine": self._engine, "why": why})
+        if self.on_death is not None:
+            self.on_death(self, affected)
+        else:
+            for h in affected:
+                h._fail("engine %s died: %s" % (self._engine, why))
 
     def kill(self, why="killed"):
-        """Operator kill: in-flight and queued handles fail."""
+        """Operator or drill kill: the handles in flight, chunking or
+        queued go to the ``on_death`` hook (the fleet requeues them), or
+        fail when there is none."""
         with self._lock:
             if not self._dead:
                 self._die(why)
@@ -1152,6 +1271,11 @@ class GenerationEngine:
     @property
     def dead(self):
         return self._dead
+
+    @property
+    def affected_on_death(self):
+        """Handles that were in flight or queued when the engine died."""
+        return list(self._affected_on_death)
 
     # -- background loop ---------------------------------------------------
     def start(self):
@@ -1194,7 +1318,217 @@ class GenerationEngine:
             self._thread.join(timeout=10)
             self._thread = None
 
+    # -- disaggregated prefill / decode (tp_serving.disagg) ----------------
+    def prefill_extract(self, request, trace=None):
+        """The prefill half of a disaggregated pair: run ONE whole-prompt
+        flash prefill for ``request`` in a free slot, lift the slot's
+        pages (every array of the pool: K and V, and an int8 pool's
+        scales) and token 0 off the engine, release the slot, and return
+        the `tp_serving.KVHandoff` a decode engine takes with
+        `inject_prefilled`.  Bypasses the scheduler (sheds with
+        `ShedError` when no slot or no blocks are free) and never runs
+        the decode step.  ``trace``: an optional `TraceContext` or its
+        wire dict, which the handoff carries to the decode side."""
+        from ..tp_serving.disagg import KVHandoff
+
+        if not self.paged:
+            raise ValueError("prefill_extract requires paged=True")
+        if not isinstance(request, GenerationRequest):
+            request = GenerationRequest(request)
+        tc = _trace.TraceContext.from_wire(trace)
+        tr = _trace.default_tracer()
+        if tc is None:
+            tc = _trace.TraceContext()
+            if tr.enabled:
+                # no upstream front began this request's track
+                tr.async_begin("request", tc.trace_id, cat="generation",
+                               args={"request_id": request.request_id})
+        n_prompt = len(request.prompt_ids)
+        with self._lock:
+            if self._dead:
+                raise EngineDeadError("engine %s is dead" % self._engine)
+            if not self._free:
+                raise ShedError(
+                    "slots_full", self._retry_after_locked(),
+                    "prefill engine %s has no free slot" % self._engine)
+            slot = self._free.pop(0)
+            self._slot_blocks[slot] = []
+            if not self._ensure_blocks(slot, n_prompt):
+                self._release_blocks(slot)
+                self._free.insert(0, slot)
+                raise ShedError(
+                    "kv_pool_exhausted", self._retry_after_locked(),
+                    "prefill engine %s pool dry" % self._engine)
+            try:
+                tok0, lp0 = self._flash_prefill(slot, request, tc.trace_id)
+                # advanced indexing copies: the pages stay valid after
+                # the blocks go back to the pool
+                idx = torch.tensor(self._slot_blocks[slot],
+                                   dtype=torch.long, device=self.device)
+                pages = tuple(a[:, idx] for a in self.cache.arrays())
+            finally:
+                self._release_blocks(slot)
+                self._free.append(slot)
+        handoff = KVHandoff(
+            request=request, n_prompt=n_prompt, tok0=tok0, lp0=lp0,
+            key=request.sampling.seed, pages=pages,
+            block_size=self.block_size, kv_dtype=self.cache.kv_dtype,
+            trace=tc.child("prefill").to_wire())
+        if tr.enabled:
+            tr.async_begin("handoff", tc.trace_id, cat="generation",
+                           args={"bytes": handoff.nbytes})
+        return handoff
+
+    def inject_prefilled(self, handoff, _handle=None):
+        """The decode half: queue a `KVHandoff` for this engine.  The
+        scheduler copies its pages into fresh blocks, arms the slot and
+        emits token 0; the request decodes here without this engine ever
+        running a prefill (`stats()["executables"]["prefill"]` stays 0).
+        Queues and sheds as `submit` does; ``_handle`` re-attaches an
+        existing handle."""
+        if not self.paged:
+            raise ValueError("inject_prefilled requires paged=True")
+        if handoff.block_size != self.block_size:
+            raise ValueError("handoff block_size %d != engine %d"
+                             % (handoff.block_size, self.block_size))
+        if handoff.kv_dtype != self.cache.kv_dtype:
+            raise ValueError("handoff kv_dtype %r != engine %r"
+                             % (handoff.kv_dtype, self.cache.kv_dtype))
+        shape = self.cache.shape
+        page = tuple(handoff.pages[0].shape)
+        if page[0] != shape[0] or page[2:] != shape[2:]:
+            raise ValueError("handoff page geometry %r does not fit pool %r"
+                             % (page, shape))
+        with self._lock:
+            if self._dead:
+                raise EngineDeadError("engine %s is dead" % self._engine)
+            if len(self._pending) >= self.max_queue:
+                err = ShedError(
+                    "slots_full", self._retry_after_locked(),
+                    "decode engine %s: all %d slots busy and %d requests "
+                    "queued" % (self._engine, self.slots,
+                                len(self._pending)))
+                self._m_shed.labels(self._engine, err.reason).inc()
+                self._record_request({
+                    "request_id": handoff.request.request_id,
+                    "trace_id": None, "t_wall": time.time(),
+                    "outcome": "shed", "ttft_ms": None, "itl_ms": None,
+                    "n_tokens": 0, "duration_ms": 0.0})
+                raise err
+            handle = _handle if _handle is not None else RequestHandle(
+                handoff.request,
+                trace=_trace.TraceContext.from_wire(handoff.trace))
+            handle._sink = self._record_request
+            tr = _trace.default_tracer()
+            if tr.enabled:
+                tid = handle.trace.trace_id
+                tr.async_end("handoff", tid, cat="generation",
+                             args={"engine": self._engine})
+                tr.async_begin("queue", tid, cat="generation")
+            self._pending.append((handoff, handle))
+            self._m_requests.inc()
+            self._m_queue.set(len(self._pending))
+            self._work.notify_all()
+        return handle
+
+    def _inject_into(self, slot, handoff, handle):
+        """Adopt a handoff's pages under the lock: fresh blocks, the
+        table row rebuilt, every pool array's pages copied in, decode
+        armed.  Returns False (the caller requeues) when the pool is
+        dry."""
+        n_blocks = int(handoff.pages[0].shape[1])
+        self._slot_blocks[slot] = []
+        if not self._ensure_blocks(slot, n_blocks * self.block_size):
+            self._release_blocks(slot)
+            return False
+        idx = torch.tensor(self._slot_blocks[slot], dtype=torch.long,
+                           device=self.device)
+        with torch.inference_mode():
+            for a, page in zip(self.cache.arrays(), handoff.pages):
+                a[:, idx] = page.to(a.device)
+        tr = _trace.default_tracer()
+        if tr.enabled:
+            tr.async_instant("inject", handle.trace.trace_id,
+                             cat="generation",
+                             args={"slot": int(slot), "blocks": n_blocks})
+        self._activate(slot, handoff.request, handle, handoff.tok0,
+                       handoff.lp0, handoff.key)
+        return True
+
+    # -- weight swap -------------------------------------------------------
+    def snapshot_params(self):
+        """CPU copies of the serving weights under the model's
+        ``state_dict`` names: a rollback point for `swap_params`."""
+        with self._lock:
+            return {k: v.detach().to("cpu", copy=True)
+                    for k, v in self.model.state_dict().items()}
+
+    def swap_params(self, params):
+        """Replace the serving weights between two steps.
+
+        ``params`` maps every ``state_dict`` name of the model to a
+        tensor (or array) of its exact shape and dtype; anything else
+        raises `ValueError` before a weight moves, and a dead engine
+        raises `EngineDeadError`.  In-flight requests see at most one
+        token from the old weights, never a step that mixes the two.
+        The first swap gives this engine its own copy of the model, its
+        weights the new tensors, so the module it was built from (the
+        caller's, shared with other engines) never changes; later swaps
+        copy into that copy in place."""
+        with self._lock:
+            if self._dead:
+                raise EngineDeadError("swap_params on dead engine %s"
+                                      % self._engine)
+            base = self.model
+            cur = base.state_dict(keep_vars=True)
+            owned = self._owns_model
+        names = set(map(str, params.keys()))
+        if names != set(cur):
+            raise ValueError(
+                "swap_params name mismatch: missing=%r extra=%r"
+                % (sorted(set(cur) - names), sorted(names - set(cur))))
+        new = {}
+        for k, old in cur.items():
+            t = torch.as_tensor(params[k])
+            if tuple(t.shape) != tuple(old.shape) or t.dtype != old.dtype:
+                raise ValueError(
+                    "swap_params %r: got %s %s, engine serves %s %s"
+                    % (k, tuple(t.shape), t.dtype, tuple(old.shape),
+                       old.dtype))
+            new[k] = t
+        # stage on the device outside the lock (the steps go on), then
+        # install between two steps
+        new = {k: t.detach().to(self.device, copy=True)
+               for k, t in new.items()}
+        model = None
+        if not owned:
+            # the copy's tensors ARE the staged ones; everything else of
+            # the module (its structure, its config) is deep-copied
+            memo = {id(old): (torch.nn.Parameter(
+                new[k], requires_grad=old.requires_grad)
+                if isinstance(old, torch.nn.Parameter) else new[k])
+                for k, old in cur.items()}
+            model = copy.deepcopy(base, memo)
+        with self._lock:
+            if self._dead:
+                raise EngineDeadError("swap_params on dead engine %s"
+                                      % self._engine)
+            if model is not None and self.model is base:
+                self.model = model
+                self._owns_model = True
+            else:
+                # owned, or another swap installed its own copy while
+                # this one staged: the last swap to install wins
+                with torch.no_grad():
+                    for k, t in self.model.state_dict().items():
+                        t.copy_(new[k])
+
     # -- introspection -----------------------------------------------------
+    def _decode_cache_size(self):
+        """Distinct launch signatures of the decode step (1 once it has
+        run): the reference's compile-once pin, as the port counts it."""
+        return len(self._sigs["decode_step"])
+
     def occupancy(self):
         with self._lock:
             return {
@@ -1215,8 +1549,12 @@ class GenerationEngine:
             "max_len": self.max_len,
             "prefill_buckets": list(self.prefill_buckets),
             "cache": self.cache.describe(),
+            "decode_executables": self._decode_cache_size(),
             "preempted": int(self._m_preempt.value),
         })
+        occ["executables"] = {
+            k: ({b: len(v) for b, v in t.items()} if isinstance(t, dict)
+                else len(t)) for k, t in self._sigs.items()}
         if self._prefix is not None:
             occ["prefix_cache"] = self._prefix.stats()
         if self.draft_model is not None:

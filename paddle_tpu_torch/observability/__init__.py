@@ -1,9 +1,9 @@
-"""Telemetry the generation engine reports through: the jax-free
-`metrics` registry, named `locks` and the request `trace` recorder,
-copied from `paddle_tpu.observability` (``export`` backs the registry's
-snapshot and Prometheus text)."""
+"""Telemetry the generation engine and the serving tier report through:
+the jax-free `metrics` registry, named `locks`, the request `trace`
+recorder and the `slo` engine, copied from `paddle_tpu.observability`
+(``export`` backs the registry's snapshot and Prometheus text)."""
 
-from . import locks, metrics, trace  # noqa: F401
+from . import locks, metrics, slo, trace  # noqa: F401
 from .metrics import (  # noqa: F401
     Counter,
     Gauge,

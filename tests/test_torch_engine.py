@@ -226,7 +226,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import paddle_tpu_torch as p\n"
         "from paddle_tpu_torch import device, generation, models, ops\n"
         "from paddle_tpu_torch import observability\n"
+        "from paddle_tpu_torch import incubate, serving, tp_serving\n"
+        "from paddle_tpu_torch.incubate import fault\n"
+        "from paddle_tpu_torch.observability import slo\n"
         "from paddle_tpu_torch.ops import _build\n"
+        "fault.FaultPlan().arm_lock_delays()\n"
+        "slo.RegressionSentinel({})\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
