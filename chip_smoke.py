@@ -16,7 +16,10 @@ on the CPU with the same weights, with the default FFN and with
 PADDLE_TPU_FUSED_FFN=1; trains it as `bench.py`'s flagship step does
 (B=60, S=512, bf16, ShardedTrainStep + AdamW), fused and pair flash
 backward and the fused-epilogue FFN, with a profile of one step of each
-FFN; then serves a full-width TransformerLM through the paged generation
+FFN; holds the train step's knobs at BERT-base's widths over 2 layers
+(remat, accumulate_steps, donation, the FLOP count against the CPU's)
+and trains BERT-base under LAMB with remat over two micro-batches,
+reading cost_analysis's FLOPs; then serves a full-width TransformerLM through the paged generation
 engine and checks the streams against the port's sequential oracle and
 the dense engine; holds the engine's chunk path (more than one query
 row over the paged cache: 128-token chunks, and a prefix hit whose
@@ -49,7 +52,10 @@ against its plain version; checks one f32 Momentum step of full-width
 ResNet-50 (B=4, 64x64) on the card against the CPU and against kernel
 11's plain version; and trains ResNet-50 as `bench.py:_bench_resnet`
 does (B=128, 224x224, bf16, ShardedTrainStep + Momentum(0.1, 0.9), 33
-kernel-11 launches a step), with a profile of one step.
+kernel-11 launches a step), with a profile of one step; last, trains
+ResNet-50 in f32 through the eager ``minimize`` path (LarsMomentum,
+L2Decay, a global-norm clip, a piecewise learning rate) and holds an
+eager Momentum step against the train step's.
 
     python3 chip_smoke.py
 
@@ -1253,11 +1259,14 @@ def train(ptt):
     model = models.BertForPretraining(cfg, device="cuda")
     model.load_state_dict(models.from_jax_state_dict(
         models.init_bert_params(cfg, 17)))
-    step = ptt.distributed.ShardedTrainStep(
+    # runs that chain their states donate them (each from its own
+    # init(), equal to state0); the single steps from state0 reuse it
+    step, keep = (ptt.distributed.ShardedTrainStep(
         model, ptt.optimizer.AdamWOptimizer(learning_rate=1e-4,
                                             weight_decay=0.01),
-        bert_loss_fn, mesh=None, zero_stage=0, amp="bf16")
-    state0 = step.init()
+        bert_loss_fn, mesh=None, zero_stage=0, amp="bf16", donate=donate)
+        for donate in (True, False))
+    state0 = keep.init()
     rng = np.random.RandomState(0)
     batches = [step.place_batch(make_bert_batch(rng, cfg, b, s, p))
                for _ in range(4)]
@@ -1265,7 +1274,7 @@ def train(ptt):
     setup_s = time.perf_counter() - t0
     L = cfg.num_hidden_layers
 
-    state, warm_losses, _ = _run_steps(step, state0, batches, [0, 1])
+    state, warm_losses, _ = _run_steps(step, step.init(), batches, [0, 1])
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1294,10 +1303,10 @@ def train(ptt):
 
     with _env("PADDLE_TPU_FLASH_FUSED_BWD", "0"):
         ops.reset_launch_counts()
-        _, pair_losses, pair_ms = _run_steps(step, state0, batches,
+        _, pair_losses, pair_ms = _run_steps(step, step.init(), batches,
                                              list(range(PAIR_STEPS)))
         pair_launches = ops.launch_counts()
-        pair_first, _ = step(state0, batches[0])
+        pair_first, _ = keep(state0, batches[0])
     _expect_launches("pair train run", pair_launches, {
         "flash_fwd": L * PAIR_STEPS, "flash_bwd_fused": 0,
         "flash_bwd_dq": L * PAIR_STEPS, "flash_bwd_dkv": L * PAIR_STEPS,
@@ -1309,7 +1318,7 @@ def train(ptt):
                              % (pair_losses, fused_losses[:PAIR_STEPS]))
     # one step's gradients, fused against pair: the first step from zero
     # moments leaves Moment1 = (1 - beta1) * grad, the f32 master grads
-    fused_first, _ = step(state0, batches[0])
+    fused_first, _ = keep(state0, batches[0])
     grad_errs = _grad_rel(fused_first, pair_first, _grad_names(L),
                           PAIR_GRAD_REL, "fused vs pair")
     del pair_first
@@ -1320,10 +1329,10 @@ def train(ptt):
     with _env("PADDLE_TPU_FUSED_FFN", "1"):
         ops.reset_launch_counts()
         ffn_state, ffn_losses, ffn_ms = _run_steps(
-            step, state0, batches, list(range(FFN_STEPS)))
+            step, step.init(), batches, list(range(FFN_STEPS)))
         ffn_launches = ops.launch_counts()
         ffn_prof = device_profile(lambda: step(ffn_state, batches[0]))
-        ffn_first, _ = step(state0, batches[0])
+        ffn_first, _ = keep(state0, batches[0])
     del ffn_state
     _expect_launches("fused-FFN train run", ffn_launches, {
         "flash_fwd": L * FFN_STEPS, "flash_bwd_fused": L * FFN_STEPS,
@@ -1348,7 +1357,8 @@ def train(ptt):
     f32_first, _ = ptt.distributed.ShardedTrainStep(
         model, ptt.optimizer.AdamWOptimizer(learning_rate=1e-4,
                                             weight_decay=0.01),
-        bert_loss_fn, mesh=None, zero_stage=0, amp=None)(state0, batches[0])
+        bert_loss_fn, mesh=None, zero_stage=0, amp=None,
+        donate=False)(state0, batches[0])
     default_vs_f32 = _grad_rel(fused_first, f32_first, names, 1.0,
                                "default bf16 vs f32")
     ffn_vs_f32 = _grad_rel(ffn_first, f32_first, names, 1.0,
@@ -1406,6 +1416,330 @@ def train(ptt):
           "vs_f32_ratio_limit": FFN_VS_F32, "launches": ffn_launches})
     emit({"phase": "train_profile_fused_ffn", "steps": 1, **ffn_prof})
     return launches, pair_launches, ffn_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the rest of the train step (LAMB, remat, accumulation,
+# donation, cost_analysis)
+# ---------------------------------------------------------------------------
+
+LAMB_ACCUM = 2
+# train_knobs_check: BERT-base's widths at 2 layers, f32, B=8, S=512,
+# P=80.  Runs that take the same arithmetic are held bitwise (losses
+# with and without remat, donated and copied states); the new
+# parameters and LAMB moments with and without remat, and the k=2
+# against k=1 step, within 1e-5 of each tensor's largest entry (the
+# gradient's summation order moves f32 results by ~1e-7 of their
+# scale; a wrong micro-batch mean or a lost recompute term moves them
+# by 1e-2 and more); donation's memory within 2% of the slots' bytes.
+# The k=2 step's updates (SGD at lr 1: the gradients) within 1e-4 of
+# each tensor's largest entry: the two halves' f32 sums against the
+# whole batch's put a LayerNorm weight's gradient 6.8e-6 of its scale
+# apart already at the CPU rehearsal's tiny size.
+KNOBS_LAYERS, KNOBS_B = 2, 8
+KNOBS_REL, KNOBS_UPDATE_REL, DONATE_MEM_REL = 1e-5, 1e-4, 2e-2
+
+
+class _deterministic:
+    """Deterministic algorithms, cuDNN's included, for a block, so that
+    two runs of one computation are bitwise equal.  By default some
+    backward sums take atomics: on the H100 two identical BERT steps put
+    the token-type embedding's moments 9.8e-7 of their scale apart (its
+    one id repeats 4096 times; `embedding_dense_backward`), and ResNet-50's
+    eager and train-step gradients of the stem's BN bias 2.3e-5."""
+
+    def __enter__(self):
+        self.old = (torch.are_deterministic_algorithms_enabled(),
+                    torch.backends.cudnn.deterministic)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.old[0])
+        torch.backends.cudnn.deterministic = self.old[1]
+        return False
+
+
+def _lamb(ptt):
+    return ptt.optimizer.LambOptimizer(learning_rate=1e-4,
+                                       lamb_weight_decay=0.01)
+
+
+def _bwd_launches(ops, heads, s, n):
+    """The backward kernels' launches for ``n`` flash backwards of
+    ``heads`` = B*H bf16 heads at S = ``s``, as the dispatch picks."""
+    fused = ops.attention._use_fused_bwd(
+        heads, s, s, D,
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        torch.bfloat16)
+    return {"flash_bwd_fused": n if fused else 0,
+            "flash_bwd_dq": 0 if fused else n,
+            "flash_bwd_dkv": 0 if fused else n}, fused
+
+
+def train_lamb(ptt):
+    """BERT-base pretraining as the large-batch recipe runs it: full
+    width, dropout 0.1, LAMB(1e-4, wd 0.01), ShardedTrainStep(amp bf16,
+    accumulate_steps=2, remat=True, donate=True), B=60 (two micro-batches
+    of 30), S=512, P=80, four batches from RandomState(0).  Two warm-up
+    steps, TRAIN_STEPS timed, REPEAT_STEPS on one batch (the loss must
+    fall); kernel 1 launches 48 a step (12 layers x 2 micro-batches x
+    forward and recompute), the backward 24.  cost_analysis's FLOPs
+    with remat and, from one more step, without; the MFU from them at
+    989 TFLOP/s beside `flops_per_step`'s hand model."""
+    models, ops = ptt.models, ptt.ops
+    cfg = models.BertConfig(**BERT_BASE, hidden_dropout_prob=0.1,
+                            attention_probs_dropout_prob=0.1)
+    b, s, p = TRAIN_B, TRAIN_S, TRAIN_P
+    t0 = time.perf_counter()
+    model = models.BertForPretraining(cfg, device="cuda")
+    model.load_state_dict(models.from_jax_state_dict(
+        models.init_bert_params(cfg, 17)))
+    step = ptt.distributed.ShardedTrainStep(
+        model, _lamb(ptt), bert_loss_fn, amp="bf16",
+        accumulate_steps=LAMB_ACCUM, remat=True, donate=True)
+    state = step.init()
+    rng = np.random.RandomState(0)
+    batches = [step.place_batch(make_bert_batch(rng, cfg, b, s, p))
+               for _ in range(4)]
+    hand_flops = flops_per_step(cfg, state["params"], b, s, p)
+    setup_s = time.perf_counter() - t0
+    L = cfg.num_hidden_layers
+
+    state, warm_losses, warm_ms = _run_steps(step, state, batches, [0, 1])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [(2 + n) % 4 for n in range(TRAIN_STEPS)]
+    state, losses, step_ms = _run_steps(step, state, batches, ids)
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    n_bwd = L * LAMB_ACCUM * TRAIN_STEPS
+    bwd, fused = _bwd_launches(ops, b // LAMB_ACCUM * cfg.num_attention_heads,
+                               s, n_bwd)
+    _expect_launches("LAMB remat accumulate run", launches, dict(
+        bwd, flash_fwd=2 * n_bwd, matmul_bias_act=0, matmul_bwd_dx=0,
+        matmul_bwd_dw=0, conv_bn_stats=0))
+    all_losses = warm_losses + losses
+    if not np.isfinite(all_losses).all():
+        raise AssertionError("non-finite LAMB training loss: %s"
+                             % all_losses)
+    state, repeat_losses, _ = _run_steps(step, state, batches,
+                                         [0] * REPEAT_STEPS)
+    if not (np.isfinite(repeat_losses).all()
+            and repeat_losses[-1] < repeat_losses[0]):
+        raise AssertionError("the LAMB loss did not fall on one repeated "
+                             "batch: %s" % repeat_losses)
+    flops = step.cost_analysis(state, batches[0])["flops"]
+    # a donating step updates ``state`` in place: profile one more
+    prof = device_profile(lambda: step(state, batches[0]))
+    # the same step without remat, for its count (it takes the state)
+    plain = ptt.distributed.ShardedTrainStep(
+        model, _lamb(ptt), bert_loss_fn, amp="bf16",
+        accumulate_steps=LAMB_ACCUM, remat=False, donate=True)
+    plain(state, batches[0])
+    flops_plain = plain.cost_analysis(state, batches[0])["flops"]
+    del state
+    mean_s = float(np.mean(step_ms)) / 1e3
+    peak = PEAK_FLOPS[torch.bfloat16]
+    from paddle_tpu_torch.observability import cost
+
+    mfu = cost.record_mfu("train_lamb", flops_plain, mean_s)
+    emit({"phase": "train_lamb", "B": b, "S": s, "P": p, "amp": "bf16",
+          "optimizer": "Lamb(1e-4, wd 0.01)", "accumulate_steps": LAMB_ACCUM,
+          "remat": True, "donate": True, "setup_s": setup_s,
+          "warmup_step_ms": warm_ms, "steps": TRAIN_STEPS, "step_ms": step_ms,
+          "step_ms_p50": float(np.percentile(step_ms, 50)),
+          "step_ms_p99": float(np.percentile(step_ms, 99)),
+          "tokens_per_s": b * s / mean_s,
+          "host_wall_tokens_per_s": b * s * TRAIN_STEPS / wall_s,
+          "peak_memory_bytes": peak_mem,
+          "cost_analysis_flops": flops,
+          "cost_analysis_flops_remat_off": flops_plain,
+          "recompute_share": flops / flops_plain - 1,
+          "mfu_model_flops": flops_plain / mean_s / peak,
+          "mfu_counted_with_recompute": flops / mean_s / peak,
+          "record_mfu": mfu,
+          "hand_flops_per_step": hand_flops,
+          "hand_mfu": hand_flops / mean_s / peak,
+          "backward": "fused" if fused else "pair",
+          "losses": all_losses, "repeat_batch_losses": repeat_losses,
+          "launches": launches,
+          "launches_per_step": {k: v / TRAIN_STEPS for k, v in
+                                launches.items() if v}})
+    emit({"phase": "train_lamb_profile", "steps": 1, **prof})
+    return launches
+
+
+def _flat_state(state, kinds):
+    out = {}
+    for kind in kinds:
+        for name, v in state[kind].items():
+            if isinstance(v, dict):
+                out.update({name + "/" + slot: t for slot, t in v.items()})
+            else:
+                out[name] = v
+    return out
+
+
+def _state_rel(a, b, kinds=("params", "opt")):
+    """{name[/slot]: max |a - b| / max |b|} over two train states."""
+    return _rel_errs(_flat_state(a, kinds), _flat_state(b, kinds))
+
+
+def _state_bytes(state):
+    n = sum(t.numel() * t.element_size() for t in state["params"].values())
+    n += sum(t.numel() * t.element_size() for st in state["opt"].values()
+             for t in st.values())
+    return n + sum(t.numel() * t.element_size()
+                   for t in state["buffers"].values())
+
+
+def train_knobs_check(ptt):
+    """BERT-base's widths at 2 layers in f32 (hidden 768, 12 heads, FFN
+    3072, vocab 30528), B=8, S=512, P=80, LAMB(1e-4), all from one
+    state: remat against none at dropout 0.1 (bitwise losses, the same
+    masks); accumulate_steps=2 against 1 at dropout 0 (the micro-batches
+    draw their own masks by design), with equal mlm_weights sums a
+    micro-batch, through SGD(1.0) so that each parameter's update is its
+    gradient; donate against copy (bitwise states, the input's tensors
+    returned, memory_allocated lower by the state's bytes); and
+    cost_analysis on the card against the same step's count on the CPU
+    (the plain versions).  The runs held bitwise run under
+    `_deterministic`."""
+    models, ops = ptt.models, ptt.ops
+    step_cls = ptt.distributed.ShardedTrainStep
+    dims = dict(BERT_BASE, num_hidden_layers=KNOBS_LAYERS)
+    cfg = models.BertConfig(**dims, hidden_dropout_prob=0.1,
+                            attention_probs_dropout_prob=0.1)
+    weights = models.from_jax_state_dict(models.init_bert_params(cfg, 19))
+    b, s, p = KNOBS_B, TRAIN_S, TRAIN_P
+    batch = make_bert_batch(np.random.RandomState(2), cfg, b, s, p)
+    model = models.BertForPretraining(cfg, device="cuda")
+    model.load_state_dict(weights)
+    L = cfg.num_hidden_layers
+    out = {"layers": L, "B": b, "S": s, "P": p, "rel_limit": KNOBS_REL}
+
+    # remat, dropout 0.1
+    runs = {}
+    for remat in (False, True):
+        step = step_cls(model, _lamb(ptt), bert_loss_fn, remat=remat,
+                        donate=False)
+        state0 = step.init()
+        ops.reset_launch_counts()
+        with _deterministic():
+            new, loss = step(state0, batch)
+            torch.cuda.synchronize()
+        runs[remat] = (new, loss, ops.launch_counts(), step)
+    if not torch.equal(runs[False][1], runs[True][1]):
+        raise AssertionError("remat changed the loss: %r vs %r" % (
+            runs[True][1].item(), runs[False][1].item()))
+    remat_rel = _state_rel(runs[True][0], runs[False][0])
+    bwd, _ = _bwd_launches(ops, b * cfg.num_attention_heads, s, L)
+    bwd = {k: v for k, v in bwd.items() if v}
+    _expect_launches("remat off", runs[False][2], dict(bwd, flash_fwd=L))
+    _expect_launches("remat on", runs[True][2], dict(bwd, flash_fwd=2 * L))
+    out["remat"] = dict(_check_rel("remat vs none", remat_rel, KNOBS_REL),
+                        loss=runs[True][1].item(), loss_bitwise=True,
+                        launches={"off": runs[False][2],
+                                  "on": runs[True][2]})
+    flops = {r: runs[r][3].cost_analysis(runs[r][0], batch)["flops"]
+             for r in (False, True)}
+    if not 3 * flops[True] == 4 * flops[False]:
+        raise AssertionError("cost_analysis: remat %r is not 4/3 of %r"
+                             % (flops[True], flops[False]))
+    del runs
+
+    # accumulation, dropout 0, SGD at lr 1: the updates are the
+    # gradients (LAMB's per-element normalization would turn a bias's
+    # rounding-level gradient into a step of +-lr)
+    cfg0 = models.BertConfig(**dims, hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    model0 = models.BertForPretraining(cfg0, device="cuda")
+    model0.load_state_dict(weights)
+    acc = {}
+    for k in (1, 2):
+        step = step_cls(model0, ptt.optimizer.SGDOptimizer(1.0),
+                        bert_loss_fn, accumulate_steps=k, donate=False)
+        state0 = step.init()
+        new, loss = step(state0, batch)
+        acc[k] = (loss.item(), {n: new["params"][n] - v
+                                for n, v in state0["params"].items()},
+                  new, step.cost_analysis(new, batch)["flops"])
+    loss_err = abs(acc[2][0] - acc[1][0])
+    if not loss_err <= KNOBS_REL * abs(acc[1][0]):
+        raise AssertionError("accumulate_steps=2 loss %r vs %r" % (
+            acc[2][0], acc[1][0]))
+    upd = _check_rel("k=2 vs k=1 update", _rel_errs(acc[2][1], acc[1][1]),
+                     KNOBS_UPDATE_REL)
+    par = _check_rel("k=2 vs k=1 parameters",
+                     _state_rel(acc[2][2], acc[1][2], ("params",)),
+                     KNOBS_REL)
+    if acc[2][3] != acc[1][3]:
+        raise AssertionError("cost_analysis: k=2 %r, k=1 %r"
+                             % (acc[2][3], acc[1][3]))
+    out["accumulate"] = {"loss_k1": acc[1][0], "loss_k2": acc[2][0],
+                         "loss_abs_err": loss_err, "update": upd,
+                         "params": par, "flops": acc[1][3]}
+    del acc, model0
+
+    # donation: the same step donating and copying, from equal states
+    steps = {d: step_cls(model, _lamb(ptt), bert_loss_fn, donate=d)
+             for d in (True, False)}
+    s_copy = steps[False].init()
+    s_don = steps[True].init()
+    ptrs = {n: t.data_ptr() for n, t in s_don["params"].items()}
+    state_bytes = _state_bytes(s_don)
+    with _deterministic():
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        new_d, loss_d = steps[True](s_don, batch)
+        torch.cuda.synchronize()
+        m_don = torch.cuda.memory_allocated() - m0
+        m1 = torch.cuda.memory_allocated()
+        new_c, loss_c = steps[False](s_copy, batch)
+        torch.cuda.synchronize()
+        m_copy = torch.cuda.memory_allocated() - m1
+    if not torch.equal(loss_d, loss_c):
+        raise AssertionError("donation changed the loss")
+    diff = [k for k, v in _state_rel(new_d, new_c).items() if v != 0]
+    if diff:
+        raise AssertionError("donated state differs from the copied one "
+                             "at %s" % diff[:4])
+    moved = [n for n, t in new_d["params"].items()
+             if t.data_ptr() != ptrs[n]]
+    if moved:
+        raise AssertionError("donated params not written in place: %s"
+                             % moved[:4])
+    saved = m_copy - m_don
+    if not abs(saved - state_bytes) <= DONATE_MEM_REL * state_bytes:
+        raise AssertionError("donation saved %d B of memory_allocated, the "
+                             "state holds %d B" % (saved, state_bytes))
+    out["donate"] = {"bitwise": True, "same_data_ptr": True,
+                     "allocated_after_donating": m_don,
+                     "allocated_after_copying": m_copy,
+                     "saved_bytes": saved, "state_bytes": state_bytes,
+                     "saved_over_state": saved / state_bytes}
+    card_flops = steps[True].cost_analysis(new_d, batch)["flops"]
+    del new_d, new_c, s_copy, s_don, steps, model
+
+    # the FLOP count: card against the CPU's plain versions
+    cpu_model = models.BertForPretraining(cfg, device="cpu")
+    cpu_model.load_state_dict(weights)
+    cpu_step = step_cls(cpu_model, _lamb(ptt), bert_loss_fn)
+    t0 = time.perf_counter()
+    cpu_state, _ = cpu_step(cpu_step.init(), batch)
+    cpu_flops = cpu_step.cost_analysis(cpu_state, batch)["flops"]
+    cpu_s = time.perf_counter() - t0
+    if card_flops != cpu_flops or card_flops != flops[False]:
+        raise AssertionError("cost_analysis: card %r, CPU %r" % (
+            card_flops, cpu_flops))
+    out["cost_analysis"] = {"card_flops": card_flops,
+                            "cpu_flops": cpu_flops,
+                            "remat_flops": flops[True],
+                            "cpu_step_s": cpu_s}
+    emit(dict(phase="train_knobs_check", **out))
 
 
 # ---------------------------------------------------------------------------
@@ -3311,6 +3645,8 @@ def resnet_train(ptt):
     model = models.resnet50(num_classes=RESNET_CLASSES, device="cuda")
     model.load_state_dict(models.from_jax_state_dict(
         models.init_resnet_params(50, RESNET_CLASSES, seed=31)))
+    # each run starts from its own init() (state0's values) and donates
+    # its states; state0 itself is never stepped
     step = _resnet_train_step(ptt, model, amp="bf16")
     state0 = step.init()
     rng = np.random.RandomState(0)
@@ -3321,7 +3657,7 @@ def resnet_train(ptt):
             np.int32)}) for _ in range(2)]
     setup_s = time.perf_counter() - t0
 
-    state, warm_losses, _ = _run_steps(step, state0, batches,
+    state, warm_losses, _ = _run_steps(step, step.init(), batches,
                                        list(range(RESNET_TRAIN_WARMUP)))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3338,7 +3674,7 @@ def resnet_train(ptt):
     if not np.isfinite(all_losses).all():
         raise AssertionError("non-finite ResNet training loss: %s"
                              % all_losses)
-    _, repeat_losses, _ = _run_steps(step, state0, batches,
+    _, repeat_losses, _ = _run_steps(step, step.init(), batches,
                                      [0] * RESNET_REPEAT_STEPS)
     if not (np.isfinite(repeat_losses).all()
             and repeat_losses[-1] < repeat_losses[0]):
@@ -3369,6 +3705,143 @@ def resnet_train(ptt):
               launches["conv_bn_stats"] / RESNET_TRAIN_STEPS,
           "launches": launches})
     return launches, step, state, batches
+
+
+# train_eager: ResNet-50 (1000 classes) trained in f32 by the eager
+# minimize path, B = 64 at 224x224, one repeated batch.  The eager
+# Momentum step against ShardedTrainStep's: the same kernels on the same
+# inputs, so the new parameters agree to f32 rounding; the limit is 1e-5
+# of each tensor's largest entry.
+EAGER_B, EAGER_STEPS, EAGER_PROFILED = 64, 5, 1
+EAGER_VS_STEP_REL = 1e-5
+
+
+def _eager_model(ptt, params):
+    model = ptt.models.resnet50(num_classes=RESNET_CLASSES, device="cuda")
+    model.load_state_dict(ptt.models.from_jax_state_dict(params))
+    return model.train()
+
+
+def _minimize_profile(opt, loss, params):
+    """One ``minimize`` under torch.profiler: its wall ms, its device
+    kernels, and every device-to-host copy or host read of a device
+    value inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.minimize(loss, parameter_list=params)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    reads = sorted({e.name for e in events if "DtoH" in e.name
+                    or "Device -> Host" in e.name
+                    or e.name in ("aten::_local_scalar_dense", "aten::item")})
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    return {"profiled_wall_ms": wall_ms, "device_events": len(dev),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in dev) / 1e3,
+            "device_to_host": reads}
+
+
+def train_eager(ptt):
+    """ResNet-50 trained by ``loss.backward(); opt.minimize(loss,
+    parameter_list=model.parameters())`` under LarsMomentum(PiecewiseDecay
+    ([3], [0.1, 0.01]), 0.9, coeff 0.001, wd 5e-4) with L2Decay(1e-4) and
+    GradientClipByGlobalNorm(1.0), f32, EAGER_STEPS steps on one batch:
+    33 kernel-11 launches a step, a falling finite loss, moving running
+    statistics, no device-to-host copy inside a profiled minimize.  Then
+    one eager Momentum(0.1, 0.9) step against ShardedTrainStep's from the
+    same weights and batch."""
+    models, ops, optim = ptt.models, ptt.ops, ptt.optimizer
+    params = models.init_resnet_params(50, RESNET_CLASSES, seed=31)
+    rng = np.random.RandomState(0)
+    batch = {
+        "image": torch.from_numpy(rng.randn(EAGER_B, 3, RESNET_HW, RESNET_HW)
+                                  .astype(np.float32)).cuda(),
+        "label": torch.from_numpy(rng.randint(
+            0, RESNET_CLASSES, (EAGER_B, 1)).astype(np.int32)).cuda()}
+    model = _eager_model(ptt, params)
+    opt = optim.LarsMomentumOptimizer(
+        learning_rate=ptt.learning_rate_scheduler.PiecewiseDecay(
+            [3], [0.1, 0.01]),
+        momentum=0.9, lars_coeff=0.001, lars_weight_decay=5e-4,
+        regularization=ptt.regularizer.L2Decay(1e-4),
+        grad_clip=ptt.clip.GradientClipByGlobalNorm(1.0))
+    buffers0 = {k: v.clone() for k, v in model.named_buffers()}
+    losses, evs, per_step, lrs, prof = [], [], [], [], None
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    torch.cuda.synchronize()
+    for i in range(EAGER_STEPS):
+        ops.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = resnet_loss_fn(model, batch)
+        loss.backward()
+        if i == EAGER_PROFILED:
+            prof = _minimize_profile(opt, loss, list(model.parameters()))
+        else:
+            opt.minimize(loss, parameter_list=model.parameters())
+        model.zero_grad(set_to_none=True)
+        ev[1].record()
+        evs.append(ev)
+        counts = ops.launch_counts()
+        per_step.append(counts["conv_bn_stats"])
+        total = {k: total[k] + v for k, v in counts.items()}
+        losses.append(loss.detach())
+        lrs.append(opt.current_step_lr())
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in evs]
+    losses = [x.item() for x in losses]
+    if per_step != [CONV_STATS_PER_STEP] * EAGER_STEPS:
+        raise AssertionError("eager ResNet-50 kernel-11 launches a step: %s"
+                             % per_step)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("the eager LARS loss did not fall: %s" % losses)
+    moved = max((b - buffers0[k]).abs().max().item()
+                for k, b in model.named_buffers())
+    if not moved > 0:
+        raise AssertionError("the eager running statistics never moved")
+    if prof["device_to_host"]:
+        raise AssertionError("minimize read the device: %s"
+                             % prof["device_to_host"])
+    del model, opt
+
+    # one eager Momentum step against ShardedTrainStep's
+    model = _eager_model(ptt, params)
+    step = ptt.distributed.ShardedTrainStep(
+        model, optim.MomentumOptimizer(0.1, 0.9), resnet_loss_fn,
+        donate=False)
+    with _deterministic():
+        new, loss_s = step(step.init(), batch)
+        loss_e = resnet_loss_fn(model.train(), batch)
+        loss_e.backward()
+        optim.MomentumOptimizer(0.1, 0.9).minimize(
+            loss_e, parameter_list=model.parameters())
+    vs_step = _check_rel("eager Momentum vs ShardedTrainStep", _rel_errs(
+        {n: p.detach() for n, p in model.named_parameters()},
+        new["params"]), EAGER_VS_STEP_REL)
+    timed = [ms for i, ms in enumerate(step_ms) if i != EAGER_PROFILED]
+    emit({"phase": "train_eager", "B": EAGER_B, "HW": RESNET_HW,
+          "classes": RESNET_CLASSES, "dtype": "float32",
+          "optimizer": "LarsMomentum(PiecewiseDecay([3], [0.1, 0.01]), 0.9, "
+                       "coeff 0.001, wd 5e-4) + L2Decay(1e-4) + "
+                       "GradientClipByGlobalNorm(1.0)",
+          "steps": EAGER_STEPS, "step_ms": step_ms,
+          "step_ms_p50_unprofiled": float(np.percentile(timed, 50)),
+          "images_per_s": EAGER_B / (float(np.mean(timed)) / 1e3),
+          "losses": losses, "learning_rates": lrs,
+          "running_stats_max_move": moved,
+          "conv_bn_stats_launches_per_step": per_step,
+          "minimize_profile": prof,
+          "momentum_vs_step": dict(vs_step, loss_step=loss_s.item(),
+                                   loss_eager=loss_e.item(),
+                                   rel_limit=EAGER_VS_STEP_REL),
+          "launches": total})
+    return total
 
 
 def run_resnet_train(ptt, params):
@@ -3463,10 +3936,13 @@ def main():
     mm_main = check_matmul_main_shape(ops)
     train_model_check(ptt)
     train_launches, pair_launches, ffn_launches = train(ptt)
+    train_knobs_check(ptt)
+    lamb_launches = train_lamb(ptt)
     launches = run_engine(ptt)
     conv_rows, resnet_launches, resnet_params = run_resnet(ptt)
     stats_rows, stats_main, train_launches11 = run_resnet_train(
         ptt, resnet_params)
+    eager_launches = train_eager(ptt)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -3524,22 +4000,27 @@ def main():
                                  "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}},
              draft_prefill=dict(draft_flash_row, speculative_run_launches=(
-                 launches["engine_speculative"]["flash_fwd"]))),
+                 launches["engine_speculative"]["flash_fwd"])),
+             train_lamb_run_launches=lamb_launches["flash_fwd"]),
         dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
                          pair_launches["flash_bwd_dq"], err["pair_dq"],
                          main["dq_ms"], main["plain_bwd_ms"],
                          main["library_bwd_ms"]),
-             d128=d128_bwd("dq_ms", ("pair_dq", "pair_delta"))),
+             d128=d128_bwd("dq_ms", ("pair_dq", "pair_delta")),
+             train_lamb_run_launches=lamb_launches["flash_bwd_dq"]),
         dict(flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
                          pair_launches["flash_bwd_dkv"],
                          max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
                          main["plain_bwd_ms"], main["library_bwd_ms"]),
-             d128=d128_bwd("dkv_ms", ("pair_dk", "pair_dv"))),
-        flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
-                    train_launches["flash_bwd_fused"],
-                    max(err["fused_dq"], err["fused_dk"], err["fused_dv"]),
-                    main["fused_ms"], main["plain_bwd_ms"],
-                    main["library_bwd_ms"]),
+             d128=d128_bwd("dkv_ms", ("pair_dk", "pair_dv")),
+             train_lamb_run_launches=lamb_launches["flash_bwd_dkv"]),
+        dict(flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
+                         train_launches["flash_bwd_fused"],
+                         max(err["fused_dq"], err["fused_dk"],
+                             err["fused_dv"]),
+                         main["fused_ms"], main["plain_bwd_ms"],
+                         main["library_bwd_ms"]),
+             train_lamb_run_launches=lamb_launches["flash_bwd_fused"]),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="paddle_tpu/ops/pallas/decode_attention.py:73",
@@ -3648,6 +4129,7 @@ def main():
         cublas_gemm_ms=step_sum("cublas_gemm_ms"),
         stats_max_rel_err=max(max(r["mean_rel_err"], r["var_rel_err"])
                               for r in stats_rows),
+        train_eager_run_launches=eager_launches["conv_bn_stats"],
         per_shape=[{k: r[k] for k in keep11} for r in stats_main]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -10,12 +10,17 @@ Covered so far: `models.TransformerLM` served through
 decode; behind `serving.GenerationFleet` and its HTTP front, or split
 into prefill and decode engines by `tp_serving.DisaggPair`), and
 `models.BertForPretraining` trained by `distributed.ShardedTrainStep`
-under `optimizer.AdamWOptimizer` (flash forward and backward kernels;
+(``remat``, ``accumulate_steps``, ``donate``, ``cost_analysis``) under
+the reference's SGD, Momentum, Adam, AdamW or LAMB (flash forward and
+backward kernels;
 with ``PADDLE_TPU_FUSED_FFN=1`` the FFN's fc1 + gelu through the
 fused-epilogue GEMM kernels, `nn.functional.fused_linear`), and
 `models.resnet50` (and the rest of the ResNet family) served in eval
 mode, each bottleneck block's 1x1 conv + BN + relu through one kernel
-(`ops.conv1x1_bn_relu`).  See README "PyTorch/CUDA port".
+(`ops.conv1x1_bn_relu`); the eager ``loss.backward();
+opt.minimize(loss, parameter_list=...)`` path over the 13 optimizers of
+`optimizer`, with `regularizer`, `clip` and `learning_rate_scheduler`.
+See README "PyTorch/CUDA port".
 
 Device rule: every entry point takes ``device=``; with none given it is
 ``"cuda"``, and a box without a CUDA device raises (`device.resolve_device`)
@@ -27,9 +32,9 @@ CPU-only box and imports neither JAX nor `paddle_tpu`.
 
 import importlib
 
-_SUBMODULES = ("device", "distributed", "generation", "incubate",
-               "models", "nn", "observability", "ops", "optimizer",
-               "serving", "tp_serving")
+_SUBMODULES = ("clip", "device", "distributed", "generation", "incubate",
+               "learning_rate_scheduler", "models", "nn", "observability",
+               "ops", "optimizer", "regularizer", "serving", "tp_serving")
 
 __all__ = list(_SUBMODULES)
 

@@ -42,6 +42,7 @@ import os
 import torch
 
 from . import _build
+from ._flops import counts_flops
 
 __all__ = ["flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_reference", "flash_attention_reference",
@@ -111,6 +112,18 @@ def _dims(q, k, layout):
         return b, h, sq, k.shape[1], d
     b, h, sq, d = q.shape
     return b, h, sq, k.shape[2], d
+
+
+def _attention_flops(per_entry):
+    """A flash wrapper's FLOPs, ``per_entry`` times B H Sq Sk D (torch's
+    SDPA formulas: 4 forward, 8 backward; the pair's dQ and dK/dV 4
+    each)."""
+
+    def formula(q, k, layout, **_):
+        b, h, sq, sk, d = _dims(q, k, layout)
+        return per_entry * b * h * sq * sk * d
+
+    return formula
 
 
 def _to_bhsd(t, layout):
@@ -311,6 +324,7 @@ def _launch(fn_name, lib_name, q, params):
                   _build.stream_ptr(q.device))
 
 
+@counts_flops(_attention_flops(4))
 def flash_fwd(q, k, v, bias=None, segment_ids=None, scale=None,
               causal=False, layout="BSHD", with_lse=False):
     """The forward kernel: ``(o, lse)``, lse ``[B*H, Sq]`` f32 when
@@ -378,6 +392,7 @@ def _pair_launch(q, k, v, o, do, lse, delta, bias, segment_ids, scale,
     return out, delta, (None if db is None else _dbias_out(db, q, k, layout))
 
 
+@counts_flops(_attention_flops(4))
 def flash_bwd_dq(q, k, v, o, do, lse, bias=None, segment_ids=None,
                  scale=None, causal=False, layout="BSHD"):
     """The row-parallel dQ kernel: ``(dq, delta)`` with delta =
@@ -397,6 +412,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, bias=None, segment_ids=None,
     return out["dq"], delta
 
 
+@counts_flops(_attention_flops(4))
 def flash_bwd_dkv(q, k, v, o, do, lse, delta, bias=None, segment_ids=None,
                   scale=None, causal=False, layout="BSHD", bias_grad=False):
     """The column-parallel dK/dV kernel: ``(dk, dv, dbias)``, dbias
@@ -413,6 +429,7 @@ def flash_bwd_dkv(q, k, v, o, do, lse, delta, bias=None, segment_ids=None,
     return out["dk"], out["dv"], db
 
 
+@counts_flops(_attention_flops(8))
 def flash_bwd_fused(q, k, v, o, do, lse, bias=None, segment_ids=None,
                     scale=None, causal=False, layout="BSHD", bias_grad=False):
     """The fused short-row backward kernel: ``(dq, dk, dv, dbias)`` in
@@ -504,6 +521,7 @@ def _use_fused_bwd(bh, sq, sk, d, sms, dtype):
     return fused <= pair
 
 
+@counts_flops(_attention_flops(8))
 def flash_attention_bwd(q, k, v, o, do, lse, bias=None, segment_ids=None,
                         scale=None, causal=False, layout="BSHD",
                         bias_grad=False):

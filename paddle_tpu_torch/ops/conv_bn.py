@@ -48,6 +48,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._flops import counts_flops
 from .matmul import H100_SMS, _sm_count, fwd_tiles
 
 __all__ = ["conv1x1_bn_relu", "conv1x1_bn_relu_reference", "conv1x1_bn_stats",
@@ -149,6 +150,12 @@ def _check_cuda(name, x2d, tensors):
                              % (name, tname, x2d.device))
 
 
+def _conv_flops(x2d, w2d, **_):
+    """The 1x1 conv's ``2 M N K`` (the BN epilogues are elementwise)."""
+    return 2 * x2d.shape[0] * x2d.shape[1] * w2d.shape[0]
+
+
+@counts_flops(_conv_flops)
 def _conv_bn_relu_fwd(x2d, w2d, scale, shift):
     if not x2d.is_cuda:
         return conv1x1_bn_relu_reference(x2d, w2d, scale, shift)
@@ -218,6 +225,7 @@ def conv1x1_bn_relu(x2d, w2d, scale, shift):
 conv1x1_bn_relu.launches = 0
 
 
+@counts_flops(_conv_flops)
 def _conv_bn_stats_fwd(x2d, w2d):
     if not x2d.is_cuda:
         return conv1x1_bn_stats_reference(x2d, w2d)

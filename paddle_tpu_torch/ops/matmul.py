@@ -57,6 +57,7 @@ import os
 import torch
 
 from . import _build
+from ._flops import counts_flops
 
 __all__ = ["ACTIVATIONS", "dw_split_plan", "fwd_schedule",
            "fwd_tile_plan", "fwd_tiles", "matmul_bias_act",
@@ -410,6 +411,7 @@ def fwd_schedule(m, n, sms=H100_SMS):
     return min(fwd_tiles(m, n), sms)
 
 
+@counts_flops(lambda x, w, **_: 2 * x.shape[0] * x.shape[1] * w.shape[0])
 def matmul_bias_act_fwd(x, w, bias=None, activation="none",
                         approximate=False, emit_z=False):
     """The forward kernel: ``(y, z)``, z (x's dtype) only when
@@ -445,6 +447,7 @@ def _launch_fwd(x, w, bias, y, z, activation, approximate, ctas):
         _build.stream_ptr(x.device))
 
 
+@counts_flops(lambda g, w, **_: 2 * g.shape[0] * g.shape[1] * w.shape[1])
 def matmul_bwd_dx(g, res, w, activation="none", approximate=False):
     """The row-parallel dX kernel: dX ``[M, K]`` = (g·act'(res)) w, in
     g's dtype.  The operand contract holds on any device; CPU tensors
@@ -470,6 +473,7 @@ def matmul_bwd_dx(g, res, w, activation="none", approximate=False):
     return dx
 
 
+@counts_flops(lambda x, g, **_: 2 * x.shape[0] * x.shape[1] * g.shape[1])
 def matmul_bwd_dw(x, g, res, activation="none", approximate=False,
                   bias=None):
     """The column-parallel dW kernel: ``(dw, dbias)`` with dW ``[N, K]``
@@ -559,18 +563,28 @@ class _MatmulBiasAct(torch.autograd.Function):
         need_db = need_db and bias is not None
         if not g.is_contiguous():
             g = g.contiguous()
-        if not x.is_cuda:
-            dx, dw, db = matmul_bias_act_bwd_reference(
-                x, w, bias, res, g, activation, approximate,
-                (need_dx, need_dw, need_db))
-            return dx, dw, db, None, None
-        dx = dw = db = None
-        if need_dx:
-            dx = matmul_bwd_dx(g, res, w, activation, approximate)
-        if need_dw or need_db:
-            dw, db = matmul_bwd_dw(x, g, res, activation, approximate,
-                                   bias if need_db else None)
-        return dx, dw if need_dw else None, db, None, None
+        dx, dw, db = _backward(x, w, bias, res, g, activation, approximate,
+                               (need_dx, need_dw, need_db))
+        return dx, dw, db, None, None
+
+
+@counts_flops(lambda x, w, need, **_: 2 * x.shape[0] * x.shape[1]
+              * w.shape[0] * (bool(need[0]) + bool(need[1])))
+def _backward(x, w, bias, res, g, activation, approximate, need):
+    """``(dx, dw, dbias)``, each None unless ``need`` asks for it: the
+    dX and dW(+dbias) kernels on CUDA tensors, the plain backward on CPU
+    tensors."""
+    need_dx, need_dw, need_db = need
+    if not x.is_cuda:
+        return matmul_bias_act_bwd_reference(x, w, bias, res, g, activation,
+                                             approximate, need)
+    dx = dw = db = None
+    if need_dx:
+        dx = matmul_bwd_dx(g, res, w, activation, approximate)
+    if need_dw or need_db:
+        dw, db = matmul_bwd_dw(x, g, res, activation, approximate,
+                               bias if need_db else None)
+    return dx, dw if need_dw else None, db
 
 
 def matmul_bias_act(x, w, bias=None, activation="none", approximate=False,

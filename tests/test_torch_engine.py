@@ -230,8 +230,19 @@ def test_import_leaves_jax_out_of_sys_modules():
         "from paddle_tpu_torch.incubate import fault\n"
         "from paddle_tpu_torch.observability import slo\n"
         "from paddle_tpu_torch.ops import _build\n"
+        "from paddle_tpu_torch import clip, learning_rate_scheduler\n"
+        "from paddle_tpu_torch import optimizer, regularizer\n"
+        "from paddle_tpu_torch.observability import cost\n"
+        "import torch\n"
         "fault.FaultPlan().arm_lock_delays()\n"
         "slo.RegressionSentinel({})\n"
+        "w = torch.nn.Parameter(torch.ones(2))\n"
+        "w.grad = torch.ones(2)\n"
+        "optimizer.LambOptimizer(0.1).minimize(None, parameter_list=[w])\n"
+        "regularizer.L2Decay(0.1)([w], [w.grad])\n"
+        "clip.GradientClipByGlobalNorm(1.0)([(w, w.grad)])\n"
+        "learning_rate_scheduler.NoamDecay(8, 2)()\n"
+        "cost.feed_signature({'x': w})\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"

@@ -88,9 +88,10 @@ def _port_model(depth, params, device="cpu"):
     return m
 
 
-def _port_step(model, amp=None):
+def _port_step(model, amp=None, donate=True):
     return distributed.ShardedTrainStep(
-        model, optimizer.MomentumOptimizer(LR, MU), _port_loss, amp=amp)
+        model, optimizer.MomentumOptimizer(LR, MU), _port_loss, amp=amp,
+        donate=donate)
 
 
 def _rel(got, want):
@@ -188,7 +189,7 @@ def test_step_carries_running_statistics_and_leaves_inputs_alone(steps,
         np.testing.assert_array_equal(tm.state_dict()[name].numpy(),
                                       init[name].numpy())
         assert not torch.equal(buf, init[name]), name
-    step = _port_step(tm)
+    step = _port_step(tm, donate=False)
     s0 = step.init()
     before = {k: v.clone() for k, v in s0["buffers"].items()}
     s1, _ = step(s0, _batch(1))
@@ -282,7 +283,7 @@ def test_bf16_bottleneck_block_follows_the_f32_block():
 
 def test_bf16_amp_step_keeps_f32_masters_and_statistics(params):
     tm = _port_model(50, params[50])
-    step = _port_step(tm, amp="bf16")
+    step = _port_step(tm, amp="bf16", donate=False)
     s0 = step.init()
     ops.reset_launch_counts()
     s1, loss = step(s0, _batch())

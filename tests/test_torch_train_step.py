@@ -258,7 +258,7 @@ def test_step_leaves_the_model_alone_and_dropout_follows_seed_and_step():
     tm = models.BertForPretraining(cfg, device="cpu")
     before = {k: v.clone() for k, v in tm.state_dict().items()}
     step = distributed.ShardedTrainStep(
-        tm, optimizer.AdamWOptimizer(1e-3), _loss_fn, seed=5)
+        tm, optimizer.AdamWOptimizer(1e-3), _loss_fn, seed=5, donate=False)
     s0 = step.init()
     batch = _batch(0)
     _, a = step(s0, batch)
