@@ -52,10 +52,15 @@ against its plain version; checks one f32 Momentum step of full-width
 ResNet-50 (B=4, 64x64) on the card against the CPU and against kernel
 11's plain version; and trains ResNet-50 as `bench.py:_bench_resnet`
 does (B=128, 224x224, bf16, ShardedTrainStep + Momentum(0.1, 0.9), 33
-kernel-11 launches a step), with a profile of one step; last, trains
+kernel-11 launches a step), with a profile of one step; then trains
 ResNet-50 in f32 through the eager ``minimize`` path (LarsMomentum,
 L2Decay, a global-norm clip, a piecewise learning rate) and holds an
-eager Momentum step against the train step's.
+eager Momentum step against the train step's; last, builds BERT-base as
+a static program (`models.bert_program`), saves it with the static
+core's `save_inference_model` and serves it through `create_predictor`
+with `matmul_bias_act_fuse` at B = 1, 4 and 8 (12 kernel-1 and 13
+kernel-5 launches a forward, the kernels on the path's arguments and
+one batch against the plain versions, p50 and a profile a batch size).
 
     python3 chip_smoke.py
 
@@ -556,9 +561,10 @@ def check_bwd_crossover(ops):
     is timed as `flash_attention_bwd` runs it: the fused kernel's
     wrapper, or the pair's two launches from one parameter block
     (`flash_attention_bwd` under PADDLE_TPU_FLASH_FUSED_BWD=0), over
-    50 calls: where the host's time for a call exceeds the card's, the
-    host's jitter sets the reading.  Times only; the kernels' values are
-    checked above."""
+    50 calls queued behind a sleep (`queued_ms`): at small B*H a call's
+    host time exceeds the card's, and back-to-back events would read
+    the host's jitter.  Times only; the kernels' values are checked
+    above."""
     from paddle_tpu_torch.ops.attention import _use_fused_bwd
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -570,11 +576,11 @@ def check_bwd_crossover(ops):
                        .to(torch.bfloat16) for _ in range(4))
         o, lse = ops.flash_fwd(q, k, v, with_lse=True)
 
-        fused_ms = time_ms(lambda: ops.flash_bwd_fused(q, k, v, o, do, lse),
-                           iters=50)
+        fused_ms = queued_ms(
+            lambda: ops.flash_bwd_fused(q, k, v, o, do, lse), iters=50)
         with _env("PADDLE_TPU_FLASH_FUSED_BWD", "0"):
-            pair_ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do,
-                                                              lse), iters=50)
+            pair_ms = queued_ms(lambda: ops.flash_attention_bwd(
+                q, k, v, o, do, lse), iters=50)
         rule = _use_fused_bwd(b * H, s, s, D, sms, torch.bfloat16)
         faster = "fused" if fused_ms < pair_ms else "pair"
         rows.append({"B": b, "S": s, "BH": b * H, "fused_ms": fused_ms,
@@ -3857,6 +3863,298 @@ def run_resnet_train(ptt, params):
 
 # the kernels on gemm_tc.cuh's forward body and the split decode, whose
 # ptxas report the build phase lists on its own (none may spill)
+# ---------------------------------------------------------------------------
+# the static-graph inference path: a saved BERT-base program served by
+# the Predictor through kernels 1 and 5
+# ---------------------------------------------------------------------------
+
+# BERT-base as published (vocab 30522), f32, the fused FFN off: the
+# saved program's FFNs and pooler reach kernel 5 only through the
+# matmul_bias_act_fuse pass the predictor applies at load
+STATIC_BERT = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                   num_attention_heads=12, intermediate_size=3072,
+                   max_position_embeddings=512, type_vocab_size=2)
+STATIC_S = 128
+STATIC_BATCHES = (1, 4, 8)
+STATIC_REQUESTS = 20          # timed requests a batch size
+STATIC_PROFILED = 5           # profiled requests a batch size
+STATIC_SEED = 23
+STATIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "static_serve")
+
+
+def static_feed(b, seed=0):
+    """int64 feeds of ``b`` rows of STATIC_S tokens; row 0 pads its last
+    quarter through ``attention_mask``, so the bias path runs."""
+    rng = np.random.RandomState(seed)
+    s = STATIC_S
+    mask = np.ones((b, s), np.int64)
+    mask[0, 3 * s // 4:] = 0
+    return {"input_ids": rng.randint(0, STATIC_BERT["vocab_size"],
+                                     (b, s)).astype(np.int64),
+            "token_type_ids": rng.randint(0, 2, (b, s)).astype(np.int64),
+            "position_ids": np.tile(np.arange(s, dtype=np.int64), (b, 1)),
+            "attention_mask": mask}
+
+
+def _recorded_calls(ops, run):
+    """The arguments kernels 1 and 5 get from the static ops in one
+    call of ``run`` (the ops call `ops.attention` / `ops.matmul` through
+    their modules), each call still launching its kernel."""
+    calls = {"flash": [], "mba": []}
+    sdpa, mba = (ops.attention.scaled_dot_product_attention,
+                 ops.matmul.matmul_bias_act)
+
+    def rec_sdpa(q, k, v, **kw):
+        calls["flash"].append((q, k, v, kw))
+        return sdpa(q, k, v, **kw)
+
+    def rec_mba(x, w, bias=None, **kw):
+        calls["mba"].append((x, w, bias, kw))
+        return mba(x, w, bias, **kw)
+
+    with patch.object(ops.attention, "scaled_dot_product_attention",
+                      rec_sdpa), \
+            patch.object(ops.matmul, "matmul_bias_act", rec_mba):
+        run()
+    return calls
+
+
+def _plain_static(ops):
+    """Patches under which the static ops reach the plain versions of
+    kernels 1 and 5, on the card, instead of the kernels."""
+    def sdpa(q, k, v, bias=None, segment_ids=None, scale=None,
+             causal=False, layout="BHSD"):
+        return ops.flash_attention_reference(q, k, v, bias, segment_ids,
+                                             scale, causal, layout)[0]
+
+    def mba(x, w, bias=None, activation="none", approximate=False):
+        return ops.matmul_bias_act_reference(x, w, bias, activation,
+                                             approximate)[0]
+
+    return (patch.object(ops.attention, "scaled_dot_product_attention",
+                         sdpa),
+            patch.object(ops.matmul, "matmul_bias_act", mba))
+
+
+def static_kernel_rows(ops, calls):
+    """Kernels 1 and 5 on the arguments the static path gave them (the
+    first call of each shape): errors against the plain versions at
+    check_flash's and check_matmul's f32 limits, times beside the plain
+    version, the library call and the bound."""
+    import torch.nn.functional as F
+
+    rows = []
+    q, k, v, kw = calls["flash"][0]
+    b, s, h, d = q.shape
+    want = ops.flash_attention_reference(
+        q, k, v, kw.get("bias"), kw.get("segment_ids"), kw["scale"],
+        kw["causal"], kw["layout"])[0]
+    got = ops.attention.scaled_dot_product_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err, share = compare("static flash", got, want, TOL[torch.float32])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bias = kw.get("bias")
+    bms, by = bound(4 * b * s * h * d * 4 + b * s * 4,
+                    4 * b * h * s * s * d, torch.float32)
+    rows.append({
+        "kernel": "flash_fwd", "B": b, "S": s, "H": h, "D": d,
+        "layout": kw["layout"], "bias": list(bias.shape),
+        "qkv_strides": list(q.stride()), "per_forward": len(calls["flash"]),
+        "max_abs_err": err, "limit_share": share,
+        "ms": time_ms(lambda: ops.attention.scaled_dot_product_attention(
+            q, k, v, **kw)),
+        "plain_ms": time_ms(lambda: ops.flash_attention_reference(
+            q, k, v, bias, None, kw["scale"], False, kw["layout"])),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias, scale=kw["scale"])),
+        "bound_ms": bms, "bound_by": by})
+    seen = set()
+    for x, w, bias, kw in calls["mba"]:
+        act = kw.get("activation", "none")
+        m, kk = x.shape
+        n = w.shape[0]
+        if (m, kk, n, act) in seen:
+            continue
+        seen.add((m, kk, n, act))
+        approx = kw.get("approximate", False)
+        want = ops.matmul_bias_act_reference(x, w, bias, act, approx)[0]
+        got = ops.matmul.matmul_bias_act(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        tol = gemm_tol(torch.float32, want)
+        err, share = compare("static matmul_bias_act %s" % act, got, want,
+                             tol)
+        lib = (F.gelu if act == "gelu" else torch.tanh)
+        bms, by = bound((m * kk + n * kk + n + m * n) * 4, 2 * m * n * kk,
+                        torch.float32)
+        rows.append({
+            "kernel": "matmul_bias_act", "M": m, "K": kk, "N": n,
+            "act": act, "per_forward": sum(
+                c[0].shape[0] == m and c[1].shape[0] == n
+                for c in calls["mba"]),
+            "max_abs_err": err, "limit_share": share,
+            "ms": time_ms(lambda: ops.matmul.matmul_bias_act(
+                x, w, bias, **kw)),
+            "plain_ms": time_ms(lambda: ops.matmul_bias_act_reference(
+                x, w, bias, act, approx)),
+            "library_ms": time_ms(lambda: lib(F.linear(x, w, bias))),
+            "bound_ms": bms, "bound_by": by})
+    emit({"phase": "static_serve_kernels", "rows": rows})
+    return rows
+
+
+def static_serve(ptt):
+    """BERT-base as a static program, from build to served requests: the
+    port's `models.bert_program` builds it (12 layers, hidden 768, 12
+    heads, FFN 3072, vocab 30522, S = 128, f32, the fused FFN off), the
+    startup program initializes it on the card (seeded), the port's
+    `save_inference_model` writes it under build/, and `create_predictor`
+    loads it with ``matmul_bias_act_fuse`` and answers requests at
+    B = 1, 4 and 8.  Checks: 12 launches of kernel 1 and 13 of kernel 5
+    a forward and no other; kernels 1 and 5 on the path's own arguments
+    against their plain versions; one B = 8 batch against the same
+    saved model run through the plain versions on the card (TOL f32);
+    ``compile_count`` 3.  Then p50 latency a batch size over
+    STATIC_REQUESTS requests and a profile of STATIC_PROFILED (device
+    busy time and kernel launches a request)."""
+    import shutil
+
+    fluid, inference, models, ops = (ptt.fluid, ptt.inference, ptt.models,
+                                     ptt.ops)
+    cfg = models.BertConfig(**STATIC_BERT)
+    t0 = time.perf_counter()
+    with _env("PADDLE_TPU_FUSED_FFN", None):
+        main, startup, feeds, fetches = models.bert_program.bert_program(
+            cfg, STATIC_S)
+    startup.random_seed = STATIC_SEED
+    t1 = time.perf_counter()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    shutil.rmtree(STATIC_DIR, ignore_errors=True)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fluid.io.save_inference_model(STATIC_DIR, feeds, list(fetches), exe,
+                                      main)
+    del scope
+    t3 = time.perf_counter()
+    pred = inference.create_predictor(inference.AnalysisConfig(STATIC_DIR))
+    fluid.ir.apply_passes(pred._program, ["matmul_bias_act_fuse"])
+    t4 = time.perf_counter()
+    disk = sum(os.path.getsize(os.path.join(STATIC_DIR, f))
+               for f in os.listdir(STATIC_DIR))
+    types = [o.type for o in pred._program.global_block.ops]
+    L = cfg.num_hidden_layers
+    want_launches = {name: 0 for name in ops.KERNEL_WRAPPERS}
+    want_launches.update(flash_fwd=L, matmul_bias_act=L + 1)
+    if (types.count("flash_attention"), types.count("matmul_bias_act"),
+            types.count("gelu"), types.count("tanh")) != (L, L + 1, 0, 0):
+        raise AssertionError("static program after the pass: %s"
+                             % sorted(set(types)))
+
+    # one forward a batch size: the kernels it launches
+    per_forward = {}
+    for b in STATIC_BATCHES:
+        feed = static_feed(b)
+        ops.reset_launch_counts()
+        out = pred.run(feed)
+        launches = ops.launch_counts()
+        _expect_launches("static forward B=%d" % b, launches, want_launches)
+        per_forward[b] = launches
+        if [o.shape for o in out] != [(b, STATIC_S, cfg.hidden_size),
+                                      (b, cfg.hidden_size)] or not all(
+                np.isfinite(o).all() for o in out):
+            raise AssertionError("static outputs at B=%d: %s"
+                                 % (b, [o.shape for o in out]))
+
+    # the kernels on the path's own arguments, and one batch against the
+    # same saved model through the plain versions on the card
+    b = STATIC_BATCHES[-1]
+    feed = static_feed(b, seed=1)
+    calls = _recorded_calls(ops, lambda: pred.run_async(feed))
+    kernel_rows = static_kernel_rows(ops, calls)
+    del calls
+    got = pred.run(feed)
+    ops.reset_launch_counts()
+    p1, p2 = _plain_static(ops)
+    with p1, p2:
+        want = pred.run(feed)
+    if any(ops.launch_counts().values()):
+        raise AssertionError("the plain run launched %s" % ops.launch_counts())
+    e2e = {}
+    for name, g, w in zip(pred.get_output_names(), got, want):
+        e2e[name] = compare("static %s B=%d" % (name, b), torch.from_numpy(g),
+                            torch.from_numpy(w), TOL[torch.float32])
+    if pred.compile_count != len(STATIC_BATCHES):
+        raise AssertionError("compile_count %d, want %d"
+                             % (pred.compile_count, len(STATIC_BATCHES)))
+    flops = {bb: pred.cost_analysis(static_feed(bb))["flops"]
+             for bb in STATIC_BATCHES}
+
+    # serving: p50 latency a batch size (host clock around run(), which
+    # returns numpy: it waits for the card; the batch sizes in turn, so
+    # a drift in the host's speed reaches all three), launches over the
+    # run
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    latency, profiles = {}, {}
+    feeds_b = {bb: static_feed(bb, seed=2) for bb in STATIC_BATCHES}
+    for bb in STATIC_BATCHES:
+        for _ in range(3):
+            pred.run(feeds_b[bb])
+    ops.reset_launch_counts()
+    ts = {bb: [] for bb in STATIC_BATCHES}
+    for _ in range(STATIC_REQUESTS):        # the batch sizes in turn
+        for bb in STATIC_BATCHES:
+            t = time.perf_counter()
+            pred.run(feeds_b[bb])
+            ts[bb].append((time.perf_counter() - t) * 1e3)
+    run_launches = ops.launch_counts()
+    for bb in STATIC_BATCHES:
+        p50 = float(np.percentile(ts[bb], 50))
+        latency[bb] = {"p50_ms": p50,
+                       "p90_ms": float(np.percentile(ts[bb], 90)),
+                       "min_ms": min(ts[bb]),
+                       "model_tflops_at_p50": flops[bb] / p50 / 1e9}
+    n_req = STATIC_REQUESTS * len(STATIC_BATCHES)
+    _expect_launches("static serving run", run_launches,
+                     {k: v * n_req for k, v in want_launches.items()})
+    for bb in STATIC_BATCHES:
+        prof = device_profile(lambda: [pred.run(feeds_b[bb])
+                                       for _ in range(STATIC_PROFILED)])
+        launches = sum(v[1] for v in prof["by_category_ms"].values())
+        profiles[bb] = {
+            "device_busy_ms_per_request": (
+                prof["device_busy_ms"] / STATIC_PROFILED
+                if prof["device_busy_ms"] is not None else None),
+            "device_idle_share": prof["device_idle_share"],
+            "launches_per_request": launches / STATIC_PROFILED,
+            "by_category_ms": prof["by_category_ms"],
+            "top_kernels_ms": prof.get("top_kernels_ms")}
+    emit({"phase": "static_serve", "nvidia_smi": smi,
+          "config": dict(STATIC_BERT, S=STATIC_S, dtype="float32",
+                         fused_ffn=False, passes=["matmul_bias_act_fuse"]),
+          "build_s": t1 - t0, "startup_s": t2 - t1, "save_s": t3 - t2,
+          "load_s": t4 - t3, "saved_bytes": disk,
+          "ops": len(types), "op_types": {t: types.count(t)
+                                          for t in sorted(set(types))},
+          "launches_per_forward": per_forward,
+          "e2e_vs_plain": {k: {"max_abs_err": v[0], "limit_share": v[1]}
+                           for k, v in e2e.items()},
+          "compile_count": pred.compile_count, "flops": flops,
+          "latency": latency, "run_launches": run_launches,
+          "requests": n_req, "profile": profiles})
+    del pred
+    shutil.rmtree(STATIC_DIR, ignore_errors=True)
+    return {"per_forward": {k: per_forward[STATIC_BATCHES[-1]][k]
+                            for k in ("flash_fwd", "matmul_bias_act")},
+            "run_launches": run_launches, "requests": n_req,
+            "kernel_rows": kernel_rows}
+
+
 REDESIGNED_KERNELS = ("matmul_fwd_tc", "conv_bn_relu_tc", "conv_bn_stats_tc",
                       "decode_dense_kernel", "decode_paged_kernel")
 
@@ -3943,6 +4241,7 @@ def main():
     stats_rows, stats_main, train_launches11 = run_resnet_train(
         ptt, resnet_params)
     eager_launches = train_eager(ptt)
+    static = static_serve(ptt)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -3950,6 +4249,16 @@ def main():
     err, bounds = main["max_abs_err"], main["bounds"]
     src = "paddle_tpu_torch/ops/csrc/"
     pallas = "paddle_tpu/ops/pallas/attention.py:"
+
+    def static_entry(name):
+        """The kernel on the static-graph inference path: launches a
+        forward and over the served requests, and its rows at the
+        path's own shapes."""
+        return {"launches_per_forward": static["per_forward"][name],
+                "run_launches": static["run_launches"][name],
+                "requests": static["requests"],
+                "shapes": [r for r in static["kernel_rows"]
+                           if r["kernel"] == name]}
 
     def flash_entry(name, source, line, n, max_abs_err, ms, plain_ms,
                     library_ms):
@@ -4001,7 +4310,8 @@ def main():
                                  "library_ms")}},
              draft_prefill=dict(draft_flash_row, speculative_run_launches=(
                  launches["engine_speculative"]["flash_fwd"])),
-             train_lamb_run_launches=lamb_launches["flash_fwd"]),
+             train_lamb_run_launches=lamb_launches["flash_fwd"],
+             static_serve=static_entry("flash_fwd")),
         dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
                          pair_launches["flash_bwd_dq"], err["pair_dq"],
                          main["dq_ms"], main["plain_bwd_ms"],
@@ -4065,7 +4375,8 @@ def main():
              tile=mm_main["fwd_tile"],
              schedule="%d CTAs over %d tiles" % (mm_main["fwd_ctas"],
                                                  mm_main["fwd_tiles"]),
-             cublas_gemm_ms=mm_main["cublas_gemm_ms"]["fwd"]),
+             cublas_gemm_ms=mm_main["cublas_gemm_ms"]["fwd"],
+             static_serve=static_entry("matmul_bias_act")),
         dict(mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"],
                       "dx"), tile=mm_main["bwd_tile"], splits=1),
         dict(mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",

@@ -32,7 +32,8 @@ CPU-only box and imports neither JAX nor `paddle_tpu`.
 
 import importlib
 
-_SUBMODULES = ("clip", "device", "distributed", "generation", "incubate",
+_SUBMODULES = ("analysis", "clip", "device", "distributed", "fluid",
+               "generation", "incubate", "inference",
                "learning_rate_scheduler", "models", "nn", "observability",
                "ops", "optimizer", "regularizer", "serving", "tp_serving")
 

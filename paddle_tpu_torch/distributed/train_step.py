@@ -70,6 +70,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import optimizer as optim
+from ..device import seeded_generator
 from ..models.bert import Dropout
 from ..observability.cost import FlopCounter, feed_signature
 
@@ -140,9 +141,6 @@ class _LossModule(nn.Module):
         return self.loss_fn(self.model, batch)
 
 
-_MASK64 = (1 << 64) - 1
-
-
 def _copy(tensors):
     """Copies of a ``{name: tensor}`` dict (layouts kept) in one
     multi-tensor launch, not one a tensor."""
@@ -154,13 +152,11 @@ def _copy(tensors):
 
 def _step_generator(seed, step, device, micro=None):
     """The dropout generator of one step (``micro`` None) or of one of
-    its micro-batches."""
-    s = ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
-    if micro is not None:
-        s = (s + (int(micro) + 1) * 0x9E3779B97F4A7C15) & _MASK64
-    g = torch.Generator(device=device)
-    g.manual_seed(s)
-    return g
+    its micro-batches: the seed, the step and the micro-batch's index
+    mixed into the generator's seed, each reaching the low 32 bits a
+    CPU generator keeps (`device.seeded_generator`)."""
+    parts = (seed, step) if micro is None else (seed, step, int(micro) + 1)
+    return seeded_generator(device, *parts)
 
 
 class ShardedTrainStep:

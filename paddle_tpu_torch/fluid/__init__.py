@@ -1,0 +1,47 @@
+"""The static-graph Fluid core of the port: Program IR, op registry,
+Executor, io and IR passes.
+
+Counterpart of `paddle_tpu/fluid/` (the static half), with the same
+module names and the same JSON IR.  Tensors are torch tensors on an
+explicit `torch.device` (``CPUPlace`` / ``CUDAPlace``; the card unless
+the caller asks for the CPU), random ops draw from explicit
+`torch.Generator`s, and a block runs op by op.  The op library holds
+the ops a static BERT and a small fc MLP serve with and are
+initialized by; training of static programs (``backward``, the
+optimizer ops) waits for a later slice.
+"""
+
+from . import ops  # registers every operator of the port  # noqa: F401
+from . import (  # noqa: F401
+    initializer,
+    io,
+    ir,
+    layers,
+    unique_name,
+)
+from .core.place import (  # noqa: F401
+    CPUPlace,
+    CUDAPlace,
+    default_place,
+    is_compiled_with_cuda,
+)
+from .core.scope import Scope, global_scope  # noqa: F401
+from .executor import Executor, scope_guard  # noqa: F401
+from .framework import (  # noqa: F401
+    Block,
+    Operator,
+    Parameter,
+    Program,
+    Variable,
+    default_main_program,
+    default_startup_program,
+    program_guard,
+)
+from .layer_helper import ParamAttr  # noqa: F401
+
+
+def data(name, shape, dtype="float32", lod_level=0):
+    """fluid.data — no implicit batch dim (cf. reference fluid/data.py)."""
+    return layers.tensor.data(
+        name, shape, dtype=dtype, append_batch_size=False
+    )

@@ -1,0 +1,158 @@
+"""Dense math ops: elementwise_add (with axis broadcast), relu, tanh,
+gelu, scale, mul and the fused-epilogue matmul_bias_act.
+
+Counterpart of `paddle_tpu/fluid/ops/math_ops.py` (elementwise_add
+:37, the activations :71, gelu :97, scale :127, mul :179,
+matmul_bias_act :205).  ``matmul_bias_act`` is the op that reaches a
+hand kernel: it calls `ops.matmul.matmul_bias_act` (kernel 5), which
+launches the kernel on a CUDA tensor and takes its plain version on a
+CPU or meta one.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ...ops import matmul as _matmul
+from ..core.registry import register_op
+
+
+def _paddle_bcast(x, y, axis):
+    """Reference broadcast rule (elementwise_op.h): align Y to X at `axis`."""
+    if x.dim() == y.dim():
+        return x, y
+    if y.dim() > x.dim():  # numpy-style fallback
+        return x, y
+    if axis is None or axis == -1:
+        axis = x.dim() - y.dim()
+    new_shape = (1,) * axis + tuple(y.shape) + (1,) * (x.dim() - axis - y.dim())
+    return x, y.reshape(new_shape)
+
+
+@register_op("elementwise_add", inputs=["X", "Y"], outputs=["Out"])
+def _elementwise_add(ctx, ins, attrs):
+    x, y = _paddle_bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+    return {"Out": [x + y]}
+
+
+# -- activations (cf. activation_op.cc) --------------------------------------
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+}
+
+
+def _register_activation(name, fn):
+    @register_op(name, inputs=["X"], outputs=["Out"])
+    def _lower(ctx, ins, attrs, fn=fn):
+        return {"Out": [fn(ins["X"][0])]}
+
+
+for _name, _fn in _ACTIVATIONS.items():
+    _register_activation(_name, _fn)
+
+
+@register_op("gelu", inputs=["X"], outputs=["Out"])
+def _gelu(ctx, ins, attrs):
+    approx = attrs.get("approximate", False)
+    return {"Out": [F.gelu(ins["X"][0],
+                           approximate="tanh" if approx else "none")]}
+
+
+@register_op("scale", inputs=["X"], outputs=["Out"])
+def _scale(ctx, ins, attrs):
+    x = ins["X"][0]
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        out = x * s + b
+    else:
+        out = (x + b) * s
+    return {"Out": [out.to(x.dtype)]}
+
+
+# -- matmul family -----------------------------------------------------------
+
+
+@register_op("mul", inputs=["X", "Y"], outputs=["Out"])
+def _mul(ctx, ins, attrs):
+    """cf. mul_op.cc: flatten X to 2D at x_num_col_dims, Y at y_num_col_dims."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = attrs.get("x_num_col_dims", 1)
+    yn = attrs.get("y_num_col_dims", 1)
+    x2 = x.reshape(-1, math.prod(x.shape[xn:]))
+    y2 = y.reshape(math.prod(y.shape[:yn]), -1)
+    out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
+    return {"Out": [torch.matmul(x2, y2).reshape(out_shape)]}
+
+
+MBA_ACTIVATIONS = ("none", "relu", "tanh", "gelu")
+
+
+def _naive_batched(x, w, bias, alpha, act, approx):
+    """A batched ``Y`` (more than 2-D) has no kernel: the plain
+    composition, taken only off the card."""
+    if x.is_cuda:
+        raise ValueError(
+            "matmul_bias_act: the kernel is 2-D and takes no batched Y "
+            "(%s)" % (tuple(w.shape),))
+    out = torch.matmul(x, w) * alpha
+    if bias is not None:
+        out = out + bias
+    return _matmul._apply_act(out, act, approx)
+
+
+@register_op("matmul_bias_act", inputs=["X", "Y", "Bias"], outputs=["Out"])
+def _matmul_bias_act(ctx, ins, attrs):
+    """Fused-epilogue GEMM: act(X·Y + Bias) as ONE kernel launch.
+
+    attrs: ``act_type`` in {none, relu, tanh, gelu} (+``approximate``
+    for the tanh gelu), and ONE of the two source-op attr conventions —
+    mul-style ``x_num_col_dims``/``y_num_col_dims`` flattening, or
+    matmul-style ``transpose_X``/``transpose_Y``/``alpha``.
+
+    Y is ``[K, N]`` in the IR; the kernel takes ``[N, K]``.  An op whose
+    ``weight_layout`` attr is ``"NK"`` reads a Y already transposed
+    once (the inference `Predictor` does so for its constant weights
+    when it loads); otherwise Y is transposed here, a copy each call.
+    Any 2-D product launches kernel 5 on a CUDA tensor, whatever its
+    shape (the reference takes its Pallas kernel only for 128-tileable
+    shapes on a TPU, `paddle_tpu/fluid/ops/math_ops.py:252-258`)."""
+    x, w = ins["X"][0], ins["Y"][0]
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    act = attrs.get("act_type", "none")
+    if act not in MBA_ACTIVATIONS:
+        raise ValueError(
+            "matmul_bias_act act_type must be one of %s, got %r"
+            % (MBA_ACTIVATIONS, act))
+    approx = bool(attrs.get("approximate", False))
+    nk = attrs.get("weight_layout", "KN") == "NK"
+    xn = attrs.get("x_num_col_dims")
+    if xn is not None:                      # mul-style flatten
+        if nk:
+            w_nk = w
+        else:
+            yn = attrs.get("y_num_col_dims", 1)
+            w_nk = w.reshape(math.prod(w.shape[:yn]), -1).t()
+        lead = tuple(x.shape[:xn])
+        x2 = x.reshape(-1, math.prod(x.shape[xn:]))
+    else:                                   # matmul-style
+        tx = attrs.get("transpose_X", attrs.get("transpose_x", False))
+        ty = attrs.get("transpose_Y", attrs.get("transpose_y", False))
+        alpha = attrs.get("alpha", 1.0)
+        if tx and x.dim() > 1:
+            x = x.transpose(-1, -2)
+        if not nk and w.dim() > 2:
+            if ty:
+                w = w.transpose(-1, -2)
+            return {"Out": [_naive_batched(x, w, bias, alpha, act, approx)]}
+        w_nk = w if (nk or ty) else w.t()
+        if alpha != 1.0:
+            x = x * alpha
+        lead = tuple(x.shape[:-1])
+        x2 = x.reshape(-1, x.shape[-1])
+    y = _matmul.matmul_bias_act(x2.contiguous(), w_nk.contiguous(), bias,
+                                activation=act, approximate=approx)
+    return {"Out": [y.reshape(lead + (w_nk.shape[0],))]}

@@ -1,0 +1,44 @@
+"""Tensor manipulation ops: reshape2, slice, cast, fill_constant.
+
+Counterpart of `paddle_tpu/fluid/ops/tensor_ops.py` (reshape2 :16,
+slice :123, cast :147, fill_constant :157).
+"""
+
+import torch
+
+from ..core.dtypes import to_torch
+from ..core.registry import register_op
+
+
+@register_op("reshape2", inputs=["X"], outputs=["Out"])
+def _reshape(ctx, ins, attrs):
+    x = ins["X"][0]
+    shape = list(attrs["shape"])
+    # paddle semantics: 0 means "copy input dim", -1 inferred
+    shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+    return {"Out": [x.reshape(shape)]}
+
+
+@register_op("slice", inputs=["Input"], outputs=["Out"])
+def _slice(ctx, ins, attrs):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        idx[a] = slice(s, e)
+    out = x[tuple(idx)]
+    for a in sorted(attrs.get("decrease_axis", []), reverse=True):
+        out = out.squeeze(a)
+    return {"Out": [out]}
+
+
+@register_op("cast", inputs=["X"], outputs=["Out"])
+def _cast(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].to(to_torch(attrs["out_dtype"]))]}
+
+
+@register_op("fill_constant", inputs=[], outputs=["Out"])
+def _fill_constant(ctx, ins, attrs):
+    shape = tuple(attrs.get("shape", []))
+    dtype = to_torch(attrs.get("dtype", "float32"))
+    return {"Out": [torch.full(shape, attrs["value"], dtype=dtype,
+                               device=ctx.device)]}

@@ -1,5 +1,8 @@
 """Models of the port: BERT pretraining, the decoder-only
-`TransformerLM`, the blocks they share, and the ResNet family."""
+`TransformerLM`, the blocks they share, and the ResNet family; and
+BERT as a static program (`bert_program`)."""
+
+from . import bert_program  # noqa: F401
 
 from .bert import (  # noqa: F401
     BertConfig,

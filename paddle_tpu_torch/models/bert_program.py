@@ -1,0 +1,200 @@
+"""BERT as a static program: the counterpart of `paddle_tpu.models.BertModel`
+traced under ``program_guard``.
+
+The port's `models.BertModel` is an `nn.Module` and records no ops, so
+this module emits the ops itself, through the port's `fluid.layers`:
+under a fresh `unique_name.guard()` it gives the same op types in the
+same order, the same attrs, and the same parameter, variable and
+startup-op names and shapes as the reference's
+``models.BertModel(cfg)(input_ids, token_type_ids, position_ids,
+attention_mask)`` in static mode, with the fused FFN on
+(``PADDLE_TPU_FUSED_FFN=1``: fc1 + gelu as one ``matmul_bias_act``) and
+off (``mul`` -> ``elementwise_add`` -> ``gelu``, which
+``fluid.ir``'s ``matmul_bias_act_fuse`` folds into the same op).
+Attention is the BSHD ``flash_attention`` op with the padding mask as
+an additive bias.
+
+    main, startup, feeds, (seq, pooled) = bert_program(cfg, seq_len=128)
+    exe = fluid.Executor(); exe.run(startup)
+    fluid.io.save_inference_model(dirname, feeds, [seq, pooled], exe, main)
+"""
+
+from __future__ import annotations
+
+from ..fluid import framework, unique_name
+from ..fluid.initializer import ConstantInitializer, NormalInitializer
+from ..fluid.layer_helper import LayerHelper, ParamAttr
+from ..fluid.layers import tensor as T
+from ..fluid.layers.common import append_simple_op
+from .bert import _fused_ffn_enabled, _head_layout
+
+FEED_NAMES = ("input_ids", "token_type_ids", "position_ids", "attention_mask")
+
+
+def _check_head_layout():
+    """The reference builds BHSD attention (with materialized
+    transposes) under ``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD``; the port has
+    no ``transpose2`` op yet, so it builds the default BSHD only."""
+    if _head_layout() != "BSHD":
+        raise NotImplementedError(
+            "bert_program builds BSHD attention only (the transpose2 op "
+            "of the BHSD layout is not ported yet); got "
+            "PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD")
+
+
+class _Linear:
+    """Parameters of a reference ``dygraph.Linear`` (``linear.w_*``):
+    weight ``[d_in, d_out]`` ~ N(0, initializer_range), bias zeros."""
+
+    def __init__(self, cfg, d_in, d_out, act=None):
+        helper = LayerHelper("linear")
+        self.weight = helper.create_parameter(
+            ParamAttr(initializer=NormalInitializer(
+                0.0, cfg.initializer_range)), [d_in, d_out])
+        self.bias = helper.create_parameter(None, [d_out], is_bias=True)
+        self.act = act
+
+    def __call__(self, x):
+        nd = len(x.shape)
+        out = append_simple_op("mul", {"X": x, "Y": self.weight},
+                               {"x_num_col_dims": nd - 1,
+                                "y_num_col_dims": 1})
+        out = append_simple_op("elementwise_add",
+                               {"X": out, "Y": self.bias}, {"axis": nd - 1})
+        if self.act:
+            out = append_simple_op(self.act, {"X": out}, {})
+        return out
+
+
+class _LayerNorm:
+    """``layernorm.w_*``: scale ones, shift zeros, over the last dim."""
+
+    def __init__(self, d):
+        helper = LayerHelper("layernorm")
+        self.weight = helper.create_parameter(
+            None, [d], default_initializer=ConstantInitializer(1.0))
+        self.bias = helper.create_parameter(None, [d], is_bias=True)
+
+    def __call__(self, x):
+        out, _, _ = append_simple_op(
+            "layer_norm", {"X": x, "Scale": self.weight, "Bias": self.bias},
+            {"begin_norm_axis": len(x.shape) - 1, "epsilon": 1e-5},
+            out_slots=("Y", "Mean", "Variance"))
+        return out
+
+
+class _Embedding:
+    """``embedding.w_*``: a ``[vocab, d]`` table ~ N(0, initializer_range)."""
+
+    def __init__(self, cfg, vocab):
+        self.weight = LayerHelper("embedding").create_parameter(
+            ParamAttr(initializer=NormalInitializer(
+                0.0, cfg.initializer_range)), [vocab, cfg.hidden_size])
+
+    def __call__(self, ids):
+        return append_simple_op("lookup_table",
+                                {"W": self.weight, "Ids": ids},
+                                {"padding_idx": -1}, dtype="float32")
+
+
+def _dropout(x, p):
+    """The reference's ``dygraph.Dropout`` in training mode, as a fresh
+    layer is (`fluid.io.save_inference_model` sets ``is_test`` on the
+    saved copy)."""
+    out, _ = append_simple_op(
+        "dropout", {"X": x},
+        {"dropout_prob": p, "is_test": False,
+         "dropout_implementation": "upscale_in_train"},
+        out_slots=("Out", "Mask"))
+    return out
+
+
+class _EncoderLayer:
+    """The reference's post-LN ``TransformerEncoderLayer`` with fused-QKV
+    self-attention: parameters in its construction order."""
+
+    def __init__(self, cfg):
+        d = cfg.hidden_size
+        self.cfg = cfg
+        self.qkv_proj = _Linear(cfg, d, 3 * d)
+        self.out_proj = _Linear(cfg, d, d)
+        self.ln1 = _LayerNorm(d)
+        self.fc1 = _Linear(cfg, d, cfg.intermediate_size)
+        self.fc2 = _Linear(cfg, cfg.intermediate_size, d)
+        self.ln2 = _LayerNorm(d)
+
+    def _attention(self, x, attn_bias):
+        cfg = self.cfg
+        d, n_head = cfg.hidden_size, cfg.num_attention_heads
+        d_head = d // n_head
+        s = int(x.shape[1])
+        qkv = self.qkv_proj(x)
+        q, k, v = (T.reshape(T.slice(qkv, [2], [i * d], [(i + 1) * d]),
+                             [0, s, n_head, d_head]) for i in range(3))
+        ins = {"Q": q, "K": k, "V": v}
+        if attn_bias is not None:
+            ins["Bias"] = attn_bias
+        ctxv = append_simple_op(
+            "flash_attention", ins,
+            {"scale": d_head ** -0.5, "causal": False, "layout": "BSHD"})
+        ctxv = T.reshape(ctxv, [0, s, d])
+        return _dropout(self.out_proj(ctxv),
+                        cfg.attention_probs_dropout_prob)
+
+    def __call__(self, x, attn_bias, fused_ffn):
+        h = self.ln1(x + self._attention(x, attn_bias))
+        if fused_ffn:
+            f = append_simple_op(
+                "matmul_bias_act",
+                {"X": h, "Y": self.fc1.weight, "Bias": self.fc1.bias},
+                {"act_type": "gelu", "approximate": False,
+                 "x_num_col_dims": len(h.shape) - 1, "y_num_col_dims": 1})
+        else:
+            f = append_simple_op("gelu", {"X": self.fc1(h)},
+                                 {"approximate": False})
+        f = self.fc2(f)
+        return self.ln2(h + _dropout(f, self.cfg.hidden_dropout_prob))
+
+
+def build_bert(cfg, input_ids, token_type_ids, position_ids,
+               attention_mask=None):
+    """Emit BERT's parameters (startup program) and forward ops (main
+    program) into the default programs: the reference's
+    ``BertModel(cfg)`` constructed and called in static mode.  Returns
+    ``(sequence_output [B, S, D], pooled [B, D])``.  The FFN is fused
+    under ``PADDLE_TPU_FUSED_FFN=1``, as in the reference."""
+    _check_head_layout()
+    fused_ffn = _fused_ffn_enabled()
+    d = cfg.hidden_size
+    word = _Embedding(cfg, cfg.vocab_size)
+    position = _Embedding(cfg, cfg.max_position_embeddings)
+    token_type = _Embedding(cfg, cfg.type_vocab_size)
+    emb_ln = _LayerNorm(d)
+    layers = [_EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers)]
+    pooler = _Linear(cfg, d, d, act="tanh")
+
+    attn_bias = None
+    if attention_mask is not None:
+        m = T.cast(attention_mask, "float32")
+        m = T.reshape(m, [0, 1, 1, int(attention_mask.shape[-1])])
+        attn_bias = (m + (-1.0)) * 10000.0  # 0 -> -1e4, 1 -> 0
+    emb = word(input_ids) + position(position_ids) + token_type(
+        token_type_ids)
+    h = _dropout(emb_ln(emb), cfg.hidden_dropout_prob)
+    for layer in layers:
+        h = layer(h, attn_bias, fused_ffn)
+    first = T.reshape(T.slice(h, axes=[1], starts=[0], ends=[1]), [0, d])
+    return h, pooler(first)
+
+
+def bert_program(cfg, seq_len):
+    """Fresh ``(main, startup, feed_names, (sequence_output, pooled))``
+    for BERT at ``seq_len``, built under a fresh `unique_name.guard()`.
+    Feeds: int64 ``[-1, seq_len]`` input_ids, token_type_ids,
+    position_ids and attention_mask (1 = attend)."""
+    main, startup = framework.Program(), framework.Program()
+    with unique_name.guard(), framework.program_guard(main, startup):
+        feeds = [T.data(n, [-1, seq_len], "int64", append_batch_size=False)
+                 for n in FEED_NAMES]
+        outs = build_bert(cfg, *feeds)
+    return main, startup, list(FEED_NAMES), outs

@@ -214,6 +214,35 @@ def test_remat_draws_the_same_dropout_masks():
     assert not torch.equal(other, out[True][0][0])
 
 
+def test_the_seed_reaches_cpu_dropout_masks():
+    """A CPU generator keeps only the low 32 bits of its seed: the step's
+    seed, step and micro-batch index must all reach them.  Seeds 3 and 4
+    draw different keep masks and losses; one seed draws the same twice
+    (``accumulate_steps=1`` stays deterministic)."""
+    from paddle_tpu_torch.distributed.train_step import _step_generator
+
+    def mask(*args, **kw):
+        g = _step_generator(*args, torch.device("cpu"), **kw)
+        return torch.rand(64, 64, generator=g) < 0.9
+
+    assert not torch.equal(mask(3, 0), mask(4, 0))
+    assert not torch.equal(mask(3, 0), mask(3, 1))
+    assert not torch.equal(mask(3, 0, micro=0), mask(3, 0, micro=1))
+    assert not torch.equal(mask(3, 0), mask(3, 0, micro=0))
+    assert torch.equal(mask(3, 5), mask(3, 5))
+    cfg = models.BertConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.1
+    tm = models.BertForPretraining(cfg, device="cpu")
+    losses = {}
+    for seed in (3, 4, 3):
+        step = distributed.ShardedTrainStep(
+            tm, _OPTS["sgd"](optimizer), _loss_fn, seed=seed, donate=False)
+        _, loss = step(step.init(), _batch(0))
+        losses.setdefault(seed, []).append(loss)
+    assert not torch.equal(losses[3][0], losses[4][0])
+    assert torch.equal(losses[3][0], losses[3][1])
+
+
 def _resnet_batch(seed):
     rng = np.random.RandomState(seed)
     return {"image": rng.standard_normal((4, 3, 32, 32)).astype(np.float32),
