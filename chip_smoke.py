@@ -60,7 +60,15 @@ a static program (`models.bert_program`), saves it with the static
 core's `save_inference_model` and serves it through `create_predictor`
 with `matmul_bias_act_fuse` at B = 1, 4 and 8 (12 kernel-1 and 13
 kernel-5 launches a forward, the kernels on the path's arguments and
-one batch against the plain versions, p50 and a profile a batch size).
+one batch against the plain versions, p50 and a profile a batch size);
+then builds BERT-base pretraining as a static program
+(`models.bert_pretraining_program`: MLM over 20 masked positions, NSP,
+AdamW) and trains it through the Executor (B = 32, S = 128, f32,
+dropout 0.1, the fused FFN): kernels 1, 4 (or 2 and 3), 5, 6 and 7
+once a layer a step, falling losses, one dropout-0 step against the
+plain versions, the inference clone against the training forward, p50
+/ p99, tokens/s, model TFLOP/s, peak memory, a profiled step and the
+path's kernels at its shapes.
 
     python3 chip_smoke.py
 
@@ -4155,6 +4163,414 @@ def static_serve(ptt):
             "kernel_rows": kernel_rows}
 
 
+# ---------------------------------------------------------------------------
+# the static-graph training path: a BERT-base pretraining program built,
+# differentiated and trained by the Executor through kernels 1, 4 (or 2
+# and 3), 5, 6 and 7
+# ---------------------------------------------------------------------------
+
+# the google-research/bert README's phase-1 settings (max_seq_length 128,
+# max_predictions_per_seq 20, train_batch_size 32), f32, dropout 0.1,
+# the fused FFN, AdamW(1e-4, wd 0.01)
+STATIC_TRAIN_B, STATIC_TRAIN_P = 32, 20
+STATIC_TRAIN_WARMUP, STATIC_TRAIN_STEPS = 2, 10
+STATIC_TRAIN_SEED = 29
+STATIC_TRAIN_LR = 1e-4
+STATIC_TRAIN_REL = 1e-4       # kernels vs plain: the loss, each parameter
+
+
+def static_train_feed(cfg, seed, b=STATIC_TRAIN_B, s=STATIC_S,
+                      p=STATIC_TRAIN_P):
+    """One pretraining batch (int64, numpy, as a user feeds it): row 0
+    pads its last quarter through ``attention_mask``; P sorted masked
+    positions a row, row 1's last prediction weighted 0 (padding)."""
+    rng = np.random.RandomState(seed)
+    mask = np.ones((b, s), np.int64)
+    mask[0, 3 * s // 4:] = 0
+    weights = np.ones((b, p), np.float32)
+    weights[1, -1] = 0.0
+    return {
+        "input_ids": rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int64),
+        "token_type_ids": rng.randint(0, 2, (b, s)).astype(np.int64),
+        "position_ids": np.tile(np.arange(s, dtype=np.int64), (b, 1)),
+        "attention_mask": mask,
+        "masked_positions": np.stack([np.sort(rng.choice(
+            3 * s // 4, p, replace=False)) for _ in range(b)]).astype(
+                np.int64),
+        "mlm_labels": rng.randint(0, cfg.vocab_size, (b, p)).astype(np.int64),
+        "mlm_weights": weights,
+        "nsp_labels": rng.randint(0, 2, (b, 1)).astype(np.int64)}
+
+
+def static_train_program(ptt, dropout):
+    """(cfg, main, startup, loss): `models.bert_pretraining_program` at
+    STATIC_BERT's widths with ``dropout``, the fused FFN and
+    AdamW(STATIC_TRAIN_LR, wd 0.01); the startup program seeded."""
+    cfg = ptt.models.BertConfig(**STATIC_BERT, hidden_dropout_prob=dropout,
+                                attention_probs_dropout_prob=dropout)
+    with _env("PADDLE_TPU_FUSED_FFN", "1"):
+        main, startup, _, loss = \
+            ptt.models.bert_program.bert_pretraining_program(
+                cfg, STATIC_S, STATIC_TRAIN_P,
+                optimizer=ptt.optimizer.AdamWOptimizer(
+                    STATIC_TRAIN_LR, weight_decay=0.01))
+    startup.random_seed = STATIC_TRAIN_SEED
+    return cfg, main, startup, loss
+
+
+def static_train_flops(cfg, b, s, p):
+    """`flops_per_step`'s model FLOPs for the static program's BERT: 6 a
+    matmul parameter a token for the trunk (encoder, embedding LayerNorm,
+    pooler, NSP head), the MLM head (mlm_transform and the tied decoder)
+    on the P masked rows, and the attention term 12 L S d a token."""
+    d, f, v, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_hidden_layers)
+    layer = 4 * d * d + 4 * d + 2 * d * f + f + d + 4 * d
+    trunk = L * layer + 2 * d + d * d + d + 2 * d + 2
+    head = v * d + d * d + d + v
+    return b * s * (6.0 * trunk + 12.0 * L * d * s) + b * p * 6.0 * head
+
+
+def _static_train_launches(ops, cfg, b):
+    """Launches a step: kernels 1, 5, 6, 7 once a layer; the backward
+    `ops.attention._use_fused_bwd` picks for B*H heads of S = STATIC_S,
+    f32 (kernel 4, or kernels 2 and 3); none of 8-11."""
+    L, h = cfg.num_hidden_layers, cfg.num_attention_heads
+    fused = ops.attention._use_fused_bwd(
+        b * h, STATIC_S, STATIC_S, cfg.hidden_size // h,
+        ops.attention._sm_count(torch.device("cuda")), torch.float32)
+    want = {name: 0 for name in ops.KERNEL_WRAPPERS}
+    want.update(flash_fwd=L, matmul_bias_act=L, matmul_bwd_dx=L,
+                matmul_bwd_dw=L)
+    if fused:
+        want["flash_bwd_fused"] = L
+    else:
+        want.update(flash_bwd_dq=L, flash_bwd_dkv=L)
+    return want, fused
+
+
+def static_train_kernel_rows(ops, calls, fused):
+    """Kernels 1, 4 (or 2 + 3), 5, 6 and 7 on the arguments the static
+    training path gave kernels 1 and 5 (its first call of each), with a
+    seeded output gradient: errors against the plain versions (f32
+    limits), then each timed beside its plain version, the library call
+    (SDPA's forward and backward; F.linear + gelu and its dX, dW + dbias
+    on a retained graph) and its bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    f32 = torch.float32
+    rows = []
+    q, k, v, kw = calls["flash"][0]
+    q, k, v = (t.detach() for t in (q, k, v))
+    bias = kw.get("bias")
+    bias = bias.detach() if bias is not None else None
+    b, s, h, d = q.shape
+    scale, layout = kw["scale"], kw["layout"]
+    o, lse = ops.flash_fwd(q, k, v, bias, None, scale, False, layout,
+                           with_lse=True)
+    do = torch.randn(o.shape, device="cuda", generator=gen)
+    o_ref, _ = ops.flash_attention_reference(q, k, v, bias, None, scale,
+                                             False, layout)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, bias, None, scale,
+                                  False, layout, bias_grad=True)
+    want = ops.flash_attention_bwd_reference(q, k, v, bias, None, o, do,
+                                             lse, scale, False, layout)
+    torch.cuda.synchronize()
+    errs = {"o": compare("static train flash o", o, o_ref, TOL[f32])[0]}
+    for tag, g_, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
+        errs[tag] = compare("static train flash " + tag, g_, w_,
+                            GRAD_TOL[f32])[0]
+    lib_fwd, lib_bwd, _ = _library_attention(q, k, v, do, bias, None,
+                                             False, scale)
+    x_ = b * s * h * d * 4
+    pairs = b * h * s * s * d
+    bwd_name = "flash_bwd_fused" if fused else "flash_bwd_dq+flash_bwd_dkv"
+    rows.append({
+        "kernel": "flash_fwd", "B": b, "S": s, "H": h, "D": d,
+        "layout": layout, "bias": list(bias.shape),
+        "max_abs_err": errs["o"],
+        "ms": time_ms(lambda: ops.flash_fwd(q, k, v, bias, None, scale,
+                                            False, layout, with_lse=True)),
+        "plain_ms": time_ms(lambda: ops.flash_attention_reference(
+            q, k, v, bias, None, scale, False, layout), iters=5, warmup=1),
+        "library_ms": lib_fwd,
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            4 * x_ + b * h * s * 4 + b * s * 4, 4 * pairs, f32)))})
+    rows.append({
+        "kernel": bwd_name, "B": b, "S": s, "H": h, "D": d,
+        "dbias": True, "max_abs_err": max(errs[t] for t in (
+            "dq", "dk", "dv", "dbias")), "errors": errs,
+        "ms": time_ms(lambda: ops.flash_attention_bwd(
+            q, k, v, o, do, lse, bias, None, scale, False, layout,
+            bias_grad=True)),
+        "plain_ms": time_ms(lambda: ops.flash_attention_bwd_reference(
+            q, k, v, bias, None, o, do, lse, scale, False, layout),
+            iters=5, warmup=1),
+        "library_ms": lib_bwd,
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            8 * x_ + b * h * s * 4 + b * s * 4 + b * h * s * 4,
+            10 * pairs, f32)))})
+
+    x, w, bias, kw = calls["mba"][0]
+    x, w, bias = (t.detach() for t in (x, w, bias))
+    act = kw.get("activation", "none")
+    m, kk = x.shape
+    n = w.shape[0]
+    y, z = ops.matmul_bias_act_fwd(x, w, bias, act, emit_z=True)
+    g = torch.randn(m, n, device="cuda", generator=gen)
+    res = z if ops.matmul._residual_kind(act) == "z" else y
+    dx = ops.matmul_bwd_dx(g, res, w, act)
+    dw, db = ops.matmul_bwd_dw(x, g, res, act, bias=bias)
+    y_ref, z_ref = ops.matmul_bias_act_reference(x, w, bias, act,
+                                                 emit_z=True)
+    dx_ref, dw_ref, db_ref = ops.matmul_bias_act_bwd_reference(
+        x, w, bias, res, g, act)
+    torch.cuda.synchronize()
+    e = {tag: compare("static train matmul " + tag, got_, want_,
+                      gemm_tol(f32, want_))[0]
+         for tag, got_, want_ in (("y", y, y_ref), ("z", z, z_ref),
+                                  ("dx", dx, dx_ref), ("dw", dw, dw_ref),
+                                  ("dbias", db, db_ref))}
+    xl, wl, bl = (t.detach().requires_grad_() for t in (x, w, bias))
+    out = F.gelu(F.linear(xl, wl, bl))
+    flops = 2 * m * n * kk
+    for name, err, ms, plain_ms, lib_ms, nbytes in (
+            ("matmul_bias_act", max(e["y"], e["z"]),
+             time_ms(lambda: ops.matmul_bias_act_fwd(x, w, bias, act,
+                                                     emit_z=True)),
+             time_ms(lambda: ops.matmul_bias_act_reference(
+                 x, w, bias, act, emit_z=True), iters=5, warmup=1),
+             time_ms(lambda: F.gelu(F.linear(x, w, bias))),
+             m * kk + n * kk + n + 2 * m * n),
+            ("matmul_bwd_dx", e["dx"],
+             time_ms(lambda: ops.matmul_bwd_dx(g, res, w, act)),
+             time_ms(lambda: ops.matmul_bias_act_bwd_reference(
+                 x, w, bias, res, g, act, needs=(True, False, False)),
+                 iters=5, warmup=1),
+             time_ms(lambda: torch.autograd.grad(out, (xl,), g,
+                                                 retain_graph=True)),
+             2 * m * n + n * kk + m * kk),
+            ("matmul_bwd_dw", max(e["dw"], e["dbias"]),
+             time_ms(lambda: ops.matmul_bwd_dw(x, g, res, act, bias=bias)),
+             time_ms(lambda: ops.matmul_bias_act_bwd_reference(
+                 x, w, bias, res, g, act, needs=(False, True, True)),
+                 iters=5, warmup=1),
+             time_ms(lambda: torch.autograd.grad(out, (wl, bl), g,
+                                                 retain_graph=True)),
+             m * kk + 2 * m * n + n * kk + n)):
+        rows.append({"kernel": name, "M": m, "K": kk, "N": n, "act": act,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms,
+                     **dict(zip(("bound_ms", "bound_by"),
+                                bound(nbytes * 4, flops, f32)))})
+    del out
+    emit({"phase": "static_train_kernels", "rows": rows})
+    return rows
+
+
+def _copy_scope(fluid, scope, names):
+    out = fluid.Scope()
+    for n in names:
+        out.set(n, scope.find_var(n).clone())
+    return out
+
+
+def static_train_vs_plain(ptt):
+    """One step of the pretraining program at dropout 0 from one seeded
+    startup, run through the kernels and, from a copy of the same state,
+    through their plain versions on the card (autograd through the
+    plain forwards).  Gates: the loss within STATIC_TRAIN_REL of itself;
+    each parameter's gradient within STATIC_TRAIN_REL of its scale (max
+    |g|); each updated parameter within STATIC_TRAIN_REL of its scale
+    (max |p|) beyond what AdamW makes of the two gradients.  The first
+    AdamW step moves an element by lr g / (|g| + 3.2e-7): by +-lr
+    whatever |g| is, unless |g| is near 3.2e-7, where a gradient's
+    last-bit difference moves it by up to lr x 1e-8 / 3.2e-7; a zero-init
+    bias's scale is lr itself.  So the update of each run's own gradient
+    (`optimizer.adamw` on the initial state) is subtracted first: what
+    remains is the update's own error."""
+    fluid, ops = ptt.fluid, ptt.ops
+    cfg, main, startup, loss = static_train_program(ptt, 0.0)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [v.name for v in main.list_vars() if v.persistable]
+    params = [p.name for p in main.all_parameters()]
+    plain_scope = _copy_scope(fluid, scope, names)
+    start = _copy_scope(fluid, scope, params)
+    feed = static_train_feed(cfg, 2)
+    fetch = [loss.name] + [n + "@GRAD" for n in params]
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                  return_numpy=False)
+    ops.reset_launch_counts()
+    p1, p2 = _plain_static(ops)
+    with p1, p2:
+        want = exe.run(main, feed=feed, fetch_list=fetch,
+                       scope=plain_scope, return_numpy=False)
+    if any(ops.launch_counts().values()):
+        raise AssertionError("the plain step launched %s"
+                             % ops.launch_counts())
+    loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    opt = ptt.optimizer.AdamWOptimizer(STATIC_TRAIN_LR, weight_decay=0.01)
+    worst_g, worst_p = (-1.0, ""), (-1.0, "")
+    for n, g_k, g_p in zip(params, got[1:], want[1:]):
+        g_scale = g_p.abs().max().item()
+        err = (g_k - g_p).abs().max().item()
+        worst_g = max(worst_g, (err / g_scale if g_scale else err, n))
+        p0 = start.find_var(n)
+        u_k, u_p = (ptt.optimizer.adamw(
+            [p0], [g], STATIC_TRAIN_LR, *([v] for v in opt.init_slots(p0)
+                                          .values()), **opt.attrs())[0][0]
+            for g in (g_k, g_p))
+        a, b_ = scope.find_var(n), plain_scope.find_var(n)
+        scale = b_.abs().max().item()
+        err = ((a - b_) - (u_k - u_p)).abs().max().item()
+        worst_p = max(worst_p, (err / scale if scale else err, n))
+    if not (loss_rel <= STATIC_TRAIN_REL and worst_g[0] <= STATIC_TRAIN_REL
+            and worst_p[0] <= STATIC_TRAIN_REL
+            and np.isfinite(got[0].item())):
+        raise AssertionError(
+            "static train step vs plain: loss %g vs %g (rel %g), worst "
+            "gradient %s at %g of its scale, worst parameter %s at %g of "
+            "its scale beyond the gradients' AdamW updates; limit %g" % (
+                got[0].item(), want[0].item(), loss_rel, worst_g[1],
+                worst_g[0], worst_p[1], worst_p[0], STATIC_TRAIN_REL))
+    return {"loss": got[0].item(), "plain_loss": want[0].item(),
+            "loss_rel_err": loss_rel, "max_grad_rel_err": worst_g[0],
+            "worst_grad": worst_g[1], "max_param_rel_err": worst_p[0],
+            "worst_param": worst_p[1], "limit": STATIC_TRAIN_REL}
+
+
+def static_train(ptt):
+    """BERT-base pretraining as a static program, trained by the
+    Executor on the card: `models.bert_pretraining_program` (MLM over
+    P = 20 masked positions with the tied decoder, NSP; vocab 30522, 12
+    layers, hidden 768, 12 heads, FFN 3072; S = 128, B = 32, f32,
+    dropout 0.1, the fused FFN) with AdamWOptimizer(1e-4, wd
+    0.01).minimize, the startup program run on the card from a fixed
+    seed, two seeded batches alternating over STATIC_TRAIN_WARMUP +
+    STATIC_TRAIN_STEPS steps.  Gates: each step launches kernels 1, 5,
+    6 and 7 once a layer and the flash backward the dispatch picks
+    (kernel 4, or 2 and 3) once a layer, none of 8-11 (12 kernel-1 and
+    12 kernel-5 launches: the tape recomputes nothing); finite, falling
+    losses; one dropout-0 step against the plain versions
+    (`static_train_vs_plain`); the trained program's
+    ``clone(for_test=True)`` serves a batch equal to the training
+    forward at is_test.  Then p50 / p99 a step (CUDA events), tokens/s,
+    model TFLOP/s, peak memory, a profiled step, and the path's kernels
+    at its shapes (`static_train_kernel_rows`)."""
+    fluid, ops = ptt.fluid, ptt.ops
+    t0 = time.perf_counter()
+    cfg, main, startup, loss = static_train_program(ptt, 0.1)
+    t1 = time.perf_counter()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    types = [o.type for o in main.global_block.ops]
+    b, s, p = STATIC_TRAIN_B, STATIC_S, STATIC_TRAIN_P
+    want, fused = _static_train_launches(ops, cfg, b)
+    feeds = [static_train_feed(cfg, seed) for seed in (0, 1)]
+
+    def step(i):
+        out, = exe.run(main, feed=feeds[i % 2], fetch_list=[loss],
+                       scope=scope, return_numpy=False)
+        return out
+
+    losses, per_step = [], []
+    for i in range(STATIC_TRAIN_WARMUP):
+        ops.reset_launch_counts()
+        losses.append(step(i).item())
+        per_step.append(ops.launch_counts())
+        _expect_launches("static train step %d" % i, per_step[-1], want)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(STATIC_TRAIN_STEPS + 1)]
+    outs = []
+    t3 = time.perf_counter()
+    evs[0].record()
+    for n in range(STATIC_TRAIN_STEPS):
+        outs.append(step(STATIC_TRAIN_WARMUP + n))
+        evs[n + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t3
+    run_launches = ops.launch_counts()
+    _expect_launches("static train run", run_launches,
+                     {k: v * STATIC_TRAIN_STEPS for k, v in want.items()})
+    peak = torch.cuda.max_memory_allocated()
+    ms = [evs[n].elapsed_time(evs[n + 1]) for n in range(STATIC_TRAIN_STEPS)]
+    losses += [o.item() for o in outs]
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-2:]) < np.mean(losses[:2])):
+        raise AssertionError("static train losses: %s" % losses)
+
+    # the arguments kernels 1 and 5 got on the path, one more step
+    calls = _recorded_calls(ops, lambda: step(0))
+    prof = device_profile(lambda: step(1))
+    # the trained program's inference clone against its training forward
+    # at is_test (the clone's ops, and the training program's own run
+    # with the whole block in test mode)
+    test_prog = main.clone(for_test=True)
+    ops.reset_launch_counts()
+    served, = exe.run(test_prog, feed=feeds[0], fetch_list=[loss],
+                      scope=scope)
+    serve_launches = ops.launch_counts()
+    as_test = main.clone()
+    as_test._is_test = True
+    trained, = exe.run(as_test, feed=feeds[0], fetch_list=[loss],
+                       scope=scope)
+    clone_err = compare("static train clone(for_test) loss",
+                        torch.from_numpy(served), torch.from_numpy(trained),
+                        TOL[torch.float32])
+    _expect_launches("static train clone(for_test) forward", serve_launches,
+                     {k: (v if k in ("flash_fwd", "matmul_bias_act") else 0)
+                      for k, v in want.items()})
+    del scope, exe
+    kernel_rows = static_train_kernel_rows(ops, calls, fused)
+    del calls
+    vs_plain = static_train_vs_plain(ptt)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    flops = static_train_flops(cfg, b, s, p)
+    p50 = float(np.percentile(ms, 50))
+    emit({"phase": "static_train", "nvidia_smi": smi,
+          "config": dict(STATIC_BERT, S=s, B=b, P=p, dtype="float32",
+                         dropout=0.1, fused_ffn=True,
+                         optimizer="AdamW(%g, wd 0.01)" % STATIC_TRAIN_LR,
+                         startup_seed=STATIC_TRAIN_SEED),
+          "flash_backward": "fused (kernel 4)" if fused
+          else "pair (kernels 2 and 3)",
+          "build_s": t1 - t0, "startup_s": t2 - t1,
+          "ops_per_step": len(types),
+          "op_types": {t: types.count(t) for t in sorted(set(types))},
+          "parameters": len(main.all_parameters()),
+          "launches_per_step": per_step[-1], "run_launches": run_launches,
+          "steps": STATIC_TRAIN_STEPS, "losses": losses,
+          "step_ms": ms, "p50_ms": p50,
+          "p99_ms": float(np.percentile(ms, 99)),
+          "wall_s": wall,
+          "tokens_per_s": b * s * STATIC_TRAIN_STEPS / (sum(ms) / 1e3),
+          "model_flops_per_step": flops,
+          "model_tflops_at_p50": flops / p50 / 1e9,
+          "share_of_67_tflops": flops / p50 / 1e9 / 67.0,
+          "peak_memory_gb": peak / 1e9,
+          "clone_for_test": {"loss": float(served),
+                             "training_forward_at_is_test": float(trained),
+                             "max_abs_err": clone_err[0],
+                             "launches": serve_launches},
+          "vs_plain": vs_plain, "profile": prof})
+    return {"per_step": per_step[-1], "run_launches": run_launches,
+            "steps": STATIC_TRAIN_STEPS, "kernel_rows": kernel_rows,
+            "fused": fused}
+
+
 REDESIGNED_KERNELS = ("matmul_fwd_tc", "conv_bn_relu_tc", "conv_bn_stats_tc",
                       "decode_dense_kernel", "decode_paged_kernel")
 
@@ -4242,6 +4658,7 @@ def main():
         ptt, resnet_params)
     eager_launches = train_eager(ptt)
     static = static_serve(ptt)
+    static_tr = static_train(ptt)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -4259,6 +4676,15 @@ def main():
                 "requests": static["requests"],
                 "shapes": [r for r in static["kernel_rows"]
                            if r["kernel"] == name]}
+
+    def static_train_entry(name):
+        """The kernel on the static-graph training path: launches a step
+        and over the timed steps, and its row at the path's shapes."""
+        row = [r for r in static_tr["kernel_rows"]
+               if name in r["kernel"].split("+")]
+        return {"launches_per_step": static_tr["per_step"][name],
+                "run_launches": static_tr["run_launches"][name],
+                "steps": static_tr["steps"], "shapes": row}
 
     def flash_entry(name, source, line, n, max_abs_err, ms, plain_ms,
                     library_ms):
@@ -4311,32 +4737,37 @@ def main():
              draft_prefill=dict(draft_flash_row, speculative_run_launches=(
                  launches["engine_speculative"]["flash_fwd"])),
              train_lamb_run_launches=lamb_launches["flash_fwd"],
-             static_serve=static_entry("flash_fwd")),
+             static_serve=static_entry("flash_fwd"),
+             static_train=static_train_entry("flash_fwd")),
         dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
                          pair_launches["flash_bwd_dq"], err["pair_dq"],
                          main["dq_ms"], main["plain_bwd_ms"],
                          main["library_bwd_ms"]),
              d128=d128_bwd("dq_ms", ("pair_dq", "pair_delta")),
-             train_lamb_run_launches=lamb_launches["flash_bwd_dq"]),
+             train_lamb_run_launches=lamb_launches["flash_bwd_dq"],
+             static_train=static_train_entry("flash_bwd_dq")),
         dict(flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
                          pair_launches["flash_bwd_dkv"],
                          max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
                          main["plain_bwd_ms"], main["library_bwd_ms"]),
              d128=d128_bwd("dkv_ms", ("pair_dk", "pair_dv")),
-             train_lamb_run_launches=lamb_launches["flash_bwd_dkv"]),
+             train_lamb_run_launches=lamb_launches["flash_bwd_dkv"],
+             static_train=static_train_entry("flash_bwd_dkv")),
         dict(flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
                          train_launches["flash_bwd_fused"],
                          max(err["fused_dq"], err["fused_dk"],
                              err["fused_dv"]),
                          main["fused_ms"], main["plain_bwd_ms"],
                          main["library_bwd_ms"]),
-             train_lamb_run_launches=lamb_launches["flash_bwd_fused"]),
+             train_lamb_run_launches=lamb_launches["flash_bwd_fused"],
+             static_train=static_train_entry("flash_bwd_fused")),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="paddle_tpu/ops/pallas/decode_attention.py:73",
              launches=launches["decode_attention"],
              draft_decode=dict(draft_decode_row, speculative_run_launches=(
                  launches["engine_speculative"]["decode_attention"])),
+             static_train=static_train_entry("decode_attention"),
              **dense_row),
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
@@ -4353,7 +4784,8 @@ def main():
              serving_kill_run_launches=launches["serving_kill"][
                  "paged_attention"],
              disagg_decode_launches=[launches[k]["paged_attention"] for k in (
-                 "disagg_decode", "disagg_int8_decode")], **paged_row),
+                 "disagg_decode", "disagg_int8_decode")],
+             static_train=static_train_entry("paged_attention"), **paged_row),
     ]
 
     # the fused-epilogue GEMM kernels at the FFN's shape (M = 30720, K =
@@ -4376,12 +4808,15 @@ def main():
              schedule="%d CTAs over %d tiles" % (mm_main["fwd_ctas"],
                                                  mm_main["fwd_tiles"]),
              cublas_gemm_ms=mm_main["cublas_gemm_ms"]["fwd"],
-             static_serve=static_entry("matmul_bias_act")),
+             static_serve=static_entry("matmul_bias_act"),
+             static_train=static_train_entry("matmul_bias_act")),
         dict(mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"],
-                      "dx"), tile=mm_main["bwd_tile"], splits=1),
+                      "dx"), tile=mm_main["bwd_tile"], splits=1,
+             static_train=static_train_entry("matmul_bwd_dx")),
         dict(mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
                       max(mm_err["dw"], mm_err["dbias"]), "dw"),
-             tile=mm_main["bwd_tile"], splits=mm_main["dw_splits"]),
+             tile=mm_main["bwd_tile"], splits=mm_main["dw_splits"],
+             static_train=static_train_entry("matmul_bwd_dw")),
     ]
 
     # the 1x1 conv + BN + relu kernel over one bf16 ResNet-50 forward at
@@ -4411,6 +4846,7 @@ def main():
         library_ms=fwd_sum("library_ms"), cublas_gemm_ms=fwd_sum(
             "cublas_gemm_ms"),
         f32_launches=resnet_launches["float32"]["conv_bn_relu"],
+        static_train=static_train_entry("conv_bn_relu"),
         per_shape=[{k: r[k] for k in keep} for r in conv_rows]))
 
     # the 1x1 conv + BN-statistics kernel over one bf16 ResNet-50 train
@@ -4441,6 +4877,7 @@ def main():
         stats_max_rel_err=max(max(r["mean_rel_err"], r["var_rel_err"])
                               for r in stats_rows),
         train_eager_run_launches=eager_launches["conv_bn_stats"],
+        static_train=static_train_entry("conv_bn_stats"),
         per_shape=[{k: r[k] for k in keep11} for r in stats_main]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -332,7 +332,7 @@ class ProgramVerifier:
                                 block_idx=block.idx, op_idx=oidx,
                                 op_type=op.type, var_names=[name],
                                 provenance=_provenance(op))
-                        want_dt = dtypes_mod.to_str(st.dtype)
+                        want_dt = dtypes_mod.recorded(st.dtype)
                         if not v.persistable and v.dtype != want_dt:
                             # persistable outs keep their declared dtype at
                             # build time too (_infer_op skips them)

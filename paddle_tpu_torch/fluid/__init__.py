@@ -1,24 +1,28 @@
 """The static-graph Fluid core of the port: Program IR, op registry,
-Executor, io and IR passes.
+Executor, backward, the static optimizers, io and IR passes.
 
 Counterpart of `paddle_tpu/fluid/` (the static half), with the same
 module names and the same JSON IR.  Tensors are torch tensors on an
 explicit `torch.device` (``CPUPlace`` / ``CUDAPlace``; the card unless
 the caller asks for the CPU), random ops draw from explicit
 `torch.Generator`s, and a block runs op by op.  The op library holds
-the ops a static BERT and a small fc MLP serve with and are
-initialized by; training of static programs (``backward``, the
-optimizer ops) waits for a later slice.
+the ops a static BERT pretraining program and a small fc MLP train and
+serve with and are initialized by, and the 13 dense update ops;
+``append_backward`` / ``gradients`` and ``optimizer``'s ``minimize``
+build training programs, which the `Executor` runs.
 """
 
 from . import ops  # registers every operator of the port  # noqa: F401
 from . import (  # noqa: F401
+    backward,
     initializer,
     io,
     ir,
     layers,
+    optimizer,
     unique_name,
 )
+from .backward import append_backward, gradients  # noqa: F401
 from .core.place import (  # noqa: F401
     CPUPlace,
     CUDAPlace,

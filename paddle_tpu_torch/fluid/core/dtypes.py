@@ -39,3 +39,15 @@ def to_str(dtype):
         return dtype
     return str(np.dtype(dtype))
 
+
+def is_floating(dtype):
+    return to_torch(dtype).is_floating_point
+
+
+def recorded(dtype):
+    """The dtype name the IR records for an op's inferred output.  The
+    reference infers under JAX's default 32-bit mode, where an int64
+    result comes out int32, so a program records ``int32`` there (the
+    port's tensors keep their own dtype at run time)."""
+    name = to_str(dtype)
+    return "int32" if name == "int64" else name

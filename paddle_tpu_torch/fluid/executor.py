@@ -1,13 +1,20 @@
 """Executor: run a Program's global block op by op on one device.
 
-Counterpart of `paddle_tpu/fluid/executor.py`, inference and startup
-only (training programs wait for the backward slice).  The reference
-traces the whole block into one XLA computation; the port interprets
-it eagerly (`core.block_eval.run_ops`), each op's lowering launching
-its own kernels on the Executor's device.  Persistable state lives in
-a `Scope` of torch tensors: a run reads the persistable vars it needs
-from the scope and writes the persistable vars it produces (a startup
-program's parameters) back to it.
+Counterpart of `paddle_tpu/fluid/executor.py`: startup, inference and
+training runs.  The reference traces the whole block into one XLA
+computation; the port interprets it eagerly (`core.block_eval.run_ops`),
+each op's lowering launching its own kernels on the Executor's device.
+Persistable state lives in a `Scope` of torch tensors: a run reads the
+persistable vars it needs from the scope and writes the persistable
+vars it produces (a startup program's parameters, a training program's
+updated parameters, accumulators and learning rate) back to it.
+
+A block runs without autograd, except in a training run (a block with
+``vjp_grad`` ops, `backward.append_backward`): there the forward ops
+the ``vjp_grad`` ops differentiate run under autograd on a tape
+(`core.block_eval.TapePlan`), freed op by op as their gradients are
+taken.  The optimizer update ops then update the scope's parameter and
+state tensors in place.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from ..device import seeded_generator
 from . import framework
 from .core import dtypes as dtypes_mod
 from .core import scope as scope_mod
-from .core.block_eval import run_ops
+from .core.block_eval import TapePlan, run_ops
 from .core.place import Place, default_place
 from .core.registry import LowerContext
 from .core.scope import Scope, global_scope
@@ -64,6 +71,8 @@ class _Plan:
                     state_out.append(name)
         self.state_in = state_in
         self.state_out = state_out
+        self.tape = TapePlan(block.ops) if TapePlan.needed(block.ops) \
+            else None
 
 
 def to_tensor(value, dtype, device):
@@ -137,7 +146,7 @@ class Executor:
         ctx = LowerContext(generator=self._generator(program),
                            is_test=program._is_test, device=self.device)
         with torch.no_grad():
-            run_ops(block.ops, env, ctx)
+            run_ops(block.ops, env, ctx, plan.tape)
         for n in plan.state_out:
             scope.set(n, env[n])
         fetches = [env[n] for n in fetch_names]

@@ -23,6 +23,8 @@ from . import unique_name
 from .core import dtypes as dtypes_mod
 from .core.registry import LowerContext, get_op_def
 
+GRAD_SUFFIX = "@GRAD"
+
 # Sentinel extent substituted for -1 dims during graph-time shape inference;
 # a large prime so it never collides with a real layer dimension, letting us
 # map it back to -1 in inferred output shapes.
@@ -134,6 +136,9 @@ class Variable:
     def __sub__(self, o):
         return self._binary(o, "elementwise_sub")
 
+    def __rsub__(self, o):
+        return self._binary(o, "elementwise_sub", True)
+
     def __mul__(self, o):
         return self._binary(o, "elementwise_mul")
 
@@ -142,6 +147,9 @@ class Variable:
 
     def __truediv__(self, o):
         return self._binary(o, "elementwise_div")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elementwise_div", True)
 
     def __neg__(self):
         from .layers import ops as _ops
@@ -325,7 +333,7 @@ class Block:
                     self.vars[name] = v
                 if v.shape is None or not v.persistable:
                     v.shape = shape
-                    v.dtype = dtypes_mod.to_str(st.dtype)
+                    v.dtype = dtypes_mod.recorded(st.dtype)
 
     def to_dict(self):
         return {
@@ -466,6 +474,12 @@ class Program:
             for o in b.ops:
                 lines.append("  " + repr(o))
         return "\n".join(lines)
+
+
+def grad_var_name(name):
+    """``<name>@GRAD``: the name `backward.append_backward` gives the
+    total gradient of var ``name``."""
+    return name + GRAD_SUFFIX
 
 
 # ---------------------------------------------------------------------------

@@ -2,20 +2,31 @@
 (counterpart of `paddle_tpu/fluid/layers/`, the parts that build the
 ops the port has)."""
 
-from . import common, math_op_patch, nn, ops, tensor  # noqa: F401
+from . import common, loss, math_op_patch, nn, ops, tensor  # noqa: F401
+from .loss import softmax_with_cross_entropy, square_error_cost  # noqa: F401
 from .nn import dropout, embedding, fc, layer_norm  # noqa: F401
 from .ops import (  # noqa: F401
     elementwise_add,
+    elementwise_div,
+    elementwise_mul,
+    elementwise_sub,
     gelu,
+    matmul,
+    mean,
     mul,
+    reduce_mean,
+    reduce_sum,
     relu,
     scale,
+    square,
     tanh,
 )
 from .tensor import (  # noqa: F401
+    assign,
     cast,
     data,
     fill_constant,
     reshape,
     slice,
+    take_along_axis,
 )

@@ -48,3 +48,21 @@ def slice(input, axes, starts, ends):
         {"Input": input},
         {"axes": list(axes), "starts": list(starts), "ends": list(ends)},
     )
+
+
+def assign(input, output=None):
+    """cf. reference layers/tensor.py assign (a Variable input; the numpy
+    form needs ``assign_value``, not ported yet)."""
+    if output is None:
+        return append_simple_op("assign", {"X": input})
+    block = framework.default_main_program().current_block()
+    block.append_op(
+        "assign", inputs={"X": [input.name]}, outputs={"Out": [output.name]}
+    )
+    return output
+
+
+def take_along_axis(input, index, axis):
+    return append_simple_op(
+        "take_along_axis", {"Input": input, "Index": index},
+        {"Axis": int(axis)}, out_slots=("Result",))

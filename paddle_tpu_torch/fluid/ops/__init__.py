@@ -2,9 +2,18 @@
 the port has.
 
 Counterpart of `paddle_tpu/fluid/ops/`, reduced to the ops a static
-BERT (and a small fc MLP) serves with and is initialized by; each op
-sits in the file where the reference registers it.  The rest of the
-reference's library waits for later slices (ROADMAP Queue A 3).
+BERT (and a small fc MLP) serves and trains with and is initialized
+by, and the 13 dense optimizer update ops; each op sits in the file
+where the reference registers it.  The rest of the reference's library
+waits for later slices (ROADMAP Queue A 3).
 """
 
-from . import math_ops, nn_ops, random_ops, tensor_ops  # noqa: F401
+from . import (  # noqa: F401
+    extra_ops,
+    math_ops,
+    nn_ops,
+    optimizer_ops,
+    random_ops,
+    reduce_ops,
+    tensor_ops,
+)

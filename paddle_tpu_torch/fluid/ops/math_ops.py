@@ -1,9 +1,11 @@
-"""Dense math ops: elementwise_add (with axis broadcast), relu, tanh,
-gelu, scale, mul and the fused-epilogue matmul_bias_act.
+"""Dense math ops: elementwise add / sub / mul / div (with axis
+broadcast), relu, tanh, square, gelu, scale, matmul, mul, sum and the
+fused-epilogue matmul_bias_act.
 
-Counterpart of `paddle_tpu/fluid/ops/math_ops.py` (elementwise_add
-:37, the activations :71, gelu :97, scale :127, mul :179,
-matmul_bias_act :205).  ``matmul_bias_act`` is the op that reaches a
+Counterpart of `paddle_tpu/fluid/ops/math_ops.py` (the elementwise ops
+:37-40, the activations :71, gelu :97, scale :127, matmul :157, mul
+:179, matmul_bias_act :205, sum :297).  ``matmul`` is a plain
+`torch.matmul`, as the reference's is a plain ``jnp.matmul``.  ``matmul_bias_act`` is the op that reaches a
 hand kernel: it calls `ops.matmul.matmul_bias_act` (kernel 5), which
 launches the kernel on a CUDA tensor and takes its plain version on a
 CPU or meta one.
@@ -30,10 +32,17 @@ def _paddle_bcast(x, y, axis):
     return x, y.reshape(new_shape)
 
 
-@register_op("elementwise_add", inputs=["X", "Y"], outputs=["Out"])
-def _elementwise_add(ctx, ins, attrs):
-    x, y = _paddle_bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
-    return {"Out": [x + y]}
+def _register_elementwise(name, fn):
+    @register_op("elementwise_" + name, inputs=["X", "Y"], outputs=["Out"])
+    def _lower(ctx, ins, attrs, fn=fn):
+        x, y = _paddle_bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+        return {"Out": [fn(x, y)]}
+
+
+_register_elementwise("add", torch.add)
+_register_elementwise("sub", torch.sub)
+_register_elementwise("mul", torch.mul)
+_register_elementwise("div", torch.div)
 
 
 # -- activations (cf. activation_op.cc) --------------------------------------
@@ -41,6 +50,7 @@ def _elementwise_add(ctx, ins, attrs):
 _ACTIVATIONS = {
     "relu": torch.relu,
     "tanh": torch.tanh,
+    "square": torch.square,
 }
 
 
@@ -74,6 +84,24 @@ def _scale(ctx, ins, attrs):
 
 
 # -- matmul family -----------------------------------------------------------
+
+
+@register_op("matmul", inputs=["X", "Y"], outputs=["Out"])
+def _matmul_op(ctx, ins, attrs):
+    """cf. matmul_op.cc: optional transposes + alpha, batched by leading
+    dims."""
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", attrs.get("transpose_x", False)) \
+            and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", attrs.get("transpose_y", False)) \
+            and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
 
 
 @register_op("mul", inputs=["X", "Y"], outputs=["Out"])
@@ -156,3 +184,14 @@ def _matmul_bias_act(ctx, ins, attrs):
     y = _matmul.matmul_bias_act(x2.contiguous(), w_nk.contiguous(), bias,
                                 activation=act, approximate=approx)
     return {"Out": [y.reshape(lead + (w_nk.shape[0],))]}
+
+
+@register_op("sum", inputs=["X"], outputs=["Out"])
+def _sum(ctx, ins, attrs):
+    """Multi-input elementwise add (grad accumulation; cf. sum_op.cc),
+    left to right."""
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}

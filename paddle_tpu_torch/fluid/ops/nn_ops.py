@@ -1,7 +1,9 @@
-"""NN ops: layer_norm, dropout, flash_attention, lookup_table.
+"""NN ops: layer_norm, dropout and its grad, flash_attention,
+lookup_table, softmax_with_cross_entropy, square_error_cost.
 
 Counterpart of `paddle_tpu/fluid/ops/nn_ops.py` (layer_norm :372,
-dropout :402, flash_attention :438, lookup_table :603).
+dropout :402, dropout_grad :425, flash_attention :438, lookup_table
+:603, softmax_with_cross_entropy :652, square_error_cost :708).
 ``flash_attention`` is the op that reaches a hand kernel: it calls
 `ops.attention.scaled_dot_product_attention` (kernel 1), which
 launches the kernel on a CUDA tensor and takes its plain version on a
@@ -44,7 +46,8 @@ def _layer_norm(ctx, ins, attrs):
     }
 
 
-@register_op("dropout", inputs=["X"], outputs=["Out", "Mask"])
+@register_op("dropout", inputs=["X"], outputs=["Out", "Mask"],
+             grad="dropout_grad_maker", needs_rng=True)
 def _dropout(ctx, ins, attrs):
     """cf. dropout_op.cc.  Training draws the keep mask from the run's
     generator; at test time ``downgrade_in_infer`` scales by 1 - p and
@@ -69,10 +72,27 @@ def _dropout(ctx, ins, attrs):
     return {"Out": [out.to(x.dtype)], "Mask": [keep.to(torch.uint8)]}
 
 
+@register_op("dropout_grad", inputs=["Mask", "Out@GRAD"],
+             outputs=["X@GRAD"], grad=None)
+def _dropout_grad(ctx, ins, attrs):
+    """The forward's own keep mask times the output gradient (scaled by
+    1 / (1 - p) under ``upscale_in_train``): nothing is redrawn."""
+    g = ins["Out@GRAD"][0]
+    mask = ins["Mask"][0].to(g.dtype)
+    p = attrs.get("dropout_prob", 0.5)
+    if attrs.get("dropout_implementation",
+                 "downgrade_in_infer") == "upscale_in_train":
+        gx = g * mask / (1.0 - p)
+    else:
+        gx = g * mask
+    return {"X@GRAD": [gx]}
+
+
 @register_op(
     "flash_attention",
     inputs=["Q", "K", "V", "Bias", "QSeg", "KSeg"],
     outputs=["Out"],
+    no_grad_slots=("QSeg", "KSeg"),
 )
 def _flash_attention(ctx, ins, attrs):
     """Fused scaled-dot-product attention through kernel 1.
@@ -102,7 +122,8 @@ def _flash_attention(ctx, ins, attrs):
     return {"Out": [out]}
 
 
-@register_op("lookup_table", inputs=["W", "Ids"], outputs=["Out"])
+@register_op("lookup_table", inputs=["W", "Ids"], outputs=["Out"],
+             no_grad_slots=("Ids",), grad="lookup_table_grad_maker")
 def _lookup_table(ctx, ins, attrs):
     """Embedding gather (cf. lookup_table_op.cc).  padding_idx rows zeroed."""
     w, ids = ins["W"][0], ins["Ids"][0]
@@ -113,3 +134,35 @@ def _lookup_table(ctx, ins, attrs):
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids == padding_idx)[..., None], 0.0, out)
     return {"Out": [out]}
+
+
+@register_op(
+    "softmax_with_cross_entropy",
+    inputs=["Logits", "Label"],
+    outputs=["Softmax", "Loss"],
+    no_grad_slots=("Label",),
+)
+def _softmax_with_cross_entropy(ctx, ins, attrs):
+    """cf. softmax_with_cross_entropy_op.cc: log-softmax in f32, then the
+    label's entry (hard labels, ``ignore_index`` rows 0) or the sum over
+    a soft label; Softmax and Loss in the logits' dtype."""
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    axis = attrs.get("axis", -1)
+    logp = torch.log_softmax(logits.float(), dim=axis)
+    softmax = logp.exp()
+    if attrs.get("soft_label", False):
+        loss = -(label.float() * logp).sum(dim=axis, keepdim=True)
+    else:
+        lab = label
+        if lab.dim() == logits.dim() and lab.shape[axis] == 1:
+            lab = lab.squeeze(axis)
+        valid = (lab != attrs.get("ignore_index", -100)).unsqueeze(axis)
+        idx = torch.where(valid, lab.long().unsqueeze(axis), 0)
+        loss = torch.where(valid, -logp.gather(axis, idx), 0.0)
+    return {"Softmax": [softmax.to(logits.dtype)],
+            "Loss": [loss.to(logits.dtype)]}
+
+
+@register_op("square_error_cost", inputs=["X", "Y"], outputs=["Out"])
+def _square_error_cost(ctx, ins, attrs):
+    return {"Out": [torch.square(ins["X"][0] - ins["Y"][0])]}

@@ -34,13 +34,15 @@ def _draw(ctx, attrs, sample, affine):
     return affine(u).to(dtype)
 
 
-@register_op("gaussian_random", inputs=[], outputs=["Out"])
+@register_op("gaussian_random", inputs=[], outputs=["Out"], grad=None,
+             needs_rng=True)
 def _gaussian_random(ctx, ins, attrs):
     mean, std = attrs.get("mean", 0.0), attrs.get("std", 1.0)
     return {"Out": [_draw(ctx, attrs, torch.randn, lambda z: mean + std * z)]}
 
 
-@register_op("uniform_random", inputs=[], outputs=["Out"])
+@register_op("uniform_random", inputs=[], outputs=["Out"], grad=None,
+             needs_rng=True)
 def _uniform_random(ctx, ins, attrs):
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
     return {"Out": [_draw(ctx, attrs, torch.rand,

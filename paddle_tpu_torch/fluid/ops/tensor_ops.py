@@ -1,7 +1,9 @@
-"""Tensor manipulation ops: reshape2, slice, cast, fill_constant.
+"""Tensor manipulation ops: reshape2, slice, cast, assign,
+fill_constant, fill_zeros_like.
 
 Counterpart of `paddle_tpu/fluid/ops/tensor_ops.py` (reshape2 :16,
-slice :123, cast :147, fill_constant :157).
+slice :123, cast :147, assign :152, fill_constant :157,
+fill_zeros_like :183).
 """
 
 import torch
@@ -36,9 +38,19 @@ def _cast(ctx, ins, attrs):
     return {"Out": [ins["X"][0].to(to_torch(attrs["out_dtype"]))]}
 
 
+@register_op("assign", inputs=["X"], outputs=["Out"])
+def _assign(ctx, ins, attrs):
+    return {"Out": [ins["X"][0]]}
+
+
 @register_op("fill_constant", inputs=[], outputs=["Out"])
 def _fill_constant(ctx, ins, attrs):
     shape = tuple(attrs.get("shape", []))
     dtype = to_torch(attrs.get("dtype", "float32"))
     return {"Out": [torch.full(shape, attrs["value"], dtype=dtype,
                                device=ctx.device)]}
+
+
+@register_op("fill_zeros_like", inputs=["X"], outputs=["Out"])
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import seeded_generator
+
 __all__ = ["SamplingParams", "sample_tokens", "token_logprobs",
            "stream_generator"]
 
@@ -57,10 +59,10 @@ class SamplingParams:
 
 def stream_generator(seed, step):
     """The CPU generator of request ``seed`` at generated-token index
-    ``step``: one distinct 64-bit seed per (seed, step) pair."""
-    g = torch.Generator()
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-    return g
+    ``step``, seeded through `device.seeded_generator`: a CPU generator
+    (mt19937) keeps only the low 32 bits of its seed, and the chained
+    mix makes those differ whenever the seed or the step does."""
+    return seeded_generator("cpu", seed, step)
 
 
 def _gumbel(seed, step, vocab):

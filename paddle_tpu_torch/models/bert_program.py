@@ -1,5 +1,6 @@
 """BERT as a static program: the counterpart of `paddle_tpu.models.BertModel`
-traced under ``program_guard``.
+(and of ``BertForPretraining`` with its loss) traced under
+``program_guard``.
 
 The port's `models.BertModel` is an `nn.Module` and records no ops, so
 this module emits the ops itself, through the port's `fluid.layers`:
@@ -17,6 +18,12 @@ an additive bias.
     main, startup, feeds, (seq, pooled) = bert_program(cfg, seq_len=128)
     exe = fluid.Executor(); exe.run(startup)
     fluid.io.save_inference_model(dirname, feeds, [seq, pooled], exe, main)
+
+    main, startup, feeds, loss = bert_pretraining_program(
+        cfg, seq_len=128, max_preds=20,
+        optimizer=optimizer.AdamWOptimizer(1e-4, weight_decay=0.01))
+    exe.run(startup)
+    loss_value, = exe.run(main, feed=batch, fetch_list=[loss])
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from __future__ import annotations
 from ..fluid import framework, unique_name
 from ..fluid.initializer import ConstantInitializer, NormalInitializer
 from ..fluid.layer_helper import LayerHelper, ParamAttr
+from ..fluid.layers import loss as Loss
+from ..fluid.layers import ops as L
 from ..fluid.layers import tensor as T
 from ..fluid.layers.common import append_simple_op
 from .bert import _fused_ffn_enabled, _head_layout
@@ -156,6 +165,39 @@ class _EncoderLayer:
         return self.ln2(h + _dropout(f, self.cfg.hidden_dropout_prob))
 
 
+class _BertModel:
+    """The reference's ``BertModel(cfg)``: its parameters in construction
+    order when built, its forward ops when called."""
+
+    def __init__(self, cfg):
+        _check_head_layout()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.word = _Embedding(cfg, cfg.vocab_size)
+        self.position = _Embedding(cfg, cfg.max_position_embeddings)
+        self.token_type = _Embedding(cfg, cfg.type_vocab_size)
+        self.emb_ln = _LayerNorm(d)
+        self.layers = [_EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers)]
+        self.pooler = _Linear(cfg, d, d, act="tanh")
+
+    def __call__(self, input_ids, token_type_ids, position_ids,
+                 attention_mask=None):
+        cfg, d = self.cfg, self.cfg.hidden_size
+        fused_ffn = _fused_ffn_enabled()
+        attn_bias = None
+        if attention_mask is not None:
+            m = T.cast(attention_mask, "float32")
+            m = T.reshape(m, [0, 1, 1, int(attention_mask.shape[-1])])
+            attn_bias = (m + (-1.0)) * 10000.0  # 0 -> -1e4, 1 -> 0
+        emb = self.word(input_ids) + self.position(position_ids) \
+            + self.token_type(token_type_ids)
+        h = _dropout(self.emb_ln(emb), cfg.hidden_dropout_prob)
+        for layer in self.layers:
+            h = layer(h, attn_bias, fused_ffn)
+        first = T.reshape(T.slice(h, axes=[1], starts=[0], ends=[1]), [0, d])
+        return h, self.pooler(first)
+
+
 def build_bert(cfg, input_ids, token_type_ids, position_ids,
                attention_mask=None):
     """Emit BERT's parameters (startup program) and forward ops (main
@@ -163,28 +205,8 @@ def build_bert(cfg, input_ids, token_type_ids, position_ids,
     ``BertModel(cfg)`` constructed and called in static mode.  Returns
     ``(sequence_output [B, S, D], pooled [B, D])``.  The FFN is fused
     under ``PADDLE_TPU_FUSED_FFN=1``, as in the reference."""
-    _check_head_layout()
-    fused_ffn = _fused_ffn_enabled()
-    d = cfg.hidden_size
-    word = _Embedding(cfg, cfg.vocab_size)
-    position = _Embedding(cfg, cfg.max_position_embeddings)
-    token_type = _Embedding(cfg, cfg.type_vocab_size)
-    emb_ln = _LayerNorm(d)
-    layers = [_EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers)]
-    pooler = _Linear(cfg, d, d, act="tanh")
-
-    attn_bias = None
-    if attention_mask is not None:
-        m = T.cast(attention_mask, "float32")
-        m = T.reshape(m, [0, 1, 1, int(attention_mask.shape[-1])])
-        attn_bias = (m + (-1.0)) * 10000.0  # 0 -> -1e4, 1 -> 0
-    emb = word(input_ids) + position(position_ids) + token_type(
-        token_type_ids)
-    h = _dropout(emb_ln(emb), cfg.hidden_dropout_prob)
-    for layer in layers:
-        h = layer(h, attn_bias, fused_ffn)
-    first = T.reshape(T.slice(h, axes=[1], starts=[0], ends=[1]), [0, d])
-    return h, pooler(first)
+    return _BertModel(cfg)(input_ids, token_type_ids, position_ids,
+                           attention_mask)
 
 
 def bert_program(cfg, seq_len):
@@ -198,3 +220,76 @@ def bert_program(cfg, seq_len):
                  for n in FEED_NAMES]
         outs = build_bert(cfg, *feeds)
     return main, startup, list(FEED_NAMES), outs
+
+
+class _BertForPretraining:
+    """The reference's ``BertForPretraining(cfg)``: BERT, the MLM
+    transform and LayerNorm, the MLM bias (the decoder is the word
+    embedding, tied) and the NSP head."""
+
+    def __init__(self, cfg):
+        d = cfg.hidden_size
+        self.bert = _BertModel(cfg)
+        self.mlm_transform = _Linear(cfg, d, d, act="gelu")
+        self.mlm_ln = _LayerNorm(d)
+        self.mlm_bias = LayerHelper("bertforpretraining").create_parameter(
+            ParamAttr(initializer=ConstantInitializer(0.0)),
+            [cfg.vocab_size])
+        self.nsp = _Linear(cfg, d, 2)
+
+    def __call__(self, input_ids, token_type_ids, position_ids,
+                 attention_mask, masked_positions):
+        seq, pooled = self.bert(input_ids, token_type_ids, position_ids,
+                                attention_mask)
+        idx = T.reshape(masked_positions, list(masked_positions.shape) + [1])
+        seq = T.take_along_axis(seq, idx, axis=1)           # [B, P, D]
+        h = self.mlm_ln(self.mlm_transform(seq))
+        logits = L.matmul(h, self.bert.word.weight, transpose_y=True)
+        return logits + self.mlm_bias, self.nsp(pooled)
+
+    @staticmethod
+    def loss(logits, nsp_logits, mlm_labels, mlm_weights, nsp_labels):
+        """The weighted mean MLM loss over the masked positions plus the
+        mean NSP loss (`paddle_tpu/models/bert.py:491-507`)."""
+        vocab = int(logits.shape[-1])
+        mlm_loss = Loss.softmax_with_cross_entropy(
+            T.reshape(logits, [-1, vocab]), T.reshape(mlm_labels, [-1, 1]))
+        w = T.reshape(mlm_weights, [-1, 1])
+        mlm_loss = L.reduce_sum(mlm_loss * w) / (L.reduce_sum(w) + 1e-6)
+        nsp_loss = L.reduce_mean(
+            Loss.softmax_with_cross_entropy(nsp_logits, nsp_labels))
+        return mlm_loss + nsp_loss
+
+
+PRETRAINING_FEEDS = ("masked_positions", "mlm_labels", "mlm_weights",
+                     "nsp_labels")
+
+
+def bert_pretraining_program(cfg, seq_len, max_preds, optimizer=None):
+    """Fresh ``(main, startup, feed_names, loss)`` for BERT pretraining
+    (MLM over ``max_preds`` masked positions, NSP), built under a fresh
+    `unique_name.guard()`: the reference's ``BertForPretraining(cfg)``
+    called with ``masked_positions`` and its ``.loss`` in static mode.
+    With an ``optimizer`` (a `paddle_tpu_torch.optimizer` instance), its
+    ``minimize(loss)`` is appended in the same name space, as a JAX
+    program built and minimized under one guard.  Feeds: the four of
+    `bert_program`, then int64 ``[-1, max_preds]`` masked_positions and
+    mlm_labels, float32 ``[-1, max_preds]`` mlm_weights (1 at a real
+    prediction, 0 at padding) and int64 ``[-1, 1]`` nsp_labels."""
+    main, startup = framework.Program(), framework.Program()
+    with unique_name.guard(), framework.program_guard(main, startup):
+        feeds = [T.data(n, [-1, seq_len], "int64", append_batch_size=False)
+                 for n in FEED_NAMES]
+        pos, labels, weights, nsp = (
+            T.data(n, shape, dtype, append_batch_size=False)
+            for n, shape, dtype in (
+                ("masked_positions", [-1, max_preds], "int64"),
+                ("mlm_labels", [-1, max_preds], "int64"),
+                ("mlm_weights", [-1, max_preds], "float32"),
+                ("nsp_labels", [-1, 1], "int64")))
+        model = _BertForPretraining(cfg)
+        logits, nsp_logits = model(*feeds, masked_positions=pos)
+        loss = model.loss(logits, nsp_logits, labels, weights, nsp)
+        if optimizer is not None:
+            optimizer.minimize(loss)
+    return main, startup, list(FEED_NAMES + PRETRAINING_FEEDS), loss

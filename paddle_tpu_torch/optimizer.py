@@ -1,5 +1,5 @@
 """The reference's 13 optimizers: their update ops over lists of
-parameters, and the eager ``minimize`` path.
+parameters, the eager ``minimize`` path and the static one.
 
 Counterpart of `paddle_tpu/fluid/optimizer.py` (the classes, their
 constructor arguments and defaults, the dygraph ``minimize`` :220-257
@@ -38,6 +38,18 @@ all parameters, in place under ``no_grad``.  Accumulators are created
 at first use on each parameter's device, keyed per parameter.  A
 callable learning rate (a `learning_rate_scheduler` object) is advanced
 and read once per ``minimize``.
+
+The static path (`fluid/optimizer.py:38-278`): ``minimize(loss)`` on a
+`fluid.framework.Variable` appends the backward (`fluid.backward
+.append_backward`) and one update op a parameter to ``loss``'s program
+(``op_role="optimize"``, the reference's op names, slots and attrs;
+`fluid/ops/optimizer_ops.py` lowers them onto the list ops above).
+The learning rate is a persistable ``[1]`` var and each accumulator a
+persistable var named ``<param>_<accumulator>_<n>``, both filled by
+``fill_constant`` ops in the default startup program, so
+``save_persistables`` and resume carry them.  Adamax's beta1 power is
+advanced by a ``scale`` op after its updates.  Static ``regularization``
+and ``grad_clip`` raise (their ops come with ROADMAP Queue A 3 (b) 3).
 
 `distributed.FunctionalOptimizer` runs the same ops over the train
 step's state; it takes the five optimizers the reference's
@@ -399,6 +411,8 @@ class Optimizer:
 
     op = None
     slots = ()
+    op_type = None      # the update op of a static program
+    acc_names = ()      # its accumulators' names, one a slot
 
     def __init__(self, learning_rate, regularization=None, grad_clip=None,
                  name=None):
@@ -408,6 +422,8 @@ class Optimizer:
         self._name = name or type(self).__name__.lower()
         self._accumulators = {}     # parameter -> {slot: tensor}
         self._lr = None             # the learning rate of the next update
+        self._lr_var = None         # static: the learning-rate var
+        self._static_accs = {}      # static: name -> {param name: var}
 
     @property
     def learning_rate(self):
@@ -469,10 +485,14 @@ class Optimizer:
         """Clip the gradients, add weight decay, then update every
         parameter in place with one op over the lists
         (`fluid/optimizer.py:200-206`: clip first, regularize after).
-        Returns the ``(param, grad)`` pairs as the op saw them."""
+        Returns the ``(param, grad)`` pairs as the op saw them.  Pairs
+        of static vars append the update ops to their program
+        instead."""
         params_grads = list(params_grads)
         if not params_grads:
             return params_grads
+        if _is_static(params_grads[0][0]):
+            return self._static_apply(params_grads)
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         params_grads = append_regularization_ops(params_grads,
@@ -487,8 +507,15 @@ class Optimizer:
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
         """The dygraph update after ``loss.backward()``: every parameter of
-        ``parameter_list`` with a ``.grad`` is updated in place.  Returns
+        ``parameter_list`` with a ``.grad`` is updated in place.  On a
+        static ``loss`` var, the backward and the update ops are
+        appended to its program instead (the static path).  Returns
         ``([], params_grads)``."""
+        if _is_static(loss):
+            params_grads = self.backward(loss, startup_program,
+                                         parameter_list, no_grad_set)
+            self.apply_gradients(params_grads)
+            return [], params_grads
         if parameter_list is None:
             raise ValueError(
                 "dygraph minimize() requires parameter_list (cf. reference "
@@ -502,14 +529,127 @@ class Optimizer:
         self.apply_gradients(params_grads)
         return [], params_grads
 
+    # -- the static path (`fluid/optimizer.py:38-278`) --------------------
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        """`fluid.backward.append_backward` on a static ``loss``:
+        ``[(param, grad var)]``."""
+        from .fluid.backward import append_backward
+
+        if self.regularization is not None or self._grad_clip is not None:
+            raise NotImplementedError(
+                "a static minimize with regularization or grad_clip needs "
+                "the regularizer and clip ops, not ported yet (ROADMAP "
+                "Queue A 3 (b) 3)")
+        return append_backward(loss, parameter_list, no_grad_set)
+
+    def _global_learning_rate(self):
+        """The persistable ``[1]`` learning-rate var, created (with its
+        startup ``fill_constant``) at first use; a static Variable passed
+        as the learning rate is used as it is."""
+        from .fluid import framework
+
+        if self._lr_var is not None:
+            return self._lr_var
+        lr = self._learning_rate
+        if isinstance(lr, framework.Variable):
+            self._lr_var = lr
+            return lr
+        if callable(lr):
+            raise TypeError(
+                "a static program takes a float or a Variable learning "
+                "rate, not %r" % (lr,))
+        name = framework.unique_name.generate("learning_rate")
+        self._lr_var = self._persistable(name, [1], float(lr))
+        return self._lr_var
+
+    @staticmethod
+    def _persistable(name, shape, value, dtype="float32"):
+        """A persistable var of the default main program, filled with
+        ``value`` by a ``fill_constant`` op of the default startup
+        program."""
+        from .fluid import framework
+
+        kw = dict(name=name, shape=shape, dtype=dtype, persistable=True,
+                  stop_gradient=True)
+        v = framework.default_main_program().global_block.create_var(**kw)
+        sb = framework.default_startup_program().global_block
+        sb.create_var(**kw)
+        sb.append_op(
+            "fill_constant", outputs={"Out": [name]},
+            attrs={"shape": list(shape), "value": float(value),
+                   "dtype": dtype},
+            infer=False)
+        return v
+
+    def _add_accumulator(self, name, param, fill_value=0.0, shape=None):
+        from .fluid import framework
+
+        accs = self._static_accs.setdefault(name, {})
+        if param.name not in accs:
+            accs[param.name] = self._persistable(
+                framework.unique_name.generate(param.name + "_" + name),
+                list(shape if shape is not None else param.shape),
+                fill_value)
+        return accs[param.name]
+
+    def _static_apply(self, params_grads):
+        """Accumulators for every parameter, then one update op a
+        parameter, then `_static_finish_update`; the ops appended are
+        tagged ``op_role="optimize"``."""
+        from .fluid import framework
+        from .fluid.ops.optimizer_ops import _UPDATES
+
+        regularized = [p.name for p, _ in params_grads
+                       if getattr(p, "regularizer", None) is not None]
+        if regularized:
+            raise NotImplementedError(
+                "parameters with a regularizer (%s) need the regularizer "
+                "ops, not ported yet (ROADMAP Queue A 3 (b) 3)" % regularized)
+        block = framework.default_main_program().global_block
+        first = len(block.ops)
+        for p, _ in params_grads:
+            for (_, shape, fill), acc in zip(self.slots, self.acc_names):
+                self._add_accumulator(
+                    acc, p, getattr(self, fill) if isinstance(fill, str)
+                    else fill, None if shape == "param" else [1])
+        _, _, out_of, has_lr = _UPDATES[self.op_type]
+        for p, g in params_grads:
+            inputs = {"Param": [p.name], "Grad": [g.name]}
+            if has_lr:
+                inputs["LearningRate"] = [self._global_learning_rate().name]
+            outputs = {"ParamOut": [p.name]}
+            for (slot, _, _), acc in zip(self.slots, self.acc_names):
+                v = self._static_accs[acc][p.name].name
+                inputs[slot] = [v]
+                if slot in out_of:
+                    outputs[out_of[slot]] = [v]
+            block.append_op(self.op_type, inputs=inputs, outputs=outputs,
+                            attrs=self.attrs(), infer=False)
+        self._static_finish_update(block, params_grads)
+        for op in block.ops[first:]:
+            op.attrs.setdefault("op_role", "optimize")
+        return params_grads
+
+    def _static_finish_update(self, block, params_grads):
+        pass
+
+
+def _is_static(x):
+    from .fluid import framework
+
+    return isinstance(x, framework.Variable)
+
 
 class SGDOptimizer(Optimizer):
     op = staticmethod(sgd_)
+    op_type = "sgd"
 
 
 class MomentumOptimizer(Optimizer):
     op = staticmethod(momentum_)
     slots = (("Velocity", "param", 0.0),)
+    op_type, acc_names = "momentum", ("velocity",)
 
     def __init__(self, learning_rate, momentum=0.9, use_nesterov=False,
                  **kw):
@@ -524,6 +664,7 @@ class MomentumOptimizer(Optimizer):
 class LarsMomentumOptimizer(Optimizer):
     op = staticmethod(lars_momentum_)
     slots = (("Velocity", "param", 0.0),)
+    op_type, acc_names = "lars_momentum", ("velocity",)
 
     def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
                  lars_weight_decay=0.0005, **kw):
@@ -540,6 +681,7 @@ class LarsMomentumOptimizer(Optimizer):
 class AdagradOptimizer(Optimizer):
     op = staticmethod(adagrad_)
     slots = (("Moment", "param", "initial_accumulator_value"),)
+    op_type, acc_names = "adagrad", ("moment",)
 
     def __init__(self, learning_rate, epsilon=1e-6,
                  initial_accumulator_value=0.0, **kw):
@@ -555,6 +697,8 @@ class AdamOptimizer(Optimizer):
     op = staticmethod(adam_)
     slots = (("Moment1", "param", 0.0), ("Moment2", "param", 0.0),
              ("Beta1Pow", "scalar", "beta1"), ("Beta2Pow", "scalar", "beta2"))
+    op_type = "adam"
+    acc_names = ("moment1", "moment2", "beta1_pow_acc", "beta2_pow_acc")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kw):
@@ -573,6 +717,7 @@ class AdamWOptimizer(AdamOptimizer):
     parameter (the ``adamw`` op)."""
 
     op = staticmethod(adamw_)
+    op_type = "adamw"
 
     def __init__(self, learning_rate=0.001, weight_decay=0.01, **kw):
         super().__init__(learning_rate, **kw)
@@ -587,6 +732,7 @@ class LambOptimizer(AdamOptimizer):
     `fluid/optimizer.py:436-447`)."""
 
     op = staticmethod(lamb_)
+    op_type = "lamb"
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
@@ -602,6 +748,8 @@ class AdamaxOptimizer(Optimizer):
     op = staticmethod(adamax_)
     slots = (("Moment", "param", 0.0), ("InfNorm", "param", 0.0),
              ("Beta1Pow", "scalar", "beta1"))
+    op_type = "adamax"
+    acc_names = ("moment", "inf_norm", "beta1_pow_acc")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -617,10 +765,19 @@ class AdamaxOptimizer(Optimizer):
         # beta1_pow *= beta1 once a step, after every parameter's op
         torch._foreach_mul_(state[2], self.beta1)
 
+    def _static_finish_update(self, block, params_grads):
+        # the same through a scale op a parameter (`fluid/optimizer.py:477`)
+        for p, _ in params_grads:
+            b1p = self._static_accs["beta1_pow_acc"][p.name].name
+            block.append_op("scale", inputs={"X": [b1p]},
+                            outputs={"Out": [b1p]},
+                            attrs={"scale": self.beta1}, infer=False)
+
 
 class DecayedAdagradOptimizer(Optimizer):
     op = staticmethod(decayed_adagrad_)
     slots = (("Moment", "param", 0.0),)
+    op_type, acc_names = "decayed_adagrad", ("moment",)
 
     def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
         super().__init__(learning_rate, **kw)
@@ -634,6 +791,8 @@ class AdadeltaOptimizer(Optimizer):
     op = staticmethod(adadelta_)
     slots = (("AvgSquaredGrad", "param", 0.0),
              ("AvgSquaredUpdate", "param", 0.0))
+    op_type = "adadelta"
+    acc_names = ("avg_squared_grad", "avg_squared_update")
 
     def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
         super().__init__(learning_rate, **kw)
@@ -647,6 +806,8 @@ class RMSPropOptimizer(Optimizer):
     op = staticmethod(rmsprop_)
     slots = (("Moment", "param", 0.0), ("MeanSquare", "param", 0.0),
              ("MeanGrad", "param", 0.0))
+    op_type = "rmsprop"
+    acc_names = ("momentum", "mean_square", "mean_grad")
 
     def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
                  centered=False, **kw):
@@ -663,6 +824,7 @@ class FtrlOptimizer(Optimizer):
     op = staticmethod(ftrl_)
     slots = (("SquaredAccumulator", "param", 0.0),
              ("LinearAccumulator", "param", 0.0))
+    op_type, acc_names = "ftrl", ("squared", "linear")
 
     def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
         super().__init__(learning_rate, **kw)
@@ -678,6 +840,7 @@ class DpsgdOptimizer(Optimizer):
     from ``seed`` (the reference draws from its tracer's key)."""
 
     op = staticmethod(dpsgd_)
+    op_type = "dpsgd"
 
     def __init__(self, learning_rate, clip=10.0, batch_size=16.0, sigma=1.0,
                  seed=0, **kw):

@@ -189,12 +189,20 @@ def test_port_registry_is_its_own():
     from paddle_tpu.fluid.core import registry as jregistry
     from paddle_tpu_torch.fluid.core import registry as tregistry
 
+    from paddle_tpu_torch.fluid.framework import OPTIMIZER_OP_TYPES
+
     ports = set(tregistry.registered_ops())
     assert ports == {
         "cast", "dropout", "elementwise_add", "fill_constant",
         "flash_attention", "gaussian_random", "gelu", "layer_norm",
         "lookup_table", "matmul_bias_act", "mul", "relu", "reshape2",
-        "scale", "slice", "tanh", "uniform_random"}
+        "scale", "slice", "tanh", "uniform_random",
+        # the static training slice's ops and the 13 update ops
+        "elementwise_sub", "elementwise_mul", "elementwise_div", "square",
+        "matmul", "sum", "reduce_sum", "reduce_mean", "mean",
+        "softmax_with_cross_entropy", "square_error_cost", "dropout_grad",
+        "assign", "fill_zeros_like", "take_along_axis",
+        "vjp_grad"} | OPTIMIZER_OP_TYPES
     assert ports < set(jregistry.registered_ops())
     assert tregistry.get_op_def("mul") is not jregistry.get_op_def("mul")
     with pytest.raises(ValueError, match="registered twice"):

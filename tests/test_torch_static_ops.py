@@ -121,6 +121,68 @@ CASES = {
         (2, 3), 10)]}, {"padding_idx": -1}),
     "lookup_table-padding": ("lookup_table", {"W": [_r(10, 4)], "Ids": [
         _ids((2, 3, 1), 10)]}, {"padding_idx": 2}),
+    # the ops of the static training slice
+    "elementwise_sub": ("elementwise_sub", {"X": [_r(2, 3, 4)],
+                                            "Y": [_r(4, seed=1)]},
+                        {"axis": -1}),
+    "elementwise_mul-axis1": ("elementwise_mul", {"X": [_r(2, 3, 4)],
+                                                  "Y": [_r(3, seed=1)]},
+                              {"axis": 1}),
+    "elementwise_div": ("elementwise_div",
+                        {"X": [_r(3, 4)],
+                         "Y": [np.abs(_r(3, 4, seed=1)) + 0.5]},
+                        {"axis": -1}),
+    "square": ("square", {"X": [_r(3, 5)]}, {}),
+    "square_error_cost": ("square_error_cost",
+                          {"X": [_r(4, 1)], "Y": [_r(4, 1, seed=1)]}, {}),
+    "matmul-transpose-y": ("matmul", {"X": [_r(2, 3, 8)],
+                                      "Y": [_r(5, 8, seed=1)]},
+                           {"transpose_X": False, "transpose_Y": True,
+                            "alpha": 1.0}),
+    "matmul-batched-alpha": ("matmul", {"X": [_r(2, 8, 3)],
+                                        "Y": [_r(2, 8, 5, seed=1)]},
+                             {"transpose_X": True, "transpose_Y": False,
+                              "alpha": 0.5}),
+    "sum": ("sum", {"X": [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2)]},
+            {}),
+    "reduce_sum-all": ("reduce_sum", {"X": [_r(3, 4)]},
+                       {"keep_dim": False, "reduce_all": True}),
+    "reduce_sum-dim-keep": ("reduce_sum", {"X": [_r(2, 3, 4)]},
+                            {"dim": [1], "keep_dim": True}),
+    "reduce_mean-all": ("reduce_mean", {"X": [_r(3, 4)]},
+                        {"keep_dim": False, "reduce_all": True}),
+    "reduce_mean-dim": ("reduce_mean", {"X": [_r(2, 3, 4)]},
+                        {"dim": [-1], "keep_dim": False}),
+    "mean": ("mean", {"X": [_r(3, 4)]}, {}),
+    "softmax_with_cross_entropy": (
+        "softmax_with_cross_entropy",
+        {"Logits": [3 * _r(6, 10)], "Label": [_ids((6, 1), 10)]},
+        {"soft_label": False, "ignore_index": -100, "axis": -1}),
+    "softmax_with_cross_entropy-ignore": (
+        "softmax_with_cross_entropy",
+        {"Logits": [3 * _r(6, 10)],
+         "Label": [np.array([[1], [-100], [4], [9], [-100], [0]],
+                            np.int64)]},
+        {"soft_label": False, "ignore_index": -100, "axis": -1}),
+    "softmax_with_cross_entropy-soft": (
+        "softmax_with_cross_entropy",
+        {"Logits": [3 * _r(4, 7)],
+         "Label": [np.full((4, 7), 1 / 7, np.float32)]},
+        {"soft_label": True, "axis": -1}),
+    "dropout_grad-upscale": (
+        "dropout_grad",
+        {"Mask": [_ids((3, 4), 2).astype(np.uint8)],
+         "Out@GRAD": [_r(3, 4)]},
+        {"dropout_prob": 0.25, "dropout_implementation": "upscale_in_train"}),
+    "dropout_grad-downgrade": (
+        "dropout_grad",
+        {"Mask": [_ids((3, 4), 2).astype(np.uint8)],
+         "Out@GRAD": [_r(3, 4)]}, {"dropout_prob": 0.25}),
+    "assign": ("assign", {"X": [_r(3, 4)]}, {}),
+    "fill_zeros_like": ("fill_zeros_like", {"X": [_r(3, 4)]}, {}),
+    "take_along_axis": ("take_along_axis",
+                        {"Input": [_r(2, 5, 4)],
+                         "Index": [_ids((2, 3, 1), 5)]}, {"Axis": 1}),
 }
 
 
@@ -156,9 +218,14 @@ def test_op_matches_the_jax_lowering(case):
 
 
 def test_every_registered_op_has_a_case():
+    # the update ops are held in test_torch_static_train.py and vjp_grad
+    # in test_torch_static_backward.py
+    from paddle_tpu_torch.fluid.framework import OPTIMIZER_OP_TYPES
+
     covered = {c[0] for c in CASES.values()} | {"gaussian_random",
-                                                 "uniform_random"}
-    assert covered == set(tregistry.registered_ops())
+                                                 "uniform_random",
+                                                 "vjp_grad"}
+    assert covered | OPTIMIZER_OP_TYPES == set(tregistry.registered_ops())
 
 
 @pytest.mark.parametrize("op_type,attrs,mean,std", [
