@@ -9,7 +9,8 @@ head dim 128 too, and the pair at head dim 128 over f32/bf16, S in
 {512, 1024}; the decode kernels at serving shapes; the
 fused-epilogue GEMM forward, dX and dW + dbias over f32/bf16, five
 activations, bias or not, z emitted or not, a ragged shape, M = 1 and
-63, a bf16 shape whose M splits raggedly, and the BERT FFN's own shape,
+63, a bf16 shape whose M splits raggedly, an f32 one with odd K and N,
+and the BERT FFN's own shape,
 each backward launched twice for bitwise-equal outputs); times the fused against the pair backward over
 B*H around the SM count; runs full-width BERT-base once on the card and
 on the CPU with the same weights, with the default FFN and with
@@ -99,9 +100,15 @@ cancellation case must put the one-pass form Σy²/M − μ² outside those
 limits, so that they would catch it.  Dense vs
 paged decode bitwise; the model checks state theirs beside them (the
 ResNet gradient checks on one run's relu decisions, `_relu_decisions`).
-Bounds: the larger of bytes / 3.35 TB/s and flops / peak, with the
-H100 SXM data-sheet peaks: 67 TFLOP/s f32 (the f32 kernels use FMA),
-989 TFLOP/s bf16 (the bf16 kernels' tensor cores).
+The f32 GEMM backward (kernels 6 and 7, a 3xTF32 split on the tensor
+cores) is also held, at the static step's shape, to at most 4 times the
+plain version's distance from a float64 product.
+Bounds: the larger of bytes / 3.35 TB/s and flops / the least time the
+card could take for them, from the H100 SXM data sheet: 989 TFLOP/s
+bf16 (the tensor cores); f32 as three TF32 products at 495 TFLOP/s,
+165 TFLOP/s (the fastest f32-accurate product the card has; its FMA
+rate, 67 TFLOP/s, is no floor).  `bound_by` names the larger term,
+"bytes" or "operations"; the settings line names the rates.
 """
 
 import ctypes
@@ -117,6 +124,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the rates bound() takes: f32 as 3xTF32 (three TF32 products at 495)
+BOUND_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 BF16_ROUND = 2.0 ** -8      # half a bf16 ulp, relative to the value
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
        torch.bfloat16: dict(atol=1e-5, rtol=2 * BF16_ROUND)}
@@ -174,7 +183,7 @@ def queued_ms(fn, iters=20, warmup=3):
 
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / BOUND_FLOPS[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -932,23 +941,25 @@ def matmul_case(ops, gen, m, k, n, dt, act, approx, has_bias, scale=1.0):
 
 # check_matmul's shapes (M, K, N): 128-tileable; ragged (every edge
 # masked); M = 1 and M = 63 (a consumer warpgroup of the bf16 backward
-# sees only zero rows); and, bf16 only, one whose M is not a multiple of
-# its dW split's chunk (`dw_split_plan`: 9 chunks of 448 rows)
+# sees only zero rows); bf16 only, one whose M is not a multiple of its
+# dW split's chunk (`dw_split_plan`: 9 chunks of 448 rows); f32 only,
+# one whose K and N are odd (the f32 backward's 4-byte copies)
 MM_SHAPES = ((256, 128, 384), (777, 264, 200), (1, 768, 3072),
              (63, 264, 200))
 MM_SPLIT_SHAPE = (4000, 256, 512)
+MM_F32_ODD_SHAPE = (129, 263, 201)
 
 
 def check_matmul(ops):
     """Kernels 5-7 against their plain versions at small shapes
-    (MM_SHAPES, f32 and bf16; MM_SPLIT_SHAPE, bf16): the five
-    activations, with and without a bias, z emitted and not, each
-    backward twice for bitwise-equal outputs."""
+    (MM_SHAPES, f32 and bf16; MM_SPLIT_SHAPE, bf16; MM_F32_ODD_SHAPE,
+    f32): the five activations, with and without a bias, z emitted and
+    not, each backward twice for bitwise-equal outputs."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = []
     for dt in (torch.float32, torch.bfloat16):
         shapes = MM_SHAPES + ((MM_SPLIT_SHAPE,) if dt == torch.bfloat16
-                              else ())
+                              else (MM_F32_ODD_SHAPE,))
         for m, k, n in shapes:
             for act, approx in MM_ACTS:
                 for has_bias in (False, True):
@@ -4332,6 +4343,8 @@ def static_train_kernel_rows(ops, calls, fused):
          for tag, got_, want_ in (("y", y, y_ref), ("z", z, z_ref),
                                   ("dx", dx, dx_ref), ("dw", dw, dw_ref),
                                   ("dbias", db, db_ref))}
+    far = float64_distances(ops, x, w, res, g, act, (dx, dw, db),
+                            (dx_ref, dw_ref, db_ref))
     xl, wl, bl = (t.detach().requires_grad_() for t in (x, w, bias))
     out = F.gelu(F.linear(xl, wl, bl))
     flops = 2 * m * n * kk
@@ -4364,9 +4377,48 @@ def static_train_kernel_rows(ops, calls, fused):
                      "library_ms": lib_ms,
                      **dict(zip(("bound_ms", "bound_by"),
                                 bound(nbytes * 4, flops, f32)))})
+        if name in far:
+            rows[-1]["rel_to_float64"] = far[name]
     del out
     emit({"phase": "static_train_kernels", "rows": rows})
     return rows
+
+
+F64_FACTOR = 4.0   # kernels 6, 7 (f32): distance from float64 vs plain's
+
+
+def float64_distances(ops, x, w, res, g, act, got, plain):
+    """Kernels 6 and 7 (f32) against a float64 product on the same
+    inputs: each output's largest distance from it over the float64
+    output's scale, the kernel's beside the plain version's (cuBLAS's
+    f32 product).  Fails unless the kernel's dX and dW stand within
+    F64_FACTOR times the plain version's distance (dbias, a plain f32
+    sum on both sides, is reported)."""
+    mm = ops.matmul
+    dz = mm._dact_from_residual(g.double(), res.double(), act, False)
+    want = (dz @ w.double(), dz.t() @ x.double(), dz.sum(dim=0))
+    del dz
+
+    def rel(a, b):
+        return ((a.double() - b).abs().max() / b.abs().max()).item()
+
+    out = {}
+    for name, tags, idx in (("matmul_bwd_dx", ("dx",), (0,)),
+                            ("matmul_bwd_dw", ("dw", "dbias"), (1, 2))):
+        out[name] = {"kernel": {t: rel(got[i], want[i])
+                                for t, i in zip(tags, idx)},
+                     "plain": {t: rel(plain[i], want[i])
+                               for t, i in zip(tags, idx)},
+                     "limit": "%g x plain (dx, dw)" % F64_FACTOR}
+        t = tags[0]
+        if not (out[name]["kernel"][t]
+                <= F64_FACTOR * out[name]["plain"][t]):
+            raise AssertionError(
+                "static train %s: %g of the scale from float64, over %g x "
+                "the plain version's %g" % (t, out[name]["kernel"][t],
+                                            F64_FACTOR,
+                                            out[name]["plain"][t]))
+    return out
 
 
 def _copy_scope(fluid, scope, names):
@@ -4572,7 +4624,8 @@ def static_train(ptt):
 
 
 REDESIGNED_KERNELS = ("matmul_fwd_tc", "conv_bn_relu_tc", "conv_bn_stats_tc",
-                      "decode_dense_kernel", "decode_paged_kernel")
+                      "decode_dense_kernel", "decode_paged_kernel",
+                      "tf32x3")
 
 
 def ptxas_summary(logs, names):
@@ -4612,8 +4665,9 @@ def main():
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "bound_hbm_tb_per_s": HBM_BYTES_PER_S / 1e12,
-          "bound_peak_tflops": {str(k).replace("torch.", ""): v / 1e12
-                                for k, v in PEAK_FLOPS.items()}})
+          "bound_peak_tflops": {
+              "float32 (3xTF32: 495 / 3)": BOUND_FLOPS[torch.float32] / 1e12,
+              "bfloat16": BOUND_FLOPS[torch.bfloat16] / 1e12}})
 
     t0 = time.perf_counter()
     paths = _build.build()
@@ -4831,7 +4885,7 @@ def main():
     work = [(conv_bn_work(r["M"], r["K"], r["N"], torch.bfloat16),
              r["per_forward"]) for r in path]
     t_bytes = sum(w[0] * n for w, n in work) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(w[1] * n for w, n in work) / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_ops = sum(w[1] * n for w, n in work) / BOUND_FLOPS[torch.bfloat16] * 1e3
     keep = ("M", "K", "N", "dtype", "per_forward", "bn", "ctas",
             "max_abs_err", "ms", "queued_ms", "plain_ms", "library_ms",
             "cublas_gemm_ms", "bound_ms", "bound_by")
@@ -4860,7 +4914,7 @@ def main():
     work = [(conv_stats_work(r["M"], r["K"], r["N"], torch.bfloat16),
              r["per_step"]) for r in path11]
     t_bytes = sum(w[0] * n for w, n in work) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(w[1] * n for w, n in work) / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_ops = sum(w[1] * n for w, n in work) / BOUND_FLOPS[torch.bfloat16] * 1e3
     keep11 = ("M", "K", "N", "per_step", "bn", "ctas", "max_abs_err",
               "mean_rel_err", "var_rel_err", "ms", "queued_ms", "plain_ms",
               "library_ms", "cublas_gemm_ms", "bound_ms", "bound_by")

@@ -76,7 +76,7 @@ extern "C" int conv_bn_relu_fwd(const void* x, const void* w,
     p.lda = K;
     p.ldb = K;
     p.ldc = N;
-    return launch_act<kFwd, kBnRelu>(p, s);
+    return launch_act<kBnRelu>(p, s);
   }
   if (dtype != ptt::kBF16) return cudaErrorInvalidValue;
   wg::FwdArgs p{};

@@ -164,7 +164,7 @@ static cudaError_t launch_gemm(const void* x, const void* w, void* y,
     p.lda = K;
     p.ldb = K;
     p.ldc = N;
-    return launch_act<kFwd, kStats>(p, s);
+    return launch_act<kStats>(p, s);
   }
   if (dtype != ptt::kBF16) return cudaErrorInvalidValue;
   wg::FwdArgs p{};

@@ -54,7 +54,14 @@ extern "C" int matmul_bias_act_fwd(const void* x, const void* w,
     p.ldb = K;
     p.ldc = N;
     p.bias_dtype = bias_dtype;
-    return launch<kFwd>(p, act, s);
+    switch (act) {
+      case kNone: return launch_act<kNone>(p, s);
+      case kRelu: return launch_act<kRelu>(p, s);
+      case kTanh: return launch_act<kTanh>(p, s);
+      case kGelu: return launch_act<kGelu>(p, s);
+      case kGeluTanh: return launch_act<kGeluTanh>(p, s);
+    }
+    return cudaErrorInvalidValue;
   }
   if (dtype != ptt::kBF16) return cudaErrorInvalidValue;
   CUtensorMap ta, tb, ty, tz;

@@ -17,10 +17,13 @@ Counterpart of `paddle_tpu.ops.pallas.matmul` (the kernels, the
   dZ w and dW = dZᵀ x with dbias = the column sum of dZ, where dZ =
   dY·act'(residual) is recomputed on chip from dY and the residual and
   never written to device memory.  In bf16 they run on `wgmma` + TMA
-  (``csrc/gemm_tc.cuh``) with dZ formed in registers; the dW kernel
-  splits M into chunks (`dw_split_plan`) whose f32 partials, in a
-  workspace from PyTorch's caching allocator, a second launch merges in
-  a fixed order.
+  (``csrc/gemm_tc.cuh``) with dZ formed in registers; in f32 on `wgmma`
+  with a 3xTF32 split of every operand (``csrc/gemm_tf32x3.cuh``: lo·hi,
+  hi·lo and hi·hi into an f32 partial promoted to a register sum each
+  32-deep k block).  The dW kernels (and the f32 dX kernel) split their
+  contraction into chunks (`dw_split_plan`, `dx_split_plan`) whose f32
+  partials, in a workspace from PyTorch's caching allocator, a second
+  launch merges in a fixed order.
 
 **Weight layout.**  ``w`` is ``[N, K]`` (out, in), as `nn.Linear.weight`
 and `F.linear` take it, so a Linear hands its weight over with no
@@ -59,8 +62,8 @@ import torch
 from . import _build
 from ._flops import counts_flops
 
-__all__ = ["ACTIVATIONS", "dw_split_plan", "fwd_schedule",
-           "fwd_tile_plan", "fwd_tiles", "matmul_bias_act",
+__all__ = ["ACTIVATIONS", "dw_split_plan", "dx_split_plan",
+           "fwd_schedule", "fwd_tile_plan", "fwd_tiles", "matmul_bias_act",
            "matmul_bias_act_bwd_reference", "matmul_bias_act_fwd",
            "matmul_bias_act_reference", "matmul_bwd_dw", "matmul_bwd_dx"]
 
@@ -76,19 +79,26 @@ _GELU_TANH = 4
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-_DX_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_DX_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _DW_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 # The bf16 kernels (csrc/gemm_tc.cuh): 128 x 256 outputs a CTA, 64
 # contraction rows a stage.
 BWD_ROWS, BWD_COLS, BWD_DEPTH = 128, 256, 64
+# The f32 backward kernels (csrc/gemm_tf32x3.cuh): 128 x 128 outputs a
+# CTA, 32 contraction rows a stage.
+F32_BWD_ROWS, F32_BWD_COLS, F32_BWD_DEPTH = 128, 128, 32
 FWD_ROWS, FWD_COLS = BWD_ROWS, BWD_COLS
-# dW's split of M (`dw_split_plan`): at most MAX_SPLITS chunks; a CTA's
-# pipeline fill and epilogue cost about SPLIT_OVERHEAD stages, and each
-# f32 partial element, written and merged, about SPLIT_MERGE_COST.
+# The split of the contraction (`dw_split_plan`; in f32 `dx_split_plan`
+# too): at most MAX_SPLITS chunks; a CTA's pipeline fill and epilogue
+# cost about SPLIT_OVERHEAD stages, and each f32 partial element,
+# written and merged, about SPLIT_MERGE_COST stages (F32_: of the f32
+# kernels' stages).
 MAX_SPLITS = 16
 SPLIT_OVERHEAD = 6.0
 SPLIT_MERGE_COST = 4e-6
+F32_SPLIT_OVERHEAD = 3.0
+F32_SPLIT_MERGE_COST = 5e-7
 H100_SMS = 132
 
 
@@ -299,27 +309,44 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def dw_split_plan(m, n, k, sms=H100_SMS):
-    """The bf16 dW kernel's split of M: ``(splits, chunk)``, ``chunk`` a
-    multiple of 64 rows and ``splits = ceil(m / chunk)`` chunks, none
-    empty (the last may be short).  Of the splits into at most
-    MAX_SPLITS chunks it takes the one a wave model finds cheapest: each
-    of the ``tiles x splits`` CTAs walks its chunk's stages plus
+def dw_split_plan(m, n, k, sms=H100_SMS, dtype=torch.bfloat16):
+    """The dW kernel's split of M: ``(splits, chunk)``, ``chunk`` a
+    multiple of the kernel's stage depth (64 rows in bf16, 32 in f32)
+    and ``splits = ceil(m / chunk)`` chunks, none empty (the last may be
+    short).  Of the splits into at most MAX_SPLITS chunks it takes the
+    one a wave model finds cheapest: each of the ``tiles x splits`` CTAs
+    (the kernel's own tile of dW) walks its chunk's stages plus
     SPLIT_OVERHEAD, ``sms`` at a time, and a split run writes and merges
     ``splits + 1`` f32 copies of dW at SPLIT_MERGE_COST stages an
     element.  The first of equal costs wins."""
-    tiles = _cdiv(n, BWD_ROWS) * _cdiv(k, BWD_COLS)
-    stages = _cdiv(m, BWD_DEPTH)
+    if dtype == torch.float32:
+        rows, cols, depth = F32_BWD_ROWS, F32_BWD_COLS, F32_BWD_DEPTH
+        overhead, merge = F32_SPLIT_OVERHEAD, F32_SPLIT_MERGE_COST
+    else:
+        rows, cols, depth = BWD_ROWS, BWD_COLS, BWD_DEPTH
+        overhead, merge = SPLIT_OVERHEAD, SPLIT_MERGE_COST
+    tiles = _cdiv(n, rows) * _cdiv(k, cols)
+    stages = _cdiv(m, depth)
     best = None
     for s in range(1, min(stages, MAX_SPLITS) + 1):
         per = _cdiv(stages, s)
         splits = _cdiv(stages, per)
-        cost = _cdiv(tiles * splits, sms) * (per + SPLIT_OVERHEAD)
+        cost = _cdiv(tiles * splits, sms) * (per + overhead)
         if splits > 1:
-            cost += (splits + 1) * n * k * SPLIT_MERGE_COST
+            cost += (splits + 1) * n * k * merge
         if best is None or cost < best[0]:
-            best = (cost, splits, per * BWD_DEPTH)
+            best = (cost, splits, per * depth)
     return best[1], best[2]
+
+
+def dx_split_plan(m, n, k, sms=H100_SMS, dtype=torch.bfloat16):
+    """The dX kernel's split of its contraction N, ``(splits, chunk)``:
+    in f32 the same wave model as `dw_split_plan` over the kernel's
+    ``ceil(m / 128) x ceil(k / 128)`` tiles of dX (at M = 4096, K = 768
+    they are 1.45 waves of 132 SMs); the bf16 kernel takes N whole."""
+    if dtype != torch.float32:
+        return 1, n
+    return dw_split_plan(n, m, k, sms, dtype)
 
 
 _SMS = {}
@@ -450,8 +477,9 @@ def _launch_fwd(x, w, bias, y, z, activation, approximate, ctas):
 @counts_flops(lambda g, w, **_: 2 * g.shape[0] * g.shape[1] * w.shape[1])
 def matmul_bwd_dx(g, res, w, activation="none", approximate=False):
     """The row-parallel dX kernel: dX ``[M, K]`` = (g·act'(res)) w, in
-    g's dtype.  The operand contract holds on any device; CPU tensors
-    then take the plain version."""
+    g's dtype; in f32, N is cut as `dx_split_plan` says.  The operand
+    contract holds on any device; CPU tensors then take the plain
+    version."""
     if g.dim() != 2 or w.dim() != 2 or w.shape[0] != g.shape[1]:
         raise ValueError("matmul_bwd_dx: dY [M, N] %s and w [N, K] %s "
                          "disagree" % (tuple(g.shape), tuple(w.shape)))
@@ -464,13 +492,27 @@ def matmul_bwd_dx(g, res, w, activation="none", approximate=False):
         dz = _dz_reference(g, res, activation, approximate)
         return torch.matmul(dz, w.float()).to(g.dtype)
     dx = torch.empty(m, k, dtype=g.dtype, device=g.device)
-    _build.launch(
-        "matmul_bwd", "matmul_bwd_dx", _DX_ARGTYPES, g.data_ptr(), _ptr(res),
-        w.data_ptr(), dx.data_ptr(), m, n, k,
-        _act_code(activation, approximate), _build.dtype_code(g),
-        _build.stream_ptr(g.device))
+    splits, chunk = dx_split_plan(m, n, k, _sm_count(g.device), g.dtype)
+    _launch_dx(g, res, w, dx, activation, approximate, splits, chunk)
     matmul_bwd_dx.launches += 1
     return dx
+
+
+def _launch_dx(g, res, w, dx, activation, approximate, splits, chunk):
+    """The dX launch with an explicit plan; with ``splits`` > 1 its f32
+    partials take a workspace from the caching allocator, on the
+    current stream."""
+    m, n = g.shape
+    k = w.shape[1]
+    ws = None
+    if splits > 1:
+        ws = torch.empty(splits * m * k, dtype=torch.float32,
+                         device=g.device)
+    _build.launch(
+        "matmul_bwd", "matmul_bwd_dx", _DX_ARGTYPES, g.data_ptr(), _ptr(res),
+        w.data_ptr(), dx.data_ptr(), _ptr(ws), m, n, k, chunk,
+        _act_code(activation, approximate), _build.dtype_code(g),
+        _build.stream_ptr(g.device))
 
 
 @counts_flops(lambda x, g, **_: 2 * x.shape[0] * x.shape[1] * g.shape[1])
@@ -480,9 +522,9 @@ def matmul_bwd_dw(x, g, res, activation="none", approximate=False,
     = (g·act'(res))ᵀ x in x's dtype and, when ``bias`` is given, dbias
     = the column sum of dZ in the bias's dtype (taken by the CTAs of
     the first K tile alone, in a fixed order: no atomics,
-    deterministic).  In bf16, M is cut as `dw_split_plan` says.  The
-    operand contract holds on any device; CPU tensors then take the
-    plain version."""
+    deterministic).  M is cut as `dw_split_plan` says.  The operand
+    contract holds on any device; CPU tensors then take the plain
+    version."""
     if x.dim() != 2 or g.dim() != 2 or g.shape[0] != x.shape[0]:
         raise ValueError("matmul_bwd_dw: x [M, K] %s and dY [M, N] %s "
                          "disagree" % (tuple(x.shape), tuple(g.shape)))
@@ -504,9 +546,7 @@ def matmul_bwd_dw(x, g, res, activation="none", approximate=False,
     db = None
     if bias is not None:
         db = torch.empty(n, dtype=bias.dtype, device=x.device)
-    splits, chunk = 1, m  # the f32 kernel takes no split
-    if x.dtype == torch.bfloat16:
-        splits, chunk = dw_split_plan(m, n, k, _sm_count(x.device))
+    splits, chunk = dw_split_plan(m, n, k, _sm_count(x.device), x.dtype)
     _launch_dw(x, g, res, dw, db, activation, approximate, splits, chunk)
     matmul_bwd_dw.launches += 1
     return dw, db
