@@ -69,7 +69,16 @@ dropout 0.1, the fused FFN): kernels 1, 4 (or 2 and 3), 5, 6 and 7
 once a layer a step, falling losses, one dropout-0 step against the
 plain versions, the inference clone against the training forward, p50
 / p99, tokens/s, model TFLOP/s, peak memory, a profiled step and the
-path's kernels at its shapes.
+path's kernels at its shapes; last, builds the Fluid book's
+recognize_digits (LeNet-5) and image_classification (VGG-16 with batch
+norm) programs with the static core's layers, trains them through the
+Executor on the book's datasets (B = 64 and 128, f32, Adam: falling
+losses, the test clone's accuracy, moving running statistics, one step
+against the CPU's), saves them and serves them through
+`create_predictor` (LeNet-5 with `matmul_bias_act_fuse`: 2 kernel-5
+launches a forward, kernel 5 at its two fc shapes against its plain
+version; VGG-16-BN with `batch_norm_act_fuse`: no kernel launch), with
+p50 / p99, images/s, peak memory and a profiled VGG step.
 
     python3 chip_smoke.py
 
@@ -3988,8 +3997,24 @@ def static_kernel_rows(ops, calls):
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=bias, scale=kw["scale"])),
         "bound_ms": bms, "bound_by": by})
-    seen = set()
-    for x, w, bias, kw in calls["mba"]:
+    rows += mba_rows(ops, calls["mba"], "static")
+    emit({"phase": "static_serve_kernels", "rows": rows})
+    return rows
+
+
+def mba_rows(ops, calls, tag):
+    """Kernel 5 on the arguments a static path gave it (the first call of
+    each shape and activation): the error against its plain version at
+    check_matmul's f32 limit, its time beside the plain version's,
+    F.linear + the activation (the library) and the bound; the kernel's
+    and the library's ``queued_ms`` too (the card's time, where a small
+    product's events read the host's enqueue rate)."""
+    import torch.nn.functional as F
+
+    library_act = {"gelu": F.gelu, "tanh": torch.tanh, "relu": torch.relu,
+                   "none": lambda t: t}
+    rows, seen = [], set()
+    for x, w, bias, kw in calls:
         act = kw.get("activation", "none")
         m, kk = x.shape
         n = w.shape[0]
@@ -4001,24 +4026,26 @@ def static_kernel_rows(ops, calls):
         got = ops.matmul.matmul_bias_act(x, w, bias, **kw)
         torch.cuda.synchronize()
         tol = gemm_tol(torch.float32, want)
-        err, share = compare("static matmul_bias_act %s" % act, got, want,
+        err, share = compare("%s matmul_bias_act %s" % (tag, act), got, want,
                              tol)
-        lib = (F.gelu if act == "gelu" else torch.tanh)
+        lib = library_act[act]
         bms, by = bound((m * kk + n * kk + n + m * n) * 4, 2 * m * n * kk,
                         torch.float32)
         rows.append({
             "kernel": "matmul_bias_act", "M": m, "K": kk, "N": n,
             "act": act, "per_forward": sum(
-                c[0].shape[0] == m and c[1].shape[0] == n
-                for c in calls["mba"]),
+                c[0].shape[0] == m and c[1].shape[0] == n for c in calls),
             "max_abs_err": err, "limit_share": share,
             "ms": time_ms(lambda: ops.matmul.matmul_bias_act(
+                x, w, bias, **kw)),
+            "queued_ms": queued_ms(lambda: ops.matmul.matmul_bias_act(
                 x, w, bias, **kw)),
             "plain_ms": time_ms(lambda: ops.matmul_bias_act_reference(
                 x, w, bias, act, approx)),
             "library_ms": time_ms(lambda: lib(F.linear(x, w, bias))),
+            "library_queued_ms": queued_ms(
+                lambda: lib(F.linear(x, w, bias))),
             "bound_ms": bms, "bound_by": by})
-    emit({"phase": "static_serve_kernels", "rows": rows})
     return rows
 
 
@@ -4623,6 +4650,527 @@ def static_train(ptt):
             "fused": fused}
 
 
+# ---------------------------------------------------------------------------
+# the Fluid book's first programs: recognize_digits (LeNet-5) trained,
+# saved and served through kernel 5, and image_classification (VGG-16
+# with batch norm) trained and served, through the static core's vision
+# ops (cuDNN's convolutions and pooling, no hand kernel)
+# ---------------------------------------------------------------------------
+
+# the book's BATCH_SIZEs (test_recognize_digits.py 64,
+# test_image_classification.py 128), f32, Adam(1e-3) as the book's
+BOOK_LENET_B, BOOK_LENET_EPOCHS = 64, 5
+BOOK_VGG_B = 128
+BOOK_VGG_WARMUP, BOOK_VGG_STEPS = 2, 10
+BOOK_SERVE_BATCHES = (1, 64)
+BOOK_SERVE_REQUESTS = 20
+BOOK_SEED = 43
+BOOK_REL = 1e-4     # card vs CPU: loss, gradients, parameters, running stats
+BOOK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "static_book")
+
+
+def book_lenet5(layers, img, label):
+    """`tests/test_book_mnist.py:28-38`'s LeNet-5; returns (mean loss,
+    accuracy, the softmax prediction)."""
+    conv1 = layers.conv2d(img, num_filters=6, filter_size=5, padding=2,
+                          act="relu")
+    pool1 = layers.pool2d(conv1, pool_size=2, pool_stride=2)
+    conv2 = layers.conv2d(pool1, num_filters=16, filter_size=5, act="relu")
+    pool2 = layers.pool2d(conv2, pool_size=2, pool_stride=2)
+    fc1 = layers.fc(pool2, size=120, act="relu")
+    fc2 = layers.fc(fc1, size=84, act="relu")
+    logits = layers.fc(fc2, size=10)
+    loss = layers.softmax_with_cross_entropy(logits, label)
+    prob = layers.softmax(logits)
+    return layers.mean(loss), layers.accuracy(prob, label), prob
+
+
+def book_vgg16_bn(layers, img, label, dropout=True):
+    """The book's `vgg16_bn_drop` (Paddle's tests/book/
+    test_image_classification.py): five `img_conv_group`s (3x3 convs,
+    pad 1, each with batch_norm + relu and dropout at the group's rates,
+    none at 0, then a 2x2 max pool), dropout 0.5, fc 512, batch_norm
+    + relu, dropout 0.5, fc 512, fc 10 softmax, cross_entropy, mean and
+    accuracy.  ``dropout=False``: every rate 0 (the explicit dropout
+    ops stay, keeping every unit)."""
+    k = 1.0 if dropout else 0.0
+    x = img
+    for n, rates in ((64, (0.3, 0)), (128, (0.4, 0)), (256, (0.4, 0.4, 0)),
+                     (512, (0.4, 0.4, 0)), (512, (0.4, 0.4, 0))):
+        for rate in rates:
+            x = layers.conv2d(x, num_filters=n, filter_size=3, padding=1)
+            x = layers.batch_norm(x, act="relu")
+            if rate * k > 1e-5:
+                x = layers.dropout(x, dropout_prob=rate * k)
+        x = layers.pool2d(x, pool_size=2, pool_stride=2, pool_type="max")
+    x = layers.dropout(x, dropout_prob=0.5 * k)
+    x = layers.fc(x, size=512)
+    x = layers.batch_norm(x, act="relu")
+    x = layers.dropout(x, dropout_prob=0.5 * k)
+    x = layers.fc(x, size=512)
+    prob = layers.fc(x, size=10, act="softmax")
+    loss = layers.mean(layers.cross_entropy(prob, label))
+    return loss, layers.accuracy(prob, label), prob
+
+
+def book_program(ptt, net, shape, **kw):
+    """(main, startup, test clone, loss, accuracy, prediction) of ``net``
+    on an f32 image of ``shape`` and an int64 label, minimized by
+    AdamOptimizer(1e-3), the startup program seeded."""
+    fluid, layers = ptt.fluid, ptt.fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = layers.data("img", shape=list(shape))
+        label = layers.data("label", shape=[1], dtype="int64")
+        loss, acc, prob = net(layers, img, label, **kw)
+        test = main.clone(for_test=True)
+        fluid.optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+    startup.random_seed = BOOK_SEED
+    return main, startup, test, loss, acc, prob
+
+
+def book_feeds(ptt, reader, b, shape):
+    """One epoch of a book reader in batches of ``b`` (the last partial
+    batch dropped), as feeds: images reshaped to NCHW."""
+    out = []
+    for batch in ptt.batch(reader, b, drop_last=True)():
+        feed = ptt.reader.to_feed(batch, ["img", "label"])
+        feed["img"] = feed["img"].reshape((-1,) + tuple(shape))
+        out.append(feed)
+    return out
+
+
+def _kink_flips(ops, card, cpu):
+    """{"pool2d": [...], "relu": [...]}: for each op of ``ops`` (a max
+    ``pool2d`` or a ``relu``) the elements whose gradient the card's
+    and the CPU's forward route apart: windows whose argmax differs, or
+    inputs on the other side of 0 (the book's unpadded NCHW pools)."""
+    import torch.nn.functional as F
+
+    out = {"pool2d": [], "relu": []}
+    for op in ops:
+        a, b = card[op.input("X")[0]].cpu(), cpu[op.input("X")[0]]
+        if op.type == "relu":
+            out["relu"].append(int(((a > 0) != (b > 0)).sum().item()))
+            continue
+        k = op.attrs["ksize"]
+        st = op.attrs.get("strides", k)
+        _, ia = F.max_pool2d(a, k, st, return_indices=True)
+        _, ib = F.max_pool2d(b, k, st, return_indices=True)
+        out["pool2d"].append(int((ia != ib).sum().item()))
+    return out
+
+
+def book_backward_on_cpu(block, vals):
+    """The step's backward ops run again on the CPU, in program order,
+    over the card step's forward: each input that no backward op writes
+    is the card's value (``vals``: its activations, and the parameters
+    as the step began), each gradient the CPU's own, from the loss's
+    seed on.  A max pool or a relu so routes every gradient as the card
+    did.  Returns {name: CPU value} of every var the backward ops
+    write."""
+    from paddle_tpu_torch.fluid.core.registry import (LowerContext,
+                                                      get_op_def)
+
+    env = {}
+    for op in block.ops:
+        if op.attrs.get("op_role") != "backward":
+            continue
+        ins = {slot: [env[v] if v in env else vals[v].cpu()
+                      for v in op.input(slot)] for slot in op.inputs}
+        with torch.no_grad():
+            out = get_op_def(op.type).lower(LowerContext(), ins, op.attrs)
+        for slot, ts in out.items():
+            env.update(zip(op.output(slot), ts))
+    return env
+
+
+def book_card_vs_cpu(ptt, main, startup, loss, feed):
+    """One step of ``main`` (no dropout) from one seeded startup, on the
+    card and, from a copy of the same state, on the CPU.  Gates:
+
+    * the loss within BOOK_REL of itself;
+    * each parameter's gradient within BOOK_REL of its scale (max |g|)
+      of the CPU's backward over the card's forward
+      (`book_backward_on_cpu`), except a bias added right before a
+      ``batch_norm``, whose gradient is 0 in exact arithmetic (the
+      normalization removes it) and rounding noise on either side: both
+      are held under BOOK_REL of the step's largest gradient.  The CPU
+      step's own gradients are reported beside them, with the elements
+      whose gradient the two forwards route apart (`_kink_flips`): a
+      max pool's window whose two largest inputs lie within rounding of
+      each other, or a relu's input within rounding of 0, sends its
+      gradient elsewhere when the forward moves by 1e-7, and every
+      gradient below it moves by up to a few percent of its scale;
+    * each parameter within BOOK_REL of its scale (max |p|) beyond what
+      its update op makes of the two runs' gradients (Adam moves an
+      element by about +-lr whatever its gradient, and by a share of lr
+      where |g| is near its eps: a rounding-level difference there is
+      no fault, `static_train_vs_plain` likewise);
+    * each running statistic within BOOK_REL of its scale."""
+    fluid = ptt.fluid
+    from paddle_tpu_torch.fluid.core.registry import (LowerContext,
+                                                      get_op_def)
+
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [v.name for v in main.list_vars()
+             if v.persistable and not v.is_data]
+    start = {n: scope.find_var(n).to("cpu", copy=True) for n in names}
+    cpu_scope = fluid.Scope()
+    for n, t in start.items():
+        cpu_scope.set(n, t.clone())
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    stats = [p.name for p in main.all_parameters() if not p.trainable]
+    block = main.global_block
+    fwd = [op for op in block.ops if op.attrs.get("op_role") is None]
+    bwd = [op for op in block.ops if op.attrs.get("op_role") == "backward"]
+    bn_in = {n for op in fwd if op.type == "batch_norm"
+             for n in op.input("X")}
+    bn_fed = {op.input("Y")[0] for op in fwd
+              if op.type == "elementwise_add"
+              and op.output("Out")[0] in bn_in
+              and block.var(op.input("Y")[0]).persistable}
+    kinks = [op for op in fwd if op.type == "relu" or (
+        op.type == "pool2d" and op.attrs.get("pooling_type") == "max")]
+    kink_in = [op.input("X")[0] for op in kinks]
+    written = {v for op in bwd for slot in op.outputs
+               for v in op.output(slot)}
+    bwd_in = sorted({v for op in bwd for slot in op.inputs
+                     for v in op.input(slot)} - written)
+    fetch = [loss.name] + [n + "@GRAD" for n in params] + kink_in
+    got = exe.run(main, feed=feed, fetch_list=fetch + bwd_in, scope=scope,
+                  return_numpy=False)
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=cpu_scope,
+        return_numpy=False)
+    k = 1 + len(params)
+    flips = _kink_flips(kinks, dict(zip(kink_in, got[k:])),
+                        dict(zip(kink_in, want[k:])))
+    # the parameters as the step began: the fetch reads them updated
+    swept = book_backward_on_cpu(block, {
+        v: start.get(v, t) for v, t in zip(bwd_in, got[k + len(kink_in):])})
+    got, want = got[:k], want[:k]
+    top = max(g.abs().max().item() for g in want[1:])
+    update_of = {op.input("Param")[0]: op for op in block.ops
+                 if op.attrs.get("op_role") == "optimize"}
+
+    def updated(name, grad):
+        op = update_of[name]
+        ins = {slot: [grad if slot == "Grad" else start[n].clone()
+                      for n in op.input(slot)] for slot in op.inputs}
+        return get_op_def(op.type).lower(LowerContext(), ins,
+                                         op.attrs)["ParamOut"][0]
+
+    def rel(a, b):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        return err / scale if scale else err
+
+    loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    worst_g, worst_z, worst_step = (-1.0, ""), (-1.0, ""), (-1.0, "")
+    worst_p, worst_s = (-1.0, ""), (-1.0, "")
+    for n, g_card, g_cpu in zip(params, got[1:], want[1:]):
+        g_card, g_swept = g_card.cpu(), swept[n + "@GRAD"]
+        if n in bn_fed:
+            noise = max(g_card.abs().max().item(),
+                        g_swept.abs().max().item())
+            worst_z = max(worst_z, (noise / top, n))
+        else:
+            worst_g = max(worst_g, (rel(g_card, g_swept), n))
+            worst_step = max(worst_step, (rel(g_card, g_cpu), n))
+        a, b = scope.find_var(n).cpu(), cpu_scope.find_var(n)
+        du = updated(n, g_card) - updated(n, g_cpu)
+        scale = b.abs().max().item()
+        err = ((a - b) - du).abs().max().item()
+        worst_p = max(worst_p, (err / scale if scale else err, n))
+    for n in stats:
+        a, b = scope.find_var(n).cpu(), cpu_scope.find_var(n)
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        worst_s = max(worst_s, (err, n))
+    if not (np.isfinite(got[0].item()) and loss_rel <= BOOK_REL
+            and worst_g[0] <= BOOK_REL and worst_z[0] <= BOOK_REL
+            and worst_p[0] <= BOOK_REL and worst_s[0] <= BOOK_REL):
+        raise AssertionError(
+            "book step, card vs CPU: loss %g vs %g (rel %g); worst "
+            "gradient %s at %g of its scale of the CPU's backward over "
+            "the card's forward; worst batch_norm-fed bias gradient %s "
+            "at %g of the step's largest gradient; worst parameter %s at "
+            "%g of its scale beyond the two gradients' updates; worst "
+            "running statistic %s at %g; limit %g (the CPU step's own "
+            "gradients: worst %s at %g, kink flips %s)" % (
+                got[0].item(), want[0].item(), loss_rel, worst_g[1],
+                worst_g[0], worst_z[1], worst_z[0], worst_p[1],
+                worst_p[0], worst_s[1], worst_s[0], BOOK_REL,
+                worst_step[1], worst_step[0], flips))
+    return {"loss": got[0].item(), "cpu_loss": want[0].item(),
+            "loss_rel_err": loss_rel, "backward_ops": len(bwd),
+            "max_grad_rel_err": worst_g[0], "worst_grad": worst_g[1],
+            "grad_share_of_limit": worst_g[0] / BOOK_REL,
+            "bn_fed_bias_grads": len(bn_fed),
+            "max_bn_fed_bias_grad_of_top": worst_z[0] if bn_fed else None,
+            "cpu_step_max_grad_rel_err": worst_step[0],
+            "cpu_step_worst_grad": worst_step[1], "kink_flips": flips,
+            "max_param_rel_err": worst_p[0],
+            "worst_param": worst_p[1], "max_running_stat_rel_err":
+            worst_s[0] if stats else None, "limit": BOOK_REL}
+
+
+def _no_launches(tag, ops):
+    _expect_launches(tag, ops.launch_counts(),
+                     {k: 0 for k in ops.KERNEL_WRAPPERS})
+
+
+def book_serve(ptt, main, prob, exe, scope, name, passes, feeds_b):
+    """Save ``main``'s inference program (image -> ``prob``) with the
+    port's `save_inference_model`, load it into a `create_predictor` on
+    the card, run each feed of ``feeds_b`` unfused, apply ``passes``
+    and run it again.  Returns (predictor, {b: (unfused, fused)
+    outputs}, {b: launches of the fused forward}, op types)."""
+    import shutil
+
+    fluid, inference, ops = ptt.fluid, ptt.inference, ptt.ops
+    d = os.path.join(BOOK_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["img"], [prob], exe, main)
+    pred = inference.create_predictor(inference.AnalysisConfig(d))
+    plain = {b: pred.run([f["img"]])[0] for b, f in feeds_b.items()}
+    fluid.ir.apply_passes(pred._program, passes)
+    outs, launches = {}, {}
+    for b, f in feeds_b.items():
+        ops.reset_launch_counts()
+        out = pred.run([f["img"]])[0]
+        launches[b] = ops.launch_counts()
+        if out.shape != (f["img"].shape[0], 10):
+            raise AssertionError("%s served shape %s" % (name, out.shape))
+        compare("%s served B=%d, fused vs unfused" % (name, b),
+                torch.from_numpy(out), torch.from_numpy(plain[b]),
+                TOL[torch.float32])
+        outs[b] = (plain[b], out)
+    shutil.rmtree(d, ignore_errors=True)
+    return pred, outs, launches, [o.type for o in pred._program.global_block
+                                  .ops]
+
+
+def static_book_lenet(ptt):
+    """recognize_digits: LeNet-5 trained by the Executor on the card
+    over BOOK_LENET_EPOCHS epochs of `dataset.mnist.train()` at B = 64
+    (no kernel: convs, pools and the fc `mul`s are cuDNN's and
+    cuBLAS's); gates: the last epoch's mean loss under half the first
+    step's, the test clone's accuracy on `dataset.mnist.test()` over
+    0.5, one step against the CPU's (`book_card_vs_cpu`).  Then saved
+    and served through `create_predictor` + ``matmul_bias_act_fuse`` at
+    B = 1 and 64: exactly 2 kernel-5 launches a forward (fc 120 relu,
+    fc 84 relu) and none of any other kernel, each batch within TOL f32
+    of the unfused program's; kernel 5 at the served shapes against its
+    plain version and timed."""
+    fluid, ops = ptt.fluid, ptt.ops
+    shape = (1, 28, 28)
+    main, startup, test, loss, acc, prob = book_program(ptt, book_lenet5,
+                                                        shape)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    train = book_feeds(ptt, ptt.dataset.mnist.train(), BOOK_LENET_B, shape)
+    ops.reset_launch_counts()
+    losses = []
+    feeds = train * BOOK_LENET_EPOCHS
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(feeds) + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evs[0].record()
+    for i, feed in enumerate(feeds):
+        lv, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)
+        losses.append(lv)
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [v.item() for v in losses]
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(feeds))]
+    train_launches = ops.launch_counts()
+    _no_launches("lenet train", ops)
+    last = float(np.mean(losses[-len(train):]))
+    if not (np.isfinite(losses).all() and last < 0.5 * losses[0]):
+        raise AssertionError("lenet losses %s" % losses)
+    test_feeds = book_feeds(ptt, ptt.dataset.mnist.test(), BOOK_LENET_B,
+                            shape)
+    accs = [exe.run(test, feed=f, fetch_list=[acc], scope=scope)[0].item()
+            for f in test_feeds]
+    if not np.mean(accs) > 0.5:
+        raise AssertionError("lenet test accuracy %s" % accs)
+    vs_cpu = book_card_vs_cpu(ptt, main, startup, loss, train[0])
+
+    feeds_b = {b: {"img": test_feeds[0]["img"][:b]}
+               for b in BOOK_SERVE_BATCHES}
+    pred, outs, launches, types = book_serve(
+        ptt, main, prob, exe, scope, "lenet5", ["matmul_bias_act_fuse"],
+        feeds_b)
+    want = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    want["matmul_bias_act"] = 2
+    for b in BOOK_SERVE_BATCHES:
+        _expect_launches("lenet served forward B=%d" % b, launches[b], want)
+    b = BOOK_SERVE_BATCHES[-1]
+    calls = _recorded_calls(ops, lambda: pred.run_async([feeds_b[b]["img"]]))
+    rows = mba_rows(ops, calls["mba"], "lenet")
+    if sorted((r["M"], r["K"], r["N"], r["act"]) for r in rows) != [
+            (b, 120, 84, "relu"), (b, 400, 120, "relu")]:
+        raise AssertionError("lenet kernel 5 shapes %s" % rows)
+    latency = {}
+    for bb in BOOK_SERVE_BATCHES:
+        ts = []
+        for _ in range(BOOK_SERVE_REQUESTS):
+            t = time.perf_counter()
+            pred.run([feeds_b[bb]["img"]])
+            ts.append((time.perf_counter() - t) * 1e3)
+        latency[bb] = {"p50_ms": float(np.percentile(ts, 50)),
+                       "min_ms": min(ts)}
+    ops.reset_launch_counts()
+    for bb in BOOK_SERVE_BATCHES:
+        pred.run([feeds_b[bb]["img"]])
+    serve_launches = ops.launch_counts()
+    del pred, scope, exe
+    return {"config": dict(net="LeNet-5 (tests/test_book_mnist.py)", B=b,
+                           epochs=BOOK_LENET_EPOCHS, steps=len(losses),
+                           optimizer="Adam(1e-3)", dtype="float32",
+                           startup_seed=BOOK_SEED),
+            "ops_per_step": len(main.global_block.ops),
+            "train_s": train_s, "step_ms": step_ms,
+            "p50_ms_after_2": float(np.percentile(step_ms[2:], 50)),
+            "losses": losses, "last_epoch_loss": last,
+            "train_launches": train_launches, "test_accuracy": accs,
+            "card_vs_cpu": vs_cpu, "served_op_types": {
+                t: types.count(t) for t in sorted(set(types))},
+            "served_launches": launches, "served_max_abs_err": {
+                bb: float(np.abs(f - p).max()) for bb, (p, f) in outs.items()},
+            "serve_latency": latency, "serve_run_launches": serve_launches,
+            "kernel_rows": rows}
+
+
+def static_book_vgg(ptt):
+    """image_classification: the book's VGG-16 with batch norm trained
+    by the Executor on the card on `dataset.cifar.train10()` at B = 128
+    (BOOK_VGG_WARMUP + BOOK_VGG_STEPS steps, the reader's four batches
+    in turn); gates: finite losses, the last epoch's mean under the
+    first's, every running mean and variance moved from its initial 0
+    and 1, no launch of any kernel (cuDNN's convs, the plain BN passes,
+    cuBLAS's `mul`s), one dropout-0 step against the CPU's
+    (`book_card_vs_cpu`); then p50 / p99 a step (CUDA events),
+    images/s, peak memory, ops a step and a profiled step.  Served
+    through `create_predictor` + ``batch_norm_act_fuse`` at B = 128:
+    14 ``fused_batch_norm_act`` ops, the output within TOL f32 of the
+    unfused program's, no kernel launched (the fc layers carry no act
+    that ``matmul_bias_act_fuse`` takes: fc 512 feeds a batch_norm or
+    the last fc, fc 10 ends in softmax)."""
+    fluid, ops = ptt.fluid, ptt.ops
+    shape = (3, 32, 32)
+    t0 = time.perf_counter()
+    main, startup, test, loss, acc, prob = book_program(ptt, book_vgg16_bn,
+                                                        shape)
+    t1 = time.perf_counter()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    stats = [p.name for p in main.all_parameters() if not p.trainable]
+    init = {n: scope.find_var(n).clone() for n in stats}
+    train = book_feeds(ptt, ptt.dataset.cifar.train10(), BOOK_VGG_B, shape)
+    n_feed = len(train)
+
+    def step(i):
+        out, = exe.run(main, feed=train[i % n_feed], fetch_list=[loss],
+                       scope=scope, return_numpy=False)
+        return out
+
+    ops.reset_launch_counts()
+    losses = [step(i).item() for i in range(BOOK_VGG_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(BOOK_VGG_STEPS + 1)]
+    outs = []
+    evs[0].record()
+    for n in range(BOOK_VGG_STEPS):
+        outs.append(step(BOOK_VGG_WARMUP + n))
+        evs[n + 1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = [evs[n].elapsed_time(evs[n + 1]) for n in range(BOOK_VGG_STEPS)]
+    losses += [o.item() for o in outs]
+    prof = device_profile(lambda: step(0))
+    train_launches = ops.launch_counts()
+    _no_launches("vgg train", ops)
+    if not (np.isfinite(losses).all() and np.mean(losses[-n_feed:])
+            < np.mean(losses[:n_feed])):
+        raise AssertionError("vgg losses %s" % losses)
+    still = [n for n in stats
+             if (scope.find_var(n) == init[n]).any().item()]
+    if len(stats) != 28 or still:
+        raise AssertionError("vgg running statistics: %d, unmoved %s"
+                             % (len(stats), still))
+
+    ops.reset_launch_counts()
+    pred, outs_b, launches, types = book_serve(
+        ptt, main, prob, exe, scope, "vgg16_bn", ["batch_norm_act_fuse"],
+        {BOOK_VGG_B: {"img": train[0]["img"]}})
+    _expect_launches("vgg served forward", launches[BOOK_VGG_B],
+                     {k: 0 for k in ops.KERNEL_WRAPPERS})
+    if types.count("fused_batch_norm_act") != 14 or "batch_norm" in types:
+        raise AssertionError("vgg served ops %s" % sorted(set(types)))
+    del pred, scope, exe
+
+    main0, startup0, _, loss0, _, _ = book_program(
+        ptt, book_vgg16_bn, shape, dropout=False)
+    vs_cpu = book_card_vs_cpu(ptt, main0, startup0, loss0, train[0])
+    p50 = float(np.percentile(ms, 50))
+    return {"config": dict(net="VGG-16 with batch norm (vgg16_bn_drop)",
+                           B=BOOK_VGG_B, image="3x32x32",
+                           optimizer="Adam(1e-3)", dtype="float32",
+                           startup_seed=BOOK_SEED),
+            "build_s": t1 - t0, "ops_per_step": len(main.global_block.ops),
+            "op_types": {t: [o.type for o in main.global_block.ops].count(t)
+                         for t in sorted({o.type for o in
+                                          main.global_block.ops})},
+            "losses": losses, "step_ms": ms, "p50_ms": p50,
+            "p99_ms": float(np.percentile(ms, 99)),
+            "images_per_s": BOOK_VGG_B * BOOK_VGG_STEPS / (sum(ms) / 1e3),
+            "peak_memory_gb": peak / 1e9, "profile": prof,
+            "train_launches": train_launches,
+            "served_op_types": {t: types.count(t) for t in sorted(set(types))},
+            "served_launches": launches[BOOK_VGG_B],
+            "served_max_abs_err": float(np.abs(
+                outs_b[BOOK_VGG_B][1] - outs_b[BOOK_VGG_B][0]).max()),
+            "card_vs_cpu": vs_cpu}
+
+
+def static_book(ptt):
+    """The Fluid book's recognize_digits (`static_book_lenet`) and
+    image_classification (`static_book_vgg`) programs, with TF32 off in
+    cuBLAS and cuDNN for the phase (its card-vs-CPU gates at 1e-4 need
+    f32 products)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lenet = static_book_lenet(ptt)
+    t1 = time.perf_counter()
+    vgg = static_book_vgg(ptt)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    emit({"phase": "static_book", "nvidia_smi": smi,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "lenet_s": t1 - t0, "vgg_s": time.perf_counter() - t1,
+          "recognize_digits": lenet, "image_classification": vgg})
+    return {"per_forward": lenet["served_launches"][BOOK_SERVE_BATCHES[-1]],
+            "run_launches": {k: lenet["serve_run_launches"][k]
+                             + lenet["train_launches"][k]
+                             + vgg["train_launches"][k]
+                             + vgg["served_launches"][k]
+                             for k in ptt.ops.KERNEL_WRAPPERS},
+            "kernel_rows": lenet["kernel_rows"]}
+
+
 REDESIGNED_KERNELS = ("matmul_fwd_tc", "conv_bn_relu_tc", "conv_bn_stats_tc",
                       "decode_dense_kernel", "decode_paged_kernel",
                       "tf32x3")
@@ -4713,6 +5261,7 @@ def main():
     eager_launches = train_eager(ptt)
     static = static_serve(ptt)
     static_tr = static_train(ptt)
+    book = static_book(ptt)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -4739,6 +5288,16 @@ def main():
         return {"launches_per_step": static_tr["per_step"][name],
                 "run_launches": static_tr["run_launches"][name],
                 "steps": static_tr["steps"], "shapes": row}
+
+    def static_book_entry(name):
+        """The kernel on the Fluid book's programs (LeNet-5 trained and
+        served, VGG-16-BN trained and served): launches over the phase,
+        and kernel 5's rows at the served LeNet's shapes."""
+        out = {"run_launches": book["run_launches"][name],
+               "launches_per_served_lenet_forward": book["per_forward"][name]}
+        if name == "matmul_bias_act":
+            out["shapes"] = book["kernel_rows"]
+        return out
 
     def flash_entry(name, source, line, n, max_abs_err, ms, plain_ms,
                     library_ms):
@@ -4792,21 +5351,24 @@ def main():
                  launches["engine_speculative"]["flash_fwd"])),
              train_lamb_run_launches=lamb_launches["flash_fwd"],
              static_serve=static_entry("flash_fwd"),
-             static_train=static_train_entry("flash_fwd")),
+             static_train=static_train_entry("flash_fwd"),
+             static_book=static_book_entry("flash_fwd")),
         dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
                          pair_launches["flash_bwd_dq"], err["pair_dq"],
                          main["dq_ms"], main["plain_bwd_ms"],
                          main["library_bwd_ms"]),
              d128=d128_bwd("dq_ms", ("pair_dq", "pair_delta")),
              train_lamb_run_launches=lamb_launches["flash_bwd_dq"],
-             static_train=static_train_entry("flash_bwd_dq")),
+             static_train=static_train_entry("flash_bwd_dq"),
+             static_book=static_book_entry("flash_bwd_dq")),
         dict(flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
                          pair_launches["flash_bwd_dkv"],
                          max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
                          main["plain_bwd_ms"], main["library_bwd_ms"]),
              d128=d128_bwd("dkv_ms", ("pair_dk", "pair_dv")),
              train_lamb_run_launches=lamb_launches["flash_bwd_dkv"],
-             static_train=static_train_entry("flash_bwd_dkv")),
+             static_train=static_train_entry("flash_bwd_dkv"),
+             static_book=static_book_entry("flash_bwd_dkv")),
         dict(flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
                          train_launches["flash_bwd_fused"],
                          max(err["fused_dq"], err["fused_dk"],
@@ -4814,7 +5376,8 @@ def main():
                          main["fused_ms"], main["plain_bwd_ms"],
                          main["library_bwd_ms"]),
              train_lamb_run_launches=lamb_launches["flash_bwd_fused"],
-             static_train=static_train_entry("flash_bwd_fused")),
+             static_train=static_train_entry("flash_bwd_fused"),
+             static_book=static_book_entry("flash_bwd_fused")),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="paddle_tpu/ops/pallas/decode_attention.py:73",
@@ -4822,6 +5385,7 @@ def main():
              draft_decode=dict(draft_decode_row, speculative_run_launches=(
                  launches["engine_speculative"]["decode_attention"])),
              static_train=static_train_entry("decode_attention"),
+             static_book=static_book_entry("decode_attention"),
              **dense_row),
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
@@ -4839,7 +5403,8 @@ def main():
                  "paged_attention"],
              disagg_decode_launches=[launches[k]["paged_attention"] for k in (
                  "disagg_decode", "disagg_int8_decode")],
-             static_train=static_train_entry("paged_attention"), **paged_row),
+             static_train=static_train_entry("paged_attention"),
+             static_book=static_book_entry("paged_attention"), **paged_row),
     ]
 
     # the fused-epilogue GEMM kernels at the FFN's shape (M = 30720, K =
@@ -4863,14 +5428,17 @@ def main():
                                                  mm_main["fwd_tiles"]),
              cublas_gemm_ms=mm_main["cublas_gemm_ms"]["fwd"],
              static_serve=static_entry("matmul_bias_act"),
-             static_train=static_train_entry("matmul_bias_act")),
+             static_train=static_train_entry("matmul_bias_act"),
+             static_book=static_book_entry("matmul_bias_act")),
         dict(mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"],
                       "dx"), tile=mm_main["bwd_tile"], splits=1,
-             static_train=static_train_entry("matmul_bwd_dx")),
+             static_train=static_train_entry("matmul_bwd_dx"),
+             static_book=static_book_entry("matmul_bwd_dx")),
         dict(mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
                       max(mm_err["dw"], mm_err["dbias"]), "dw"),
              tile=mm_main["bwd_tile"], splits=mm_main["dw_splits"],
-             static_train=static_train_entry("matmul_bwd_dw")),
+             static_train=static_train_entry("matmul_bwd_dw"),
+             static_book=static_book_entry("matmul_bwd_dw")),
     ]
 
     # the 1x1 conv + BN + relu kernel over one bf16 ResNet-50 forward at
@@ -4901,6 +5469,7 @@ def main():
             "cublas_gemm_ms"),
         f32_launches=resnet_launches["float32"]["conv_bn_relu"],
         static_train=static_train_entry("conv_bn_relu"),
+        static_book=static_book_entry("conv_bn_relu"),
         per_shape=[{k: r[k] for k in keep} for r in conv_rows]))
 
     # the 1x1 conv + BN-statistics kernel over one bf16 ResNet-50 train
@@ -4932,6 +5501,7 @@ def main():
                               for r in stats_rows),
         train_eager_run_launches=eager_launches["conv_bn_stats"],
         static_train=static_train_entry("conv_bn_stats"),
+        static_book=static_book_entry("conv_bn_stats"),
         per_shape=[{k: r[k] for k in keep11} for r in stats_main]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -19,7 +19,12 @@ fused-epilogue GEMM kernels, `nn.functional.fused_linear`), and
 mode, each bottleneck block's 1x1 conv + BN + relu through one kernel
 (`ops.conv1x1_bn_relu`); the eager ``loss.backward();
 opt.minimize(loss, parameter_list=...)`` path over the 13 optimizers of
-`optimizer`, with `regularizer`, `clip` and `learning_rate_scheduler`.
+`optimizer`, with `regularizer`, `clip` and `learning_rate_scheduler`;
+the static-graph Fluid core (`fluid`: Program IR, Executor, backward,
+static optimizers, io, passes; `inference.create_predictor`), which
+trains and serves a BERT-base program and the Fluid book's
+fit_a_line, recognize_digits and image_classification programs over
+`dataset`'s readers (`reader`, `batch`).
 See README "PyTorch/CUDA port".
 
 Device rule: every entry point takes ``device=``; with none given it is
@@ -32,12 +37,13 @@ CPU-only box and imports neither JAX nor `paddle_tpu`.
 
 import importlib
 
-_SUBMODULES = ("analysis", "clip", "device", "distributed", "fluid",
-               "generation", "incubate", "inference",
+_SUBMODULES = ("analysis", "clip", "dataset", "device", "distributed",
+               "fluid", "generation", "incubate", "inference",
                "learning_rate_scheduler", "models", "nn", "observability",
-               "ops", "optimizer", "regularizer", "serving", "tp_serving")
+               "ops", "optimizer", "reader", "regularizer", "serving",
+               "tp_serving")
 
-__all__ = list(_SUBMODULES)
+__all__ = list(_SUBMODULES) + ["batch"]
 
 
 def __getattr__(name):
@@ -45,4 +51,6 @@ def __getattr__(name):
         mod = importlib.import_module("." + name, __name__)
         globals()[name] = mod
         return mod
+    if name == "batch":     # paddle.batch parity
+        return __getattr__("reader").batch
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -6,8 +6,10 @@ module names and the same JSON IR.  Tensors are torch tensors on an
 explicit `torch.device` (``CPUPlace`` / ``CUDAPlace``; the card unless
 the caller asks for the CPU), random ops draw from explicit
 `torch.Generator`s, and a block runs op by op.  The op library holds
-the ops a static BERT pretraining program and a small fc MLP train and
-serve with and are initialized by, and the 13 dense update ops;
+the ops a static BERT pretraining program and the Fluid book's
+fit_a_line, recognize_digits (LeNet-5, the MLP) and
+image_classification (VGG with batch norm) programs train and serve
+with and are initialized by, and the 13 dense update ops;
 ``append_backward`` / ``gradients`` and ``optimizer``'s ``minimize``
 build training programs, which the `Executor` runs.
 """

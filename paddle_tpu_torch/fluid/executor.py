@@ -7,7 +7,9 @@ each op's lowering launching its own kernels on the Executor's device.
 Persistable state lives in a `Scope` of torch tensors: a run reads the
 persistable vars it needs from the scope and writes the persistable
 vars it produces (a startup program's parameters, a training program's
-updated parameters, accumulators and learning rate) back to it.
+updated parameters, accumulators and learning rate) back to it;
+``batch_norm``'s running statistics go into the scope's own tensors,
+in place.
 
 A block runs without autograd, except in a training run (a block with
 ``vjp_grad`` ops, `backward.append_backward`): there the forward ops
@@ -30,7 +32,7 @@ from .core import dtypes as dtypes_mod
 from .core import scope as scope_mod
 from .core.block_eval import TapePlan, run_ops
 from .core.place import Place, default_place
-from .core.registry import LowerContext
+from .core.registry import LowerContext, get_op_def
 from .core.scope import Scope, global_scope
 
 
@@ -71,6 +73,12 @@ class _Plan:
                     state_out.append(name)
         self.state_in = state_in
         self.state_out = state_out
+        # the running statistics an op updates (``batch_norm``'s MeanOut
+        # and VarianceOut): written into the scope's tensors in place
+        self.in_place = {
+            n for op in block.ops
+            for slot in get_op_def(op.type).stateful_out_slots
+            for n in op.output(slot)}
         self.tape = TapePlan(block.ops) if TapePlan.needed(block.ops) \
             else None
 
@@ -84,6 +92,19 @@ def to_tensor(value, dtype, device):
     if dtype is not None:
         t = t.to(dtypes_mod.to_torch(dtype))
     return t.to(device)
+
+
+def _write_state(scope, name, value, in_place):
+    """A run's persistable output into ``scope``: ``in_place``, copied
+    into the tensor the scope holds when shape, dtype and device agree
+    (as the update ops write theirs), else set as the scope's value."""
+    old = scope.find_var(name)
+    if (in_place and isinstance(old, torch.Tensor) and old is not value
+            and old.shape == value.shape and old.dtype == value.dtype
+            and old.device == value.device):
+        old.copy_(value)
+    else:
+        scope.set(name, value)
 
 
 def to_numpy(t):
@@ -148,7 +169,7 @@ class Executor:
         with torch.no_grad():
             run_ops(block.ops, env, ctx, plan.tape)
         for n in plan.state_out:
-            scope.set(n, env[n])
+            _write_state(scope, n, env[n], n in plan.in_place)
         fetches = [env[n] for n in fetch_names]
         if return_numpy:
             return [to_numpy(f) for f in fetches]

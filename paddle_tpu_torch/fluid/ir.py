@@ -5,8 +5,8 @@ Counterpart of `paddle_tpu/fluid/ir.py`, with every pass it has:
 `MatmulBiasActFusePass` and `TransposeFoldPass`.  Passes rewrite the
 JSON IR only (`framework.Program`), so they run on any program the port
 can load, whether or not it has the ops they produce.  After
-``matmul_bias_act_fuse`` each fused FFN and pooler runs as one launch
-of the fused-epilogue GEMM kernel (`ops.matmul_bias_act`).
+``matmul_bias_act_fuse`` each fused FFN, pooler and fc + relu runs as
+one launch of the fused-epilogue GEMM kernel (`ops.matmul_bias_act`).
 """
 
 from __future__ import annotations
@@ -202,7 +202,8 @@ class BatchNormActFusePass(Pass):
     """batch_norm + act (sole consumer) -> fused_batch_norm_act — a real
     PatternDetector-style rewrite targeting an op of the reference's
     library (cf. reference fused_bn_activation and conv_bn_fuse_pass.cc
-    machinery).  The port has neither op yet; the rewrite is IR-only."""
+    machinery).  The fused op runs ``batch_norm``'s lowering and then
+    the activation's (`fluid/ops/tail_nn_ops.py`)."""
 
     name = "batch_norm_act_fuse"
 

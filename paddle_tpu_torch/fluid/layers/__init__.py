@@ -3,8 +3,21 @@
 ops the port has)."""
 
 from . import common, loss, math_op_patch, nn, ops, tensor  # noqa: F401
-from .loss import softmax_with_cross_entropy, square_error_cost  # noqa: F401
-from .nn import dropout, embedding, fc, layer_norm  # noqa: F401
+from .loss import (  # noqa: F401
+    cross_entropy,
+    softmax_with_cross_entropy,
+    square_error_cost,
+)
+from .nn import (  # noqa: F401
+    accuracy,
+    batch_norm,
+    conv2d,
+    dropout,
+    embedding,
+    fc,
+    layer_norm,
+    pool2d,
+)
 from .ops import (  # noqa: F401
     elementwise_add,
     elementwise_div,
@@ -18,8 +31,11 @@ from .ops import (  # noqa: F401
     reduce_sum,
     relu,
     scale,
+    sigmoid,
+    softmax,
     square,
     tanh,
+    topk,
 )
 from .tensor import (  # noqa: F401
     assign,

@@ -1,5 +1,6 @@
-"""Loss layers: softmax_with_cross_entropy and square_error_cost
-(counterpart of the matching part of `paddle_tpu/fluid/layers/loss.py`)."""
+"""Loss layers: softmax_with_cross_entropy, cross_entropy and
+square_error_cost (counterpart of the matching part of
+`paddle_tpu/fluid/layers/loss.py`)."""
 
 from .common import append_simple_op
 
@@ -22,6 +23,15 @@ def softmax_with_cross_entropy(
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    return append_simple_op(
+        "cross_entropy",
+        {"X": input, "Label": label},
+        {"soft_label": soft_label, "ignore_index": ignore_index},
+        out_slots=("Y",),
+    )
 
 
 def square_error_cost(input, label):

@@ -1,5 +1,5 @@
 """Op wrappers: activations, scale, the elementwise ops, reductions,
-matmul and mul (counterpart of the matching parts of
+softmax, topk, matmul and mul (counterpart of the matching parts of
 `paddle_tpu/fluid/layers/ops.py`)."""
 
 from .common import append_simple_op
@@ -7,6 +7,10 @@ from .common import append_simple_op
 
 def relu(x, name=None):
     return append_simple_op("relu", {"X": x})
+
+
+def sigmoid(x, name=None):
+    return append_simple_op("sigmoid", {"X": x})
 
 
 def tanh(x, name=None):
@@ -73,6 +77,15 @@ def _reduce(op, input, dim, keep_dim):
 
 def mean(x, name=None):
     return append_simple_op("mean", {"X": x})
+
+
+def softmax(input, axis=-1, use_cudnn=False, name=None):
+    return append_simple_op("softmax", {"X": input}, {"axis": axis})
+
+
+def topk(input, k, name=None):
+    return append_simple_op("top_k", {"X": input}, {"k": k},
+                            out_slots=("Out", "Indices"))
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):

@@ -1,10 +1,10 @@
 """Dense math ops: elementwise add / sub / mul / div (with axis
-broadcast), relu, tanh, square, gelu, scale, matmul, mul, sum and the
-fused-epilogue matmul_bias_act.
+broadcast), relu, sigmoid, tanh, square, gelu, scale, softmax, matmul,
+mul, sum and the fused-epilogue matmul_bias_act.
 
 Counterpart of `paddle_tpu/fluid/ops/math_ops.py` (the elementwise ops
-:37-40, the activations :71, gelu :97, scale :127, matmul :157, mul
-:179, matmul_bias_act :205, sum :297).  ``matmul`` is a plain
+:37-40, the activations :51-71, gelu :97, scale :127, softmax :144,
+matmul :157, mul :179, matmul_bias_act :205, sum :297).  ``matmul`` is a plain
 `torch.matmul`, as the reference's is a plain ``jnp.matmul``.  ``matmul_bias_act`` is the op that reaches a
 hand kernel: it calls `ops.matmul.matmul_bias_act` (kernel 5), which
 launches the kernel on a CUDA tensor and takes its plain version on a
@@ -49,6 +49,7 @@ _register_elementwise("div", torch.div)
 
 _ACTIVATIONS = {
     "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "square": torch.square,
 }
@@ -81,6 +82,11 @@ def _scale(ctx, ins, attrs):
     else:
         out = (x + b) * s
     return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("softmax", inputs=["X"], outputs=["Out"])
+def _softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
 
 
 # -- matmul family -----------------------------------------------------------

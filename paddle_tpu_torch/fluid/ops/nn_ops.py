@@ -1,13 +1,19 @@
-"""NN ops: layer_norm, dropout and its grad, flash_attention,
-lookup_table, softmax_with_cross_entropy, square_error_cost.
+"""NN ops: conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm,
+dropout and its grad, flash_attention, lookup_table,
+softmax_with_cross_entropy, cross_entropy, square_error_cost.
 
-Counterpart of `paddle_tpu/fluid/ops/nn_ops.py` (layer_norm :372,
-dropout :402, dropout_grad :425, flash_attention :438, lookup_table
-:603, softmax_with_cross_entropy :652, square_error_cost :708).
+Counterpart of `paddle_tpu/fluid/ops/nn_ops.py` (conv2d :23,
+depthwise_conv2d :62, pool2d :116 and `_adaptive_pool_general` :162,
+batch_norm :258, layer_norm :372, dropout :402, dropout_grad :425,
+flash_attention :438, lookup_table :603, softmax_with_cross_entropy
+:652, cross_entropy :683, square_error_cost :708).
 ``flash_attention`` is the op that reaches a hand kernel: it calls
 `ops.attention.scaled_dot_product_attention` (kernel 1), which
 launches the kernel on a CUDA tensor and takes its plain version on a
-CPU or meta one.
+CPU or meta one.  The reference computes convolutions and pooling with
+XLA outside any Pallas kernel; here they are PyTorch's (cuDNN on the
+card).  ``batch_norm`` in training runs the reference's one-pass
+statistics and backward (`ops.nn_ops.batch_norm_train`'s).
 """
 
 import math
@@ -16,7 +22,154 @@ import torch
 import torch.nn.functional as F
 
 from ...ops import attention as _attention
+from ...ops import nn_ops as _nn
 from ..core.registry import register_op
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+def _same_pads(size, k, stride, dilation):
+    """XLA's SAME padding of one spatial axis: (before, after) so that
+    the output has ceil(size / stride) positions, the odd one after."""
+    total = max((-(-size // stride) - 1) * stride + (k - 1) * dilation + 1
+                - size, 0)
+    return total // 2, total - total // 2
+
+
+@register_op("conv2d", inputs=["Input", "Filter"], outputs=["Output"])
+def _conv2d(ctx, ins, attrs):
+    """Conv (cf. conv_op.cc).  groups>1 -> grouped conv.
+
+    data_format NCHW (reference default) or NHWC; the filter stays OIHW
+    (paddle layout) either way.  ``paddings`` [h, w] or [top, bottom,
+    left, right]; ``padding_algorithm`` SAME / VALID overrides them."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    # AMP white-list behavior: a float input meets a lower-precision
+    # filter (bf16 params under amp) at the filter's dtype
+    if x.dtype != w.dtype and x.is_floating_point():
+        x = x.to(w.dtype)
+    strides = _pair(attrs.get("strides", [1, 1]))
+    dilations = _pair(attrs.get("dilations", [1, 1]))
+    groups = int(attrs.get("groups", 1))
+    nhwc = attrs.get("data_format", attrs.get("data_layout", "NCHW")) == "NHWC"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    pads = [int(p) for p in attrs.get("paddings", [0, 0])]
+    if len(pads) == 2:
+        pads = [pads[0], pads[0], pads[1], pads[1]]
+    alg = attrs.get("padding_algorithm")
+    if alg == "SAME":
+        pads = list(_same_pads(x.shape[2], w.shape[2], strides[0],
+                               dilations[0])
+                    + _same_pads(x.shape[3], w.shape[3], strides[1],
+                                 dilations[1]))
+    elif alg == "VALID":
+        pads = [0, 0, 0, 0]
+    top, bottom, left, right = pads
+    if top == bottom and left == right:
+        out = F.conv2d(x, w, None, strides, (top, left), dilations, groups)
+    else:
+        out = F.conv2d(F.pad(x, (left, right, top, bottom)), w, None,
+                       strides, 0, dilations, groups)
+    return {"Output": [out.permute(0, 2, 3, 1) if nhwc else out]}
+
+
+@register_op("depthwise_conv2d", inputs=["Input", "Filter"],
+             outputs=["Output"])
+def _depthwise_conv2d(ctx, ins, attrs):
+    """conv2d with one group a channel (``groups`` = Input's dim 1)."""
+    attrs = dict(attrs, groups=int(ins["Input"][0].shape[1]))
+    return _conv2d(ctx, ins, attrs)
+
+
+@register_op("pool2d", inputs=["X"], outputs=["Out"])
+def _pool2d(ctx, ins, attrs):
+    """max/avg pooling (cf. pool_op.cc); NCHW or NHWC.  Padding is -inf
+    for max; avg divides by the window's unpadded count when
+    ``exclusive`` (the default) and the window is padded.
+    ``global_pooling`` takes the whole plane; ``adaptive`` reads ksize
+    as the output size, bin i covering [floor(i·I/O), ceil((i+1)·I/O))
+    (pool_op.cc AdaptStartIndex / AdaptEndIndex), divisible or not."""
+    x = ins["X"][0]
+    ptype = attrs.get("pooling_type", "max")
+    ksize = _pair(attrs.get("ksize", [2, 2]))
+    strides = _pair(attrs.get("strides", ksize))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    nhwc = attrs.get("data_format", attrs.get("data_layout", "NCHW")) != "NCHW"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    if attrs.get("global_pooling", False):
+        ksize = strides = tuple(x.shape[2:])
+        pads = (0, 0)
+    pad4 = (pads[1], pads[1], pads[0], pads[0])
+    if attrs.get("adaptive", False):
+        pool = F.adaptive_max_pool2d if ptype == "max" \
+            else F.adaptive_avg_pool2d
+        out = pool(x, ksize)
+    elif ptype == "max":
+        if pads != (0, 0):
+            x = F.pad(x, pad4, value=-math.inf)
+        out = F.max_pool2d(x, ksize, strides)
+    elif pads == (0, 0):
+        out = F.avg_pool2d(x, ksize, strides)
+    else:
+        out = F.avg_pool2d(F.pad(x, pad4), ksize, strides)
+        if attrs.get("exclusive", True):
+            ones = F.pad(torch.ones_like(x[:1, :1]), pad4)
+            out = out / F.avg_pool2d(ones, ksize, strides)
+    out = out.to(x.dtype)
+    return {"Out": [out.permute(0, 2, 3, 1) if nhwc else out]}
+
+
+def _channels_at_1(x, c_axis):
+    """x as ``[N, C, rest, 1]`` (or its own ``[N, C, H, W]``), a view
+    where it can be, with the inverse map."""
+    xc = x.movedim(c_axis, 1) if c_axis != 1 else x
+    if xc.dim() == 4:
+        return xc, lambda y: y.movedim(1, c_axis)
+    shape = xc.shape
+    return (xc.reshape(shape[0], shape[1], -1, 1),
+            lambda y: y.reshape(shape).movedim(1, c_axis))
+
+
+@register_op(
+    "batch_norm",
+    inputs=["X", "Scale", "Bias", "Mean", "Variance"],
+    outputs=["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"],
+    no_grad_slots=("Mean", "Variance"),
+    stateful_out_slots=("MeanOut", "VarianceOut"),
+)
+def _batch_norm(ctx, ins, attrs):
+    """cf. batch_norm_op.cc.  Training: batch stats + running update of
+    the running statistics (MeanOut / VarianceOut alias the Mean /
+    Variance persistables) with Paddle's momentum and the biased batch
+    variance; SavedMean holds the batch mean and SavedVariance
+    1/sqrt(var + eps), neither differentiable.  ``is_test`` (the attr or
+    the run's) normalizes with the running statistics."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    momentum = attrs.get("momentum", 0.9)
+    eps = float(attrs.get("epsilon", 1e-5))
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    layout = attrs.get("data_layout", attrs.get("data_format", "NCHW"))
+    x4, back = _channels_at_1(x, 1 if layout == "NCHW" else x.dim() - 1)
+    if is_test:
+        inv_std = torch.rsqrt(var.float() + eps)
+        y = F.batch_norm(x4.float(), mean.float(), var.float(),
+                         scale.float(), bias.float(), False, 0.0, eps)
+        return {"Y": [back(y).to(x.dtype)], "MeanOut": [mean],
+                "VarianceOut": [var], "SavedMean": [mean.float()],
+                "SavedVariance": [inv_std]}
+    y, m, rstd = _nn._BatchNormTrain.apply(x4, scale, bias, None, None, eps)
+    mean_out, var_out = _nn.running_update(mean, var, m, rstd, momentum, eps)
+    return {"Y": [back(y)], "MeanOut": [mean_out],
+            "VarianceOut": [var_out], "SavedMean": [m],
+            "SavedVariance": [rstd]}
 
 
 @register_op(
@@ -161,6 +314,27 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
         loss = torch.where(valid, -logp.gather(axis, idx), 0.0)
     return {"Softmax": [softmax.to(logits.dtype)],
             "Loss": [loss.to(logits.dtype)]}
+
+
+@register_op("cross_entropy", inputs=["X", "Label"], outputs=["Y"],
+             no_grad_slots=("Label",))
+def _cross_entropy(ctx, ins, attrs):
+    """cf. cross_entropy_op.cc: X is a probability distribution, clipped
+    to [1e-8, 1] before the log (as the reference's ``jnp.clip``: a
+    value on a bound passes half its gradient); hard labels ``[..., 1]``
+    or ``[...]``, or soft labels summed over the last axis."""
+    x, label = ins["X"][0], ins["Label"][0]
+    lo = torch.full((), 1e-8, dtype=x.dtype, device=x.device)
+    hi = torch.ones((), dtype=x.dtype, device=x.device)
+    logp = torch.log(torch.minimum(torch.maximum(x, lo), hi))
+    if attrs.get("soft_label", False):
+        y = -(label * logp).sum(dim=-1, keepdim=True)
+    else:
+        lab = label
+        if lab.dim() == x.dim() and lab.shape[-1] == 1:
+            lab = lab.squeeze(-1)
+        y = -logp.gather(-1, lab.long().unsqueeze(-1))
+    return {"Y": [y]}
 
 
 @register_op("square_error_cost", inputs=["X", "Y"], outputs=["Out"])

@@ -1,8 +1,9 @@
-"""Reduction ops: reduce_sum, reduce_mean, mean.
+"""Reduction ops: reduce_sum, reduce_mean, mean, top_k, top_k_v2.
 
 Counterpart of the matching part of `paddle_tpu/fluid/ops/reduce_ops.py`
-(reduce_sum and reduce_mean :23-24, mean :42): ``dim`` (default [0],
-negatives from the end), ``keep_dim``, ``reduce_all``.
+(reduce_sum and reduce_mean :23-24, mean :42, top_k and top_k_v2
+:68-75): ``dim`` (default [0], negatives from the end), ``keep_dim``,
+``reduce_all``.
 """
 
 import torch
@@ -34,3 +35,15 @@ _register_reduce("mean", torch.mean)
 @register_op("mean", inputs=["X"], outputs=["Out"])
 def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(ins["X"][0])]}
+
+
+@register_op("top_k", inputs=["X"], outputs=["Out", "Indices"], grad=None)
+def _top_k(ctx, ins, attrs):
+    """The k largest along the last axis, largest first, and their int64
+    indices (recorded int32 in a program, as the reference's are)."""
+    vals, idx = torch.topk(ins["X"][0], attrs.get("k", 1), dim=-1)
+    return {"Out": [vals], "Indices": [idx]}
+
+
+register_op("top_k_v2", inputs=["X"], outputs=["Out", "Indices"],
+            grad=None)(_top_k)

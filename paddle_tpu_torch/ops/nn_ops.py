@@ -16,8 +16,8 @@ import torch.nn.functional as F
 
 __all__ = ["BN_EPS", "BN_MOMENTUM", "LN_EPS", "batch_norm_eval",
            "batch_norm_train", "dropout", "gelu", "global_avg_pool",
-           "layer_norm", "max_pool_3x3s2", "softmax_with_cross_entropy",
-           "take_along_axis"]
+           "layer_norm", "max_pool_3x3s2", "running_update",
+           "softmax_with_cross_entropy", "take_along_axis"]
 
 # `fluid/dygraph/nn.py:259` LayerNorm's default epsilon
 LN_EPS = 1e-5
@@ -184,12 +184,21 @@ def batch_norm_train(x, weight, bias, running_mean, running_var,
     carry gradients back to their producer."""
     mean, var = (None, None) if batch_stats is None else batch_stats
     y, m, rstd = _BatchNormTrain.apply(x, weight, bias, mean, var, eps)
+    return (y,) + running_update(running_mean, running_var, m, rstd,
+                                 momentum, eps)
+
+
+def running_update(running_mean, running_var, m, rstd, momentum=BN_MOMENTUM,
+                   eps=BN_EPS):
+    """``(mean_out, var_out)``: the running statistics moved toward the
+    batch's mean ``m`` and biased variance ``max(1/rstd² − eps, 0)`` with
+    Paddle's ``momentum`` (0.9 keeps 90%), in f32 and not
+    differentiable, cast to the running statistics' dtypes."""
     with torch.no_grad():
         batch_var = torch.clamp_min(1.0 / rstd.square() - eps, 0.0)
         mean_out = running_mean * momentum + m * (1 - momentum)
         var_out = running_var * momentum + batch_var * (1 - momentum)
-    return (y, mean_out.to(running_mean.dtype),
-            var_out.to(running_var.dtype))
+    return mean_out.to(running_mean.dtype), var_out.to(running_var.dtype)
 
 
 def max_pool_3x3s2(x):

@@ -24,6 +24,7 @@ from paddle_tpu_torch.fluid.core import registry as tregistry
 from torch_static_common import jax_state_unchanged
 
 RTOL, ATOL = 1e-5, 1e-6
+RECORDED_INT64 = {"top_k", "top_k_v2"}
 
 
 @pytest.fixture(autouse=True)
@@ -183,6 +184,118 @@ CASES = {
     "take_along_axis": ("take_along_axis",
                         {"Input": [_r(2, 5, 4)],
                          "Index": [_ids((2, 3, 1), 5)]}, {"Axis": 1}),
+    # the vision ops (the Fluid book's programs); the max pools' inputs
+    # are tie-free, so both packages route each gradient to one position
+    "conv2d-stride2-pad4": ("conv2d", {"Input": [_r(2, 3, 9, 8)],
+                                       "Filter": [_r(4, 3, 3, 3, seed=1)]},
+                            {"strides": [2, 2], "paddings": [1, 0, 2, 1],
+                             "dilations": [1, 1], "groups": 1}),
+    "conv2d-same": ("conv2d", {"Input": [_r(2, 3, 9, 8)],
+                               "Filter": [_r(4, 3, 4, 3, seed=1)]},
+                    {"strides": [2, 3], "paddings": [0, 0],
+                     "padding_algorithm": "SAME"}),
+    "conv2d-valid-dilation2": ("conv2d", {"Input": [_r(2, 3, 9, 8)],
+                                          "Filter": [_r(4, 3, 3, 3, seed=1)]},
+                               {"paddings": [1, 1], "dilations": [2, 2],
+                                "padding_algorithm": "VALID"}),
+    "conv2d-groups2": ("conv2d", {"Input": [_r(2, 4, 6, 6)],
+                                  "Filter": [_r(6, 2, 3, 3, seed=1)]},
+                       {"paddings": [1, 1], "groups": 2}),
+    "conv2d-nhwc": ("conv2d", {"Input": [_r(2, 7, 6, 3)],
+                               "Filter": [_r(5, 3, 3, 3, seed=1)]},
+                    {"strides": [1, 2], "paddings": [1, 1],
+                     "data_format": "NHWC"}),
+    "depthwise_conv2d": ("depthwise_conv2d",
+                         {"Input": [_r(2, 3, 7, 7)],
+                          "Filter": [_r(3, 1, 3, 3, seed=1)]},
+                         {"strides": [2, 2], "paddings": [1, 1]}),
+    "pool2d-max": ("pool2d", {"X": [_r(2, 3, 8, 7)]},
+                   {"pooling_type": "max", "ksize": [2, 2],
+                    "strides": [2, 2], "paddings": [0, 0]}),
+    "pool2d-max-padded": ("pool2d", {"X": [_r(2, 3, 8, 7)]},
+                          {"pooling_type": "max", "ksize": [3, 3],
+                           "strides": [2, 2], "paddings": [1, 1]}),
+    "pool2d-avg-exclusive-padded": ("pool2d", {"X": [_r(2, 3, 8, 7)]},
+                                    {"pooling_type": "avg", "ksize": [3, 3],
+                                     "strides": [2, 2], "paddings": [1, 1],
+                                     "exclusive": True}),
+    "pool2d-avg-inclusive-padded": ("pool2d", {"X": [_r(2, 3, 8, 7)]},
+                                    {"pooling_type": "avg", "ksize": [3, 2],
+                                     "strides": [1, 2], "paddings": [1, 1],
+                                     "exclusive": False}),
+    "pool2d-global-avg": ("pool2d", {"X": [_r(2, 3, 5, 6)]},
+                          {"pooling_type": "avg", "ksize": [1, 1],
+                           "global_pooling": True}),
+    "pool2d-adaptive-max": ("pool2d", {"X": [_r(2, 3, 8, 6)]},
+                            {"pooling_type": "max", "ksize": [4, 3],
+                             "adaptive": True}),
+    "pool2d-adaptive-avg-uneven": ("pool2d", {"X": [_r(2, 3, 7, 5)]},
+                                   {"pooling_type": "avg", "ksize": [3, 2],
+                                    "adaptive": True}),
+    "pool2d-adaptive-max-uneven-nhwc": ("pool2d", {"X": [_r(2, 7, 5, 3)]},
+                                        {"pooling_type": "max",
+                                         "ksize": [3, 4], "adaptive": True,
+                                         "data_format": "NHWC"}),
+    "batch_norm-train": ("batch_norm",
+                         {"X": [2 * _r(4, 3, 5, 5) + 3],
+                          "Scale": [_r(3, seed=1)], "Bias": [_r(3, seed=2)],
+                          "Mean": [_r(3, seed=3)],
+                          "Variance": [np.abs(_r(3, seed=4)) + 0.5]},
+                         {"momentum": 0.9, "epsilon": 1e-5,
+                          "is_test": False, "data_layout": "NCHW"}),
+    "batch_norm-train-2d": ("batch_norm",
+                            {"X": [_r(6, 5)], "Scale": [_r(5, seed=1)],
+                             "Bias": [_r(5, seed=2)],
+                             "Mean": [_r(5, seed=3)],
+                             "Variance": [np.abs(_r(5, seed=4)) + 0.5]},
+                            {"is_test": False}),
+    "batch_norm-test": ("batch_norm",
+                        {"X": [_r(4, 3, 5, 5)], "Scale": [_r(3, seed=1)],
+                         "Bias": [_r(3, seed=2)], "Mean": [_r(3, seed=3)],
+                         "Variance": [np.abs(_r(3, seed=4)) + 0.5]},
+                        {"is_test": True, "epsilon": 1e-5}),
+    "batch_norm-test-nhwc": ("batch_norm",
+                             {"X": [_r(2, 4, 5, 3)],
+                              "Scale": [_r(3, seed=1)],
+                              "Bias": [_r(3, seed=2)],
+                              "Mean": [_r(3, seed=3)],
+                              "Variance": [np.abs(_r(3, seed=4)) + 0.5]},
+                             {"is_test": True, "data_layout": "NHWC"}),
+    "fused_batch_norm_act-relu": ("fused_batch_norm_act",
+                                  {"X": [_r(4, 3, 5, 5)],
+                                   "Scale": [_r(3, seed=1)],
+                                   "Bias": [_r(3, seed=2)],
+                                   "Mean": [_r(3, seed=3)],
+                                   "Variance": [np.abs(_r(3, seed=4)) + 0.5]},
+                                  {"act_type": "relu", "is_test": False}),
+    "fused_batch_norm_act-sigmoid-test": (
+        "fused_batch_norm_act",
+        {"X": [_r(6, 5)], "Scale": [_r(5, seed=1)], "Bias": [_r(5, seed=2)],
+         "Mean": [_r(5, seed=3)], "Variance": [np.abs(_r(5, seed=4)) + 0.5]},
+        {"act_type": "sigmoid", "is_test": True}),
+    "softmax": ("softmax", {"X": [3 * _r(4, 10)]}, {"axis": -1}),
+    "softmax-axis1": ("softmax", {"X": [_r(2, 5, 3)]}, {"axis": 1}),
+    "sigmoid": ("sigmoid", {"X": [3 * _r(3, 7)]}, {}),
+    # probabilities on both clip bounds: 1.0 passes half its gradient,
+    # 0.0 none, as jnp.clip's
+    "cross_entropy": ("cross_entropy",
+                      {"X": [np.array([[0.2, 0.5, 0.3], [1.0, 0.0, 0.0],
+                                       [0.1, 0.1, 0.8], [0.0, 1.0, 0.0]],
+                                      np.float32)],
+                       "Label": [np.array([[2], [0], [1], [2]], np.int64)]},
+                      {"soft_label": False}),
+    "cross_entropy-soft": ("cross_entropy",
+                           {"X": [np.abs(_r(4, 6)) / 3 + 0.01],
+                            "Label": [np.full((4, 6), 1 / 6, np.float32)]},
+                           {"soft_label": True}),
+    "top_k": ("top_k", {"X": [_r(5, 8)]}, {"k": 3}),
+    "top_k_v2": ("top_k_v2", {"X": [_r(2, 3, 6)]}, {"k": 2}),
+    "accuracy": ("accuracy",
+                 {"Out": [_r(6, 2)],
+                  "Indices": [np.array([[0, 1], [2, 3], [4, 5], [6, 7],
+                                        [8, 9], [1, 0]], np.int64)],
+                  "Label": [np.array([[1], [3], [0], [6], [5], [2]],
+                                     np.int64)]}, {}),
 }
 
 
@@ -211,7 +324,12 @@ def test_op_matches_the_jax_lowering(case):
     assert sorted(got) == sorted(want)
     for slot in want:
         for g, m, w in zip(got[slot], meta[slot], want[slot]):
-            assert tdtypes.to_str(g.dtype) == str(w.dtype), slot
+            # top_k's int64 indices run int64 and are recorded int32, as
+            # the reference's 32-bit JAX computes them; every other
+            # output's dtype is JAX's exactly
+            dtype = (tdtypes.recorded(g.dtype) if op_type in RECORDED_INT64
+                     else tdtypes.to_str(g.dtype))
+            assert dtype == str(w.dtype), slot
             assert tuple(m.shape) == w.shape and m.dtype == g.dtype, slot
             np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL,
                                        err_msg="%s %s" % (case, slot))
