@@ -78,7 +78,17 @@ against the CPU's), saves them and serves them through
 `create_predictor` (LeNet-5 with `matmul_bias_act_fuse`: 2 kernel-5
 launches a forward, kernel 5 at its two fc shapes against its plain
 version; VGG-16-BN with `batch_norm_act_fuse`: no kernel launch), with
-p50 / p99, images/s, peak memory and a profiled VGG step.
+p50 / p99, images/s, peak memory and a profiled VGG step; last, builds
+the book's word2vec (four lookups of one shared table, concat, fc 256
+sigmoid, fc softmax) and recommender_system (two embedding towers, fc
+200 tanh each, cos_sim) programs with the static core's layers, trains
+them through the Executor on `dataset.imikolov` and `dataset.movielens`
+(B = 32 and 256, f32, SGD: falling losses, one step against the CPU's
+with every gradient), serves them through `create_predictor` with
+`matmul_bias_act_fuse` (word2vec: no kernel launch; the recommender: 2
+kernel-5 launches a forward, tanh, kernel 5 at both tower shapes
+against its plain version), and runs every op of `fluid.layers.ops`
+and its gradient on the card against the CPU.
 
     python3 chip_smoke.py
 
@@ -4666,8 +4676,8 @@ BOOK_SERVE_BATCHES = (1, 64)
 BOOK_SERVE_REQUESTS = 20
 BOOK_SEED = 43
 BOOK_REL = 1e-4     # card vs CPU: loss, gradients, parameters, running stats
-BOOK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "static_book")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BOOK_DIR = os.path.join(ROOT, "build", "static_book")
 
 
 def book_lenet5(layers, img, label):
@@ -4786,11 +4796,12 @@ def book_backward_on_cpu(block, vals):
     return env
 
 
-def book_card_vs_cpu(ptt, main, startup, loss, feed):
+def book_card_vs_cpu(ptt, main, startup, loss, feed, loss_limit=BOOK_REL,
+                     own_forward=False):
     """One step of ``main`` (no dropout) from one seeded startup, on the
     card and, from a copy of the same state, on the CPU.  Gates:
 
-    * the loss within BOOK_REL of itself;
+    * the loss within ``loss_limit`` of itself;
     * each parameter's gradient within BOOK_REL of its scale (max |g|)
       of the CPU's backward over the card's forward
       (`book_backward_on_cpu`), except a bias added right before a
@@ -4808,7 +4819,12 @@ def book_card_vs_cpu(ptt, main, startup, loss, feed):
       element by about +-lr whatever its gradient, and by a share of lr
       where |g| is near its eps: a rounding-level difference there is
       no fault, `static_train_vs_plain` likewise);
-    * each running statistic within BOOK_REL of its scale."""
+    * each running statistic within BOOK_REL of its scale.
+
+    ``own_forward``: a path with no kink (no relu, no max pool) holds
+    each gradient within BOOK_REL of its scale of the CPU step's own
+    gradients instead, and reports the backward over the card's forward
+    beside them."""
     fluid = ptt.fluid
     from paddle_tpu_torch.fluid.core.registry import (LowerContext,
                                                       get_op_def)
@@ -4868,6 +4884,9 @@ def book_card_vs_cpu(ptt, main, startup, loss, feed):
         err = (a - b).abs().max().item()
         return err / scale if scale else err
 
+    if own_forward and kinks:
+        raise AssertionError("own_forward on a path with kinks: %s"
+                             % sorted({op.type for op in kinks}))
     loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
     worst_g, worst_z, worst_step = (-1.0, ""), (-1.0, ""), (-1.0, "")
     worst_p, worst_s = (-1.0, ""), (-1.0, "")
@@ -4889,20 +4908,21 @@ def book_card_vs_cpu(ptt, main, startup, loss, feed):
         a, b = scope.find_var(n).cpu(), cpu_scope.find_var(n)
         err = (a - b).abs().max().item() / b.abs().max().item()
         worst_s = max(worst_s, (err, n))
-    if not (np.isfinite(got[0].item()) and loss_rel <= BOOK_REL
-            and worst_g[0] <= BOOK_REL and worst_z[0] <= BOOK_REL
+    gated = worst_step if own_forward else worst_g
+    if not (np.isfinite(got[0].item()) and loss_rel <= loss_limit
+            and gated[0] <= BOOK_REL and worst_z[0] <= BOOK_REL
             and worst_p[0] <= BOOK_REL and worst_s[0] <= BOOK_REL):
         raise AssertionError(
-            "book step, card vs CPU: loss %g vs %g (rel %g); worst "
-            "gradient %s at %g of its scale of the CPU's backward over "
-            "the card's forward; worst batch_norm-fed bias gradient %s "
-            "at %g of the step's largest gradient; worst parameter %s at "
-            "%g of its scale beyond the two gradients' updates; worst "
+            "book step, card vs CPU: loss %g vs %g (rel %g, limit %g); "
+            "worst gradient %s at %g of its scale of the CPU's backward "
+            "over the card's forward; worst batch_norm-fed bias gradient "
+            "%s at %g of the step's largest gradient; worst parameter %s "
+            "at %g of its scale beyond the two gradients' updates; worst "
             "running statistic %s at %g; limit %g (the CPU step's own "
-            "gradients: worst %s at %g, kink flips %s)" % (
-                got[0].item(), want[0].item(), loss_rel, worst_g[1],
-                worst_g[0], worst_z[1], worst_z[0], worst_p[1],
-                worst_p[0], worst_s[1], worst_s[0], BOOK_REL,
+            "gradients, gated: %s: worst %s at %g, kink flips %s)" % (
+                got[0].item(), want[0].item(), loss_rel, loss_limit,
+                worst_g[1], worst_g[0], worst_z[1], worst_z[0], worst_p[1],
+                worst_p[0], worst_s[1], worst_s[0], BOOK_REL, own_forward,
                 worst_step[1], worst_step[0], flips))
     return {"loss": got[0].item(), "cpu_loss": want[0].item(),
             "loss_rel_err": loss_rel, "backward_ops": len(bwd),
@@ -4911,7 +4931,10 @@ def book_card_vs_cpu(ptt, main, startup, loss, feed):
             "bn_fed_bias_grads": len(bn_fed),
             "max_bn_fed_bias_grad_of_top": worst_z[0] if bn_fed else None,
             "cpu_step_max_grad_rel_err": worst_step[0],
-            "cpu_step_worst_grad": worst_step[1], "kink_flips": flips,
+            "cpu_step_worst_grad": worst_step[1],
+            "gated_on_cpu_step": own_forward,
+            "cpu_step_grad_share_of_limit": worst_step[0] / BOOK_REL,
+            "loss_limit": loss_limit, "kink_flips": flips,
             "max_param_rel_err": worst_p[0],
             "worst_param": worst_p[1], "max_running_stat_rel_err":
             worst_s[0] if stats else None, "limit": BOOK_REL}
@@ -4922,28 +4945,31 @@ def _no_launches(tag, ops):
                      {k: 0 for k in ops.KERNEL_WRAPPERS})
 
 
-def book_serve(ptt, main, prob, exe, scope, name, passes, feeds_b):
-    """Save ``main``'s inference program (image -> ``prob``) with the
-    port's `save_inference_model`, load it into a `create_predictor` on
-    the card, run each feed of ``feeds_b`` unfused, apply ``passes``
-    and run it again.  Returns (predictor, {b: (unfused, fused)
-    outputs}, {b: launches of the fused forward}, op types)."""
+def book_serve(ptt, main, prob, exe, scope, name, passes, feeds_b,
+               width=10):
+    """Save ``main``'s inference program (the feeds of ``feeds_b`` ->
+    ``prob``, ``width`` columns) with the port's `save_inference_model`,
+    load it into a `create_predictor` on the card, run each feed of
+    ``feeds_b`` ({b: {name: array}}) unfused, apply ``passes`` and run
+    it again.  Returns (predictor, {b: (unfused, fused) outputs}, {b:
+    launches of the fused forward}, op types)."""
     import shutil
 
     fluid, inference, ops = ptt.fluid, ptt.inference, ptt.ops
     d = os.path.join(BOOK_DIR, name)
     shutil.rmtree(d, ignore_errors=True)
+    names = list(next(iter(feeds_b.values())))
     with fluid.scope_guard(scope):
-        fluid.io.save_inference_model(d, ["img"], [prob], exe, main)
+        fluid.io.save_inference_model(d, names, [prob], exe, main)
     pred = inference.create_predictor(inference.AnalysisConfig(d))
-    plain = {b: pred.run([f["img"]])[0] for b, f in feeds_b.items()}
+    plain = {b: pred.run(f)[0] for b, f in feeds_b.items()}
     fluid.ir.apply_passes(pred._program, passes)
     outs, launches = {}, {}
     for b, f in feeds_b.items():
         ops.reset_launch_counts()
-        out = pred.run([f["img"]])[0]
+        out = pred.run(f)[0]
         launches[b] = ops.launch_counts()
-        if out.shape != (f["img"].shape[0], 10):
+        if out.shape != (b, width) or not np.isfinite(out).all():
             raise AssertionError("%s served shape %s" % (name, out.shape))
         compare("%s served B=%d, fused vs unfused" % (name, b),
                 torch.from_numpy(out), torch.from_numpy(plain[b]),
@@ -5171,6 +5197,358 @@ def static_book(ptt):
             "kernel_rows": lenet["kernel_rows"]}
 
 
+# the Fluid book's embedding programs, at Paddle v1.8's book-test widths
+# (tests/book/test_word2vec.py: N = 5, EMBED_SIZE 32, HIDDEN_SIZE 256,
+# BATCH_SIZE 32, SGD(1e-3); test_recommender_system.py: embeddings
+# 32 / 16 / 16 / 16 and 32 / 32 with an fc each, the towers fc 200
+# tanh, cos_sim x 5, square_error_cost, SGD(0.2), BATCH_SIZE 256), f32
+W2V_N, W2V_EMB, W2V_HID, W2V_B = 5, 32, 256, 32
+W2V_WORDS = ("firstw", "secondw", "thirdw", "forthw", "nextw")
+W2V_EPOCHS = 4
+REC_B, REC_BATCHES, REC_EPOCHS = 256, 30, 3
+REC_FEEDS = ("user_id", "gender_id", "age_id", "job_id", "movie_id",
+             "category_id", "score")
+EMBED_SERVE_BATCHES = {"word2vec": (1, W2V_B), "recommender": (1, REC_B)}
+EMBED_WARMUP = 2
+EMBED_LOSS_REL = 1e-5   # card vs CPU: the loss of one step
+SWEEP_REL = 1e-5        # the op sweep: card vs CPU, of each output's scale
+
+
+def book_word2vec(layers, dict_size):
+    """Paddle's book `test_word2vec.py`: four lookups of one table
+    (``param_attr="shared_w"``), concat, fc 256 sigmoid, fc dict_size
+    softmax, cross_entropy against the fifth word, mean.  Returns (mean
+    loss, the softmax prediction)."""
+    words = [layers.data(n, shape=[1], dtype="int64") for n in W2V_WORDS]
+    embs = [layers.embedding(w, size=[dict_size, W2V_EMB], dtype="float32",
+                             is_sparse=False, param_attr="shared_w")
+            for w in words[:4]]
+    hidden = layers.fc(layers.concat(embs, axis=1), size=W2V_HID,
+                       act="sigmoid")
+    predict = layers.fc(hidden, size=dict_size, act="softmax")
+    return layers.mean(layers.cross_entropy(predict, words[4])), predict
+
+
+def book_recommender(layers, ml):
+    """Paddle's book `test_recommender_system.py` on the synthetic
+    `dataset.movielens`: the user tower (id 32, gender 16, age 16, job
+    16, an fc of each width on each, concat, fc 200 tanh) and the movie
+    tower (id 32 and an fc 32; the category id's embedding 32, which the
+    book sums over a sequence with ``sequence_pool``: the synthetic
+    dataset yields one category id, whose sum is its embedding; the
+    book's title CNN is dropped, the dataset has no title; concat, fc
+    200 tanh), cos_sim x 5 against ``score`` by square_error_cost, mean.
+    Returns (mean loss, the scaled similarity)."""
+    uid, gender, age, job, mid, cat = (
+        layers.data(n, shape=[1], dtype="int64") for n in REC_FEEDS[:6])
+    score = layers.data("score", shape=[1], dtype="float32")
+
+    def emb_fc(ids, rows, width, table):
+        return layers.fc(layers.embedding(ids, size=[rows, width],
+                                          is_sparse=False, param_attr=table),
+                         size=width)
+
+    usr = layers.fc(layers.concat([
+        emb_fc(uid, ml.max_user_id() + 1, 32, "user_table"),
+        emb_fc(gender, 2, 16, "gender_table"),
+        emb_fc(age, ml.AGE_COUNT, 16, "age_table"),
+        emb_fc(job, ml.max_job_id() + 1, 16, "job_table")], axis=1),
+        size=200, act="tanh")
+    mov_cat = layers.embedding(cat, size=[ml.CATEGORY_COUNT, 32],
+                               is_sparse=False)
+    mov = layers.fc(layers.concat([
+        emb_fc(mid, ml.max_movie_id() + 1, 32, "movie_table"), mov_cat],
+        axis=1), size=200, act="tanh")
+    infer = layers.scale(layers.ops.cos_sim(usr, mov), scale=5.0)
+    return layers.mean(layers.square_error_cost(infer, score)), infer
+
+
+def embed_program(ptt, name):
+    """(main, startup, loss, prediction, feed names, served feed names)
+    of a book embedding program, minimized by the book's SGD, the
+    startup program seeded."""
+    fluid, layers, ds = ptt.fluid, ptt.fluid.layers, ptt.dataset
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if name == "word2vec":
+            loss, pred = book_word2vec(layers,
+                                       len(ds.imikolov.build_dict()))
+            lr, feeds = 1e-3, list(W2V_WORDS)
+        else:
+            loss, pred = book_recommender(layers, ds.movielens)
+            lr, feeds = 0.2, list(REC_FEEDS)
+        fluid.optimizer.SGDOptimizer(learning_rate=lr).minimize(loss)
+    startup.random_seed = BOOK_SEED
+    return main, startup, loss, pred, feeds, feeds[:-1]
+
+
+def embed_feeds(ptt, name):
+    """One epoch of the program's book reader as feeds (the last
+    partial batch dropped): word2vec's 5-grams of `dataset.imikolov` at
+    B = 32, REC_BATCHES batches of `dataset.movielens` at B = 256."""
+    ds = ptt.dataset
+    if name == "word2vec":
+        reader = ds.imikolov.train(ds.imikolov.build_dict(), W2V_N)
+        names, b = W2V_WORDS, W2V_B
+    else:
+        reader = ds.movielens.train(REC_B * REC_BATCHES)
+        names, b = REC_FEEDS, REC_B
+    out = []
+    for batch in ptt.batch(reader, b, drop_last=True)():
+        feed = ptt.reader.to_feed(batch, list(names))
+        if "score" in feed:
+            feed["score"] = feed["score"].astype(np.float32)
+        out.append(feed)
+    return out
+
+
+def embed_train(ptt, main, startup, loss, train, epochs):
+    """``epochs`` passes over ``train`` through the Executor on the card:
+    the losses, each step's CUDA-event ms after EMBED_WARMUP steps, the
+    examples/s over them, the peak memory, a profiled step (one more
+    step, outside the losses) and the launches of every kernel over the
+    run."""
+    fluid, ops = ptt.fluid, ptt.ops
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = train * epochs
+    ops.reset_launch_counts()
+    losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0] for f in feeds[:EMBED_WARMUP]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = feeds[EMBED_WARMUP:]
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(timed) + 1)]
+    evs[0].record()
+    for i, f in enumerate(timed):
+        losses.append(exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                              return_numpy=False)[0])
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: exe.run(main, feed=timed[0],
+                                          fetch_list=[loss], scope=scope))
+    launches = ops.launch_counts()
+    losses = [v.item() for v in losses]
+    ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(timed))]
+    first = float(np.mean(losses[:len(train)]))
+    last = float(np.mean(losses[-len(train):]))
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError("losses: first epoch %g, last %g: %s"
+                             % (first, last, losses))
+    b = next(iter(train[0].values())).shape[0]
+    return exe, scope, {
+        "steps": len(losses), "epochs": epochs,
+        "first_epoch_loss": first, "last_epoch_loss": last,
+        "losses_first_last": [losses[0], losses[-1]],
+        "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p99": float(np.percentile(ms, 99)),
+        "examples_per_s": b * len(ms) / (sum(ms) / 1e3),
+        "peak_memory_gb": peak / 1e9, "profile": prof,
+        "ops_per_step": len(main.global_block.ops),
+        "op_types": {t: [o.type for o in main.global_block.ops].count(t)
+                     for t in sorted({o.type for o in
+                                      main.global_block.ops})},
+        "train_launches": launches}
+
+
+def _sweep_rel(got, want):
+    """|got - want| over max |want| (an integer output: 0 if equal)."""
+    got = got.cpu()
+    if not want.is_floating_point():
+        return 0.0 if torch.equal(got, want) else float("inf")
+    scale = want.abs().max().item()
+    err = (got.double() - want.double()).abs().max().item()
+    return err / scale if scale else err
+
+
+def op_sweep(ptt):
+    """Every op `fluid.layers.ops` reaches (and concat), at the inputs of
+    `tests/test_torch_static_surface.py` (the cases the CPU tests hold
+    against the JAX lowerings): its forward and its ``vjp_grad`` (seeded
+    cotangents on every floating output a program differentiates) on
+    the card against the same on the CPU, each output within SWEEP_REL
+    of its scale.
+    Returns {op: {"forward": worst, "grad": worst, "cases": n}}."""
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.append(os.path.join(ROOT, "tests"))
+    from test_torch_static_surface import SURFACE
+    from paddle_tpu_torch.fluid.core.registry import LowerContext, get_op_def
+
+    worst = {}
+    for case, (op_type, ins, attrs) in sorted(SURFACE.items()):
+        opdef = get_op_def(op_type)
+
+        def run(dev, op, tins, at):
+            with torch.no_grad():
+                return get_op_def(op).lower(LowerContext(device=dev), {
+                    k: [torch.from_numpy(a).to(dev) for a in v]
+                    for k, v in tins.items()}, at)
+
+        card, cpu = (run(d, op_type, ins, attrs) for d in ("cuda", "cpu"))
+        fwd = max(_sweep_rel(g, w) for k in cpu
+                  for g, w in zip(card[k], cpu[k]))
+        grad = None
+        slots = [sl for sl, arrs in ins.items()
+                 if sl not in opdef.no_grad_slots
+                 and all(np.issubdtype(a.dtype, np.floating) for a in arrs)]
+        out_slots = [sl for sl in opdef.output_slots
+                     if sl in cpu and sl not in opdef.stateful_out_slots]
+        present = [[o.is_floating_point() for o in cpu[sl]]
+                   for sl in out_slots]
+        if slots and any(map(any, present)):
+            rng = np.random.RandomState(5)
+            vins = {"X$" + k: v for k, v in ins.items()}
+            for sl, here in zip(out_slots, present):
+                cots = [rng.standard_normal(tuple(o.shape)).astype(np.float32)
+                        for o, h in zip(cpu[sl], here) if h]
+                if cots:
+                    vins["DO$" + sl] = cots
+            vattrs = {"fwd_type": op_type, "fwd_attrs": dict(attrs),
+                      "fwd_in_slots": list(ins), "fwd_out_slots": out_slots,
+                      "fwd_out_counts": [len(cpu[sl]) for sl in out_slots],
+                      "out_grad_present": present, "grad_in_slots": slots}
+            gcard, gcpu = (run(d, "vjp_grad", vins, vattrs)
+                           for d in ("cuda", "cpu"))
+            grad = max(_sweep_rel(g, w) for k in gcpu
+                       for g, w in zip(gcard[k], gcpu[k]))
+        row = worst.setdefault(op_type, {"forward": 0.0, "grad": None,
+                                         "cases": 0, "worst_case": case})
+        if fwd > row["forward"] or (grad or 0.0) > (row["grad"] or 0.0):
+            row["worst_case"] = case
+        row["forward"] = max(row["forward"], fwd)
+        if grad is not None:
+            row["grad"] = max(row["grad"] or 0.0, grad)
+        row["cases"] += 1
+    bad = {op: r for op, r in worst.items()
+           if max(r["forward"], r["grad"] or 0.0) > SWEEP_REL}
+    if bad:
+        raise AssertionError("op sweep, card vs CPU, over %g of scale: %s"
+                             % (SWEEP_REL, bad))
+    return worst
+
+
+def static_book_embed(ptt):
+    """The Fluid book's word2vec and recommender_system programs (Paddle
+    v1.8's book tests at their widths, f32), built with the port's
+    `fluid.layers` and trained through the Executor on the card by SGD:
+    word2vec W2V_EPOCHS epochs of `dataset.imikolov`'s 5-grams at B = 32,
+    the recommender REC_EPOCHS epochs of REC_BATCHES batches of
+    `dataset.movielens` at B = 256.  Gates: finite losses, the last
+    epoch's mean under the first's, one embedding table in word2vec; one
+    step on the card against the CPU (`book_card_vs_cpu` on the CPU's
+    own forward: the paths have no kink; the loss within
+    EMBED_LOSS_REL); no kernel launched in training (the fcs are `mul`
+    + `elementwise_add`).  Served through `create_predictor` +
+    ``matmul_bias_act_fuse``: word2vec at B = 1 and 32 launches no
+    kernel (its fcs end in sigmoid and softmax, acts kernel 5 lacks);
+    the recommender at B = 1 and 256 launches kernel 5 exactly twice a
+    forward, at (B, 80, 200) and (B, 64, 200) tanh, and no other; each
+    within TOL f32 of the unfused program; kernel 5 at those shapes
+    against its plain version and timed.  Then every op of
+    `fluid.layers.ops` on the card against the CPU (`op_sweep`).  TF32
+    is off in cuBLAS and cuDNN for the phase (its card-vs-CPU gates need
+    f32 products)."""
+    ops = ptt.ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    kernel_rows, served_forward = [], {}
+    for name, epochs in (("word2vec", W2V_EPOCHS),
+                         ("recommender", REC_EPOCHS)):
+        t0 = time.perf_counter()
+        main, startup, loss, pred, feed_names, served = embed_program(
+            ptt, name)
+        train = embed_feeds(ptt, name)
+        exe, scope, res = embed_train(ptt, main, startup, loss, train,
+                                      epochs)
+        _no_launches(name + " train", ops)
+        tables = sorted({op.input("W")[0] for op in main.global_block.ops
+                         if op.type == "lookup_table"})
+        if name == "word2vec" and tables != ["shared_w"]:
+            raise AssertionError("word2vec tables %s" % tables)
+        res["tables"] = tables
+        res["card_vs_cpu"] = book_card_vs_cpu(
+            ptt, main, startup, loss, train[0],
+            loss_limit=EMBED_LOSS_REL, own_forward=True)
+        width = int(pred.shape[-1])
+        feeds_b = {b: {n: train[0][n][:b] for n in served}
+                   for b in EMBED_SERVE_BATCHES[name]}
+        predictor, outs, launches, types = book_serve(
+            ptt, main, pred, exe, scope, name, ["matmul_bias_act_fuse"],
+            feeds_b, width=width)
+        want = {k: 0 for k in ops.KERNEL_WRAPPERS}
+        if name == "recommender":
+            want["matmul_bias_act"] = 2
+        for b in feeds_b:
+            _expect_launches("%s served forward B=%d" % (name, b),
+                             launches[b], want)
+        served_forward[name] = launches[max(feeds_b)]
+        if name == "recommender":
+            calls = []
+            for b in feeds_b:
+                calls += _recorded_calls(
+                    ops, lambda: predictor.run_async(feeds_b[b]))["mba"]
+            rows = mba_rows(ops, calls, name)
+            shapes = sorted((r["M"], r["K"], r["N"], r["act"]) for r in rows)
+            if shapes != sorted((b, k, 200, "tanh") for b in feeds_b
+                                for k in (64, 80)):
+                raise AssertionError("recommender kernel 5 shapes %s"
+                                     % shapes)
+            kernel_rows = rows
+        latency = {}
+        for b, f in feeds_b.items():
+            ts = []
+            for _ in range(BOOK_SERVE_REQUESTS):
+                t = time.perf_counter()
+                predictor.run(f)
+                ts.append((time.perf_counter() - t) * 1e3)
+            latency[b] = {"p50_ms": float(np.percentile(ts, 50)),
+                          "min_ms": min(ts)}
+        ops.reset_launch_counts()
+        for f in feeds_b.values():
+            predictor.run(f)
+        res.update({
+            "served_op_types": {t: types.count(t) for t in sorted(set(types))},
+            "served_launches": launches, "serve_run_launches":
+                ops.launch_counts(),
+            "served_max_abs_err": {b: float(np.abs(f - p).max())
+                                   for b, (p, f) in outs.items()},
+            "serve_latency": latency, "seconds": time.perf_counter() - t0})
+        out[name] = res
+        del predictor, scope, exe
+    t0 = time.perf_counter()
+    sweep = op_sweep(ptt)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    emit({"phase": "static_book_embed", "nvidia_smi": smi,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "word2vec": dict(out["word2vec"], config=dict(
+              net="Paddle book test_word2vec.py", N=W2V_N, emb=W2V_EMB,
+              hidden=W2V_HID, B=W2V_B, optimizer="SGD(1e-3)",
+              dtype="float32", startup_seed=BOOK_SEED),
+              served_note="0 launches: the fcs end in sigmoid and softmax, "
+                          "acts kernel 5 lacks (none / relu / tanh / gelu; "
+                          "the pass takes relu / tanh / gelu)"),
+          "recommender_system": dict(out["recommender"], config=dict(
+              net="Paddle book test_recommender_system.py (no title CNN, "
+                  "one category id)", B=REC_B, batches=REC_BATCHES,
+              optimizer="SGD(0.2)", dtype="float32",
+              startup_seed=BOOK_SEED), kernel_rows=kernel_rows,
+              kernel_note="launch-bound shapes, not tuned"),
+          "op_sweep": sweep, "op_sweep_limit": SWEEP_REL,
+          "op_sweep_s": time.perf_counter() - t0})
+    return {"per_forward": served_forward["recommender"],
+            "run_launches": {k: sum(r["train_launches"][k]
+                                    + r["serve_run_launches"][k]
+                                    for r in out.values())
+                             for k in ops.KERNEL_WRAPPERS},
+            "kernel_rows": kernel_rows}
+
+
 REDESIGNED_KERNELS = ("matmul_fwd_tc", "conv_bn_relu_tc", "conv_bn_stats_tc",
                       "decode_dense_kernel", "decode_paged_kernel",
                       "tf32x3")
@@ -5262,6 +5640,7 @@ def main():
     static = static_serve(ptt)
     static_tr = static_train(ptt)
     book = static_book(ptt)
+    embed = static_book_embed(ptt)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -5297,6 +5676,18 @@ def main():
                "launches_per_served_lenet_forward": book["per_forward"][name]}
         if name == "matmul_bias_act":
             out["shapes"] = book["kernel_rows"]
+        return out
+
+    def embed_entry(name):
+        """The kernel on the Fluid book's embedding programs (word2vec
+        and the recommender trained and served): launches over the
+        phase, a served recommender forward's, and kernel 5's rows at
+        the recommender's tower shapes."""
+        out = {"run_launches": embed["run_launches"][name],
+               "launches_per_served_recommender_forward":
+                   embed["per_forward"][name]}
+        if name == "matmul_bias_act":
+            out["shapes"] = embed["kernel_rows"]
         return out
 
     def flash_entry(name, source, line, n, max_abs_err, ms, plain_ms,
@@ -5352,7 +5743,8 @@ def main():
              train_lamb_run_launches=lamb_launches["flash_fwd"],
              static_serve=static_entry("flash_fwd"),
              static_train=static_train_entry("flash_fwd"),
-             static_book=static_book_entry("flash_fwd")),
+             static_book=static_book_entry("flash_fwd"),
+             static_book_embed=embed_entry("flash_fwd")),
         dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
                          pair_launches["flash_bwd_dq"], err["pair_dq"],
                          main["dq_ms"], main["plain_bwd_ms"],
@@ -5360,7 +5752,8 @@ def main():
              d128=d128_bwd("dq_ms", ("pair_dq", "pair_delta")),
              train_lamb_run_launches=lamb_launches["flash_bwd_dq"],
              static_train=static_train_entry("flash_bwd_dq"),
-             static_book=static_book_entry("flash_bwd_dq")),
+             static_book=static_book_entry("flash_bwd_dq"),
+             static_book_embed=embed_entry("flash_bwd_dq")),
         dict(flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
                          pair_launches["flash_bwd_dkv"],
                          max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
@@ -5368,7 +5761,8 @@ def main():
              d128=d128_bwd("dkv_ms", ("pair_dk", "pair_dv")),
              train_lamb_run_launches=lamb_launches["flash_bwd_dkv"],
              static_train=static_train_entry("flash_bwd_dkv"),
-             static_book=static_book_entry("flash_bwd_dkv")),
+             static_book=static_book_entry("flash_bwd_dkv"),
+             static_book_embed=embed_entry("flash_bwd_dkv")),
         dict(flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
                          train_launches["flash_bwd_fused"],
                          max(err["fused_dq"], err["fused_dk"],
@@ -5377,7 +5771,8 @@ def main():
                          main["library_bwd_ms"]),
              train_lamb_run_launches=lamb_launches["flash_bwd_fused"],
              static_train=static_train_entry("flash_bwd_fused"),
-             static_book=static_book_entry("flash_bwd_fused")),
+             static_book=static_book_entry("flash_bwd_fused"),
+             static_book_embed=embed_entry("flash_bwd_fused")),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="paddle_tpu/ops/pallas/decode_attention.py:73",
@@ -5386,6 +5781,7 @@ def main():
                  launches["engine_speculative"]["decode_attention"])),
              static_train=static_train_entry("decode_attention"),
              static_book=static_book_entry("decode_attention"),
+             static_book_embed=embed_entry("decode_attention"),
              **dense_row),
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
@@ -5404,7 +5800,8 @@ def main():
              disagg_decode_launches=[launches[k]["paged_attention"] for k in (
                  "disagg_decode", "disagg_int8_decode")],
              static_train=static_train_entry("paged_attention"),
-             static_book=static_book_entry("paged_attention"), **paged_row),
+             static_book=static_book_entry("paged_attention"),
+             static_book_embed=embed_entry("paged_attention"), **paged_row),
     ]
 
     # the fused-epilogue GEMM kernels at the FFN's shape (M = 30720, K =
@@ -5429,16 +5826,19 @@ def main():
              cublas_gemm_ms=mm_main["cublas_gemm_ms"]["fwd"],
              static_serve=static_entry("matmul_bias_act"),
              static_train=static_train_entry("matmul_bias_act"),
-             static_book=static_book_entry("matmul_bias_act")),
+             static_book=static_book_entry("matmul_bias_act"),
+             static_book_embed=embed_entry("matmul_bias_act")),
         dict(mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"],
                       "dx"), tile=mm_main["bwd_tile"], splits=1,
              static_train=static_train_entry("matmul_bwd_dx"),
-             static_book=static_book_entry("matmul_bwd_dx")),
+             static_book=static_book_entry("matmul_bwd_dx"),
+             static_book_embed=embed_entry("matmul_bwd_dx")),
         dict(mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
                       max(mm_err["dw"], mm_err["dbias"]), "dw"),
              tile=mm_main["bwd_tile"], splits=mm_main["dw_splits"],
              static_train=static_train_entry("matmul_bwd_dw"),
-             static_book=static_book_entry("matmul_bwd_dw")),
+             static_book=static_book_entry("matmul_bwd_dw"),
+             static_book_embed=embed_entry("matmul_bwd_dw")),
     ]
 
     # the 1x1 conv + BN + relu kernel over one bf16 ResNet-50 forward at
@@ -5470,6 +5870,7 @@ def main():
         f32_launches=resnet_launches["float32"]["conv_bn_relu"],
         static_train=static_train_entry("conv_bn_relu"),
         static_book=static_book_entry("conv_bn_relu"),
+        static_book_embed=embed_entry("conv_bn_relu"),
         per_shape=[{k: r[k] for k in keep} for r in conv_rows]))
 
     # the 1x1 conv + BN-statistics kernel over one bf16 ResNet-50 train
@@ -5502,6 +5903,7 @@ def main():
         train_eager_run_launches=eager_launches["conv_bn_stats"],
         static_train=static_train_entry("conv_bn_stats"),
         static_book=static_book_entry("conv_bn_stats"),
+        static_book_embed=embed_entry("conv_bn_stats"),
         per_shape=[{k: r[k] for k in keep11} for r in stats_main]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,4 +9,4 @@ return zero-arg callables producing example generators, what
 The other dataset modules wait for the programs that read them.
 """
 
-from . import cifar, mnist, uci_housing  # noqa: F401
+from . import cifar, imikolov, mnist, movielens, uci_housing  # noqa: F401

@@ -18,28 +18,11 @@ from .nn import (  # noqa: F401
     layer_norm,
     pool2d,
 )
-from .ops import (  # noqa: F401
-    elementwise_add,
-    elementwise_div,
-    elementwise_mul,
-    elementwise_sub,
-    gelu,
-    matmul,
-    mean,
-    mul,
-    reduce_mean,
-    reduce_sum,
-    relu,
-    scale,
-    sigmoid,
-    softmax,
-    square,
-    tanh,
-    topk,
-)
+from .ops import *  # noqa: F401,F403
 from .tensor import (  # noqa: F401
     assign,
     cast,
+    concat,
     data,
     fill_constant,
     reshape,

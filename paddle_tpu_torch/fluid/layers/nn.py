@@ -42,9 +42,24 @@ def fc(
     return helper.append_activation(out, act)
 
 
-def embedding(input, size, padding_idx=None, param_attr=None,
-              dtype="float32"):
-    """cf. reference nn.py embedding / lookup_table op (dense W)."""
+def embedding(
+    input,
+    size,
+    is_sparse=False,
+    is_distributed=False,
+    padding_idx=None,
+    param_attr=None,
+    dtype="float32",
+):
+    """cf. reference nn.py embedding / lookup_table op, with the
+    reference's signature.  ``is_sparse`` is recorded on the op; its
+    backward (SelectedRows gradients) raises until Queue A 3 (b) 3
+    ports it.  ``is_distributed`` (a host-RAM table) raises."""
+    if is_distributed:
+        raise NotImplementedError(
+            "embedding(is_distributed=True) needs the host-RAM table "
+            "(fluid/host_embedding.py), not ported yet (ROADMAP Queue A "
+            "5); set is_distributed=False")
     helper = LayerHelper("embedding")
     w = helper.create_parameter(param_attr, list(size), dtype=dtype)
     if padding_idx is None:
@@ -54,8 +69,8 @@ def embedding(input, size, padding_idx=None, param_attr=None,
     else:
         pad = padding_idx
     return append_simple_op(
-        "lookup_table", {"W": w, "Ids": input}, {"padding_idx": pad},
-        dtype=dtype,
+        "lookup_table", {"W": w, "Ids": input},
+        {"padding_idx": pad, "is_sparse": bool(is_sparse)}, dtype=dtype,
     )
 
 

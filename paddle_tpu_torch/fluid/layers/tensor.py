@@ -50,6 +50,10 @@ def slice(input, axes, starts, ends):
     )
 
 
+def concat(input, axis=0, name=None):
+    return append_simple_op("concat", {"X": list(input)}, {"axis": axis})
+
+
 def assign(input, output=None):
     """cf. reference layers/tensor.py assign (a Variable input; the numpy
     form needs ``assign_value``, not ported yet)."""

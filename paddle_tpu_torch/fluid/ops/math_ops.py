@@ -1,10 +1,17 @@
-"""Dense math ops: elementwise add / sub / mul / div (with axis
-broadcast), relu, sigmoid, tanh, square, gelu, scale, softmax, matmul,
-mul, sum and the fused-epilogue matmul_bias_act.
+"""Dense math ops: the elementwise ops (with axis broadcast), the
+activation table, leaky_relu, elu, gelu, hard_sigmoid, swish, relu6,
+pow, scale, clip, softmax, log_softmax, matmul, mul, dot, sum and the
+fused-epilogue matmul_bias_act.
 
 Counterpart of `paddle_tpu/fluid/ops/math_ops.py` (the elementwise ops
-:37-40, the activations :51-71, gelu :97, scale :127, softmax :144,
-matmul :157, mul :179, matmul_bias_act :205, sum :297).  ``matmul`` is a plain
+:37-45, the activations :50-76, leaky_relu :85, elu :92, gelu :97,
+hard_sigmoid :103, swish :110, relu6 :117, pow :122, scale :127, clip
+:139, softmax :144, log_softmax :149, matmul :157, mul :179, dot :199,
+matmul_bias_act :205, sum :297).  Where the obvious torch call's
+gradient differs from JAX's at a kink, the lowering is written in the
+form whose autograd gradient is JAX's: ``abs`` as ``where(x >= 0, x,
+-x)`` (1 at 0), the clips as ``minimum(maximum(x, lo), hi)`` (half on
+a bound, as ``jnp.clip``; ``torch.clamp`` passes all of it).  ``matmul`` is a plain
 `torch.matmul`, as the reference's is a plain ``jnp.matmul``.  ``matmul_bias_act`` is the op that reaches a
 hand kernel: it calls `ops.matmul.matmul_bias_act` (kernel 5), which
 launches the kernel on a CUDA tensor and takes its plain version on a
@@ -43,6 +50,38 @@ _register_elementwise("add", torch.add)
 _register_elementwise("sub", torch.sub)
 _register_elementwise("mul", torch.mul)
 _register_elementwise("div", torch.div)
+_register_elementwise("pow", torch.pow)
+# maximum / minimum split a tie's gradient in halves, as JAX's
+_register_elementwise("max", torch.maximum)
+_register_elementwise("min", torch.minimum)
+# Python's modulo (the divisor's sign), as jnp.mod; not torch.fmod
+_register_elementwise("mod", torch.remainder)
+# piecewise constant: JAX's gradient is 0, torch has no derivative for it
+_register_elementwise("floordiv", lambda x, y: torch.floor_divide(
+    x.detach(), y.detach()))
+
+
+def const_like(x, v):
+    """``v`` as a 0-d tensor of ``x``'s dtype and device."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def clip(x, lo, hi):
+    """``jnp.clip``: half the gradient on either bound (``torch.clamp``
+    passes all of it)."""
+    return torch.minimum(torch.maximum(x, const_like(x, lo)),
+                         const_like(x, hi))
+
+
+def _abs(x):
+    """``jnp.abs``: gradient 1 at 0 (``torch.abs`` gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) without torch's linear
+    threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 # -- activations (cf. activation_op.cc) --------------------------------------
@@ -51,7 +90,24 @@ _ACTIVATIONS = {
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
+    "exp": torch.exp,
+    "log": torch.log,
+    "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt,
+    "abs": _abs,
     "square": torch.square,
+    "reciprocal": lambda x: 1.0 / x,
+    "floor": torch.floor,
+    "ceil": torch.ceil,
+    "round": torch.round,       # half to even, as jnp.round
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "softplus": softplus,
+    "softsign": lambda x: x / (_abs(x) + 1),
+    "silu": F.silu,
+    "erf": torch.erf,
+    "sign": torch.sign,
+    "logsigmoid": lambda x: -softplus(-x),
 }
 
 
@@ -65,11 +121,49 @@ for _name, _fn in _ACTIVATIONS.items():
     _register_activation(_name, _fn)
 
 
+@register_op("leaky_relu", inputs=["X"], outputs=["Out"])
+def _leaky_relu(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.where(x >= 0, x, attrs.get("alpha", 0.02) * x)]}
+
+
+@register_op("elu", inputs=["X"], outputs=["Out"])
+def _elu(ctx, ins, attrs):
+    """``jax.nn.elu``: alpha (e^x - 1) at x <= 0."""
+    x = ins["X"][0]
+    pos = x > 0
+    neg = attrs.get("alpha", 1.0) * torch.expm1(torch.where(pos, 0.0, x))
+    return {"Out": [torch.where(pos, x, neg)]}
+
+
 @register_op("gelu", inputs=["X"], outputs=["Out"])
 def _gelu(ctx, ins, attrs):
     approx = attrs.get("approximate", False)
     return {"Out": [F.gelu(ins["X"][0],
                            approximate="tanh" if approx else "none")]}
+
+
+@register_op("hard_sigmoid", inputs=["X"], outputs=["Out"])
+def _hard_sigmoid(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [clip(x * attrs.get("slope", 0.2)
+                         + attrs.get("offset", 0.5), 0.0, 1.0)]}
+
+
+@register_op("swish", inputs=["X"], outputs=["Out"])
+def _swish(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x * torch.sigmoid(attrs.get("beta", 1.0) * x)]}
+
+
+@register_op("relu6", inputs=["X"], outputs=["Out"])
+def _relu6(ctx, ins, attrs):
+    return {"Out": [clip(ins["X"][0], 0.0, attrs.get("threshold", 6.0))]}
+
+
+@register_op("pow", inputs=["X"], outputs=["Out"])
+def _pow(ctx, ins, attrs):
+    return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
 
 
 @register_op("scale", inputs=["X"], outputs=["Out"])
@@ -84,9 +178,20 @@ def _scale(ctx, ins, attrs):
     return {"Out": [out.to(x.dtype)]}
 
 
+@register_op("clip", inputs=["X"], outputs=["Out"])
+def _clip_op(ctx, ins, attrs):
+    return {"Out": [clip(ins["X"][0], attrs["min"], attrs["max"])]}
+
+
 @register_op("softmax", inputs=["X"], outputs=["Out"])
 def _softmax(ctx, ins, attrs):
     return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register_op("log_softmax", inputs=["X"], outputs=["Out"])
+def _log_softmax(ctx, ins, attrs):
+    return {"Out": [torch.log_softmax(ins["X"][0],
+                                      dim=attrs.get("axis", -1))]}
 
 
 # -- matmul family -----------------------------------------------------------
@@ -120,6 +225,12 @@ def _mul(ctx, ins, attrs):
     y2 = y.reshape(math.prod(y.shape[:yn]), -1)
     out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
     return {"Out": [torch.matmul(x2, y2).reshape(out_shape)]}
+
+
+@register_op("dot", inputs=["X", "Y"], outputs=["Out"])
+def _dot(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.sum(x * y, dim=-1, keepdim=True)]}
 
 
 MBA_ACTIVATIONS = ("none", "relu", "tanh", "gelu")

@@ -1,12 +1,12 @@
 """NN ops: conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm,
 dropout and its grad, flash_attention, lookup_table,
-softmax_with_cross_entropy, cross_entropy, square_error_cost.
+softmax_with_cross_entropy, cross_entropy, square_error_cost, prelu.
 
 Counterpart of `paddle_tpu/fluid/ops/nn_ops.py` (conv2d :23,
 depthwise_conv2d :62, pool2d :116 and `_adaptive_pool_general` :162,
 batch_norm :258, layer_norm :372, dropout :402, dropout_grad :425,
 flash_attention :438, lookup_table :603, softmax_with_cross_entropy
-:652, cross_entropy :683, square_error_cost :708).
+:652, cross_entropy :683, square_error_cost :708, prelu :737).
 ``flash_attention`` is the op that reaches a hand kernel: it calls
 `ops.attention.scaled_dot_product_attention` (kernel 1), which
 launches the kernel on a CUDA tensor and takes its plain version on a
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ...ops import attention as _attention
 from ...ops import nn_ops as _nn
 from ..core.registry import register_op
+from .math_ops import clip
 
 
 def _pair(v):
@@ -324,9 +325,7 @@ def _cross_entropy(ctx, ins, attrs):
     value on a bound passes half its gradient); hard labels ``[..., 1]``
     or ``[...]``, or soft labels summed over the last axis."""
     x, label = ins["X"][0], ins["Label"][0]
-    lo = torch.full((), 1e-8, dtype=x.dtype, device=x.device)
-    hi = torch.ones((), dtype=x.dtype, device=x.device)
-    logp = torch.log(torch.minimum(torch.maximum(x, lo), hi))
+    logp = torch.log(clip(x, 1e-8, 1.0))
     if attrs.get("soft_label", False):
         y = -(label * logp).sum(dim=-1, keepdim=True)
     else:
@@ -340,3 +339,14 @@ def _cross_entropy(ctx, ins, attrs):
 @register_op("square_error_cost", inputs=["X", "Y"], outputs=["Out"])
 def _square_error_cost(ctx, ins, attrs):
     return {"Out": [torch.square(ins["X"][0] - ins["Y"][0])]}
+
+
+@register_op("prelu", inputs=["X", "Alpha"], outputs=["Out"])
+def _prelu(ctx, ins, attrs):
+    """cf. prelu_op.cc: x where x >= 0, else alpha x; ``mode`` all (one
+    alpha), channel (one a dim-1 channel) or element (one an element
+    of a sample)."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    if attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": [torch.where(x >= 0, x, alpha * x)]}

@@ -1,14 +1,19 @@
-"""Reduction ops: reduce_sum, reduce_mean, mean, top_k, top_k_v2.
+"""Reduction ops: reduce_sum, reduce_mean, reduce_max, reduce_min,
+reduce_prod, mean, top_k, top_k_v2.
 
 Counterpart of the matching part of `paddle_tpu/fluid/ops/reduce_ops.py`
-(reduce_sum and reduce_mean :23-24, mean :42, top_k and top_k_v2
-:68-75): ``dim`` (default [0], negatives from the end), ``keep_dim``,
-``reduce_all``.
+(``_register_reduce`` :20 and the reductions :27-31, mean :46, top_k
+and top_k_v2 :68-75; cf. Paddle's reduce_ops/): ``dim``
+(default [0], negatives from the end), ``keep_dim``, ``reduce_all``.
+reduce_max / reduce_min split a tie's gradient evenly among the tied
+elements (``torch.amax`` / ``amin``, as JAX's ``jnp.max``); an int32
+input's sum and product stay int32, as the reference's.
 """
 
 import torch
 
 from ..core.registry import register_op
+from .tensor_ops import int_accumulator
 
 
 def _dims(attrs, ndim):
@@ -28,8 +33,20 @@ def _register_reduce(name, fn):
                            keepdim=bool(attrs.get("keep_dim", False)))]}
 
 
-_register_reduce("sum", torch.sum)
+def _prod(x, dim, keepdim):
+    """torch.prod over several dims, the last first (torch takes one)."""
+    dt = int_accumulator(x)
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, d, keepdim=keepdim, dtype=dt)
+    return x
+
+
+_register_reduce("sum", lambda x, dim, keepdim: torch.sum(
+    x, dim, keepdim=keepdim, dtype=int_accumulator(x)))
 _register_reduce("mean", torch.mean)
+_register_reduce("max", torch.amax)
+_register_reduce("min", torch.amin)
+_register_reduce("prod", _prod)
 
 
 @register_op("mean", inputs=["X"], outputs=["Out"])

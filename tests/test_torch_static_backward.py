@@ -32,6 +32,7 @@ from paddle_tpu_torch.fluid.core import block_eval
 from paddle_tpu_torch.fluid.core import registry as tregistry
 
 from test_torch_static_ops import CASES
+from test_torch_static_surface import SURFACE
 from torch_static_common import jax_state_unchanged
 
 FWD = dict(rtol=1e-5, atol=1e-5)
@@ -321,9 +322,10 @@ def test_sparse_embedding_refuses_and_clip_refuses():
 # ---------------------------------------------------------------------------
 
 
-def _grad_cases():
+def grad_cases(cases):
+    """The names of ``cases`` whose op differentiates a floating input."""
     out = []
-    for name, (op_type, ins, attrs) in sorted(CASES.items()):
+    for name, (op_type, ins, attrs) in sorted(cases.items()):
         opdef = tregistry.get_op_def(op_type)
         if opdef.grad_maker is None or op_type == "dropout":
             continue
@@ -335,7 +337,9 @@ def _grad_cases():
     return out
 
 
-GRAD_CASES = _grad_cases()
+# the `fluid.layers.ops` surface's cases run in
+# test_torch_static_surface_grad.py (this file's time)
+GRAD_CASES = grad_cases({k: v for k, v in CASES.items() if k not in SURFACE})
 
 
 def _vjp_attrs(op_type, ins, attrs, outs, slots):
@@ -350,7 +354,8 @@ def _vjp_attrs(op_type, ins, attrs, outs, slots):
 
 
 def test_every_auto_grad_op_has_a_grad_case():
-    covered = {CASES[c][0] for c in GRAD_CASES}
+    covered = ({CASES[c][0] for c in GRAD_CASES}
+               | {SURFACE[c][0] for c in grad_cases(SURFACE)})
     auto = {t for t in tregistry.registered_ops()
             if tregistry.get_op_def(t).grad_maker is not None}
     # no floating input to differentiate: fill_constant; vjp_grad is the
@@ -359,10 +364,11 @@ def test_every_auto_grad_op_has_a_grad_case():
     assert auto - covered == {"fill_constant", "vjp_grad", "dropout"}
 
 
-@pytest.mark.parametrize("case", GRAD_CASES)
-@pytest.mark.parametrize("taped", [False, True])
-def test_vjp_grad_matches_the_jax_vjp_grad(case, taped):
-    op_type, ins, attrs = CASES[case]
+def vjp_pair(op_type, ins, attrs, taped):
+    """The port's and the JAX ``vjp_grad`` of ``op_type`` on the numpy
+    inputs ``ins``, seeded cotangents for every floating output: (got,
+    want), each {"DX$<slot>": [gradient, ...]}.  ``taped``: the port's
+    reads its forward from a tape, as the Executor's does."""
     opdef = tregistry.get_op_def(op_type)
     slots = [s for s, arrs in ins.items()
              if s not in opdef.no_grad_slots
@@ -393,8 +399,19 @@ def test_vjp_grad_matches_the_jax_vjp_grad(case, taped):
                 opdef, ctx, fwd_ins, attrs, set(slots))
         got = tregistry.get_op_def("vjp_grad").lower(ctx, tins, vattrs)
     assert sorted(got) == sorted(want) == ["DX$" + s for s in sorted(slots)]
+    return got, want
+
+
+def assert_vjp_grad_matches(case, op_type, ins, attrs, taped):
+    got, want = vjp_pair(op_type, ins, attrs, taped)
     for k in want:
         for g, w in zip(got[k], want[k]):
             assert tuple(g.shape) == w.shape
             np.testing.assert_allclose(g.numpy(), np.asarray(w), **FWD,
                                        err_msg="%s %s" % (case, k))
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+@pytest.mark.parametrize("taped", [False, True])
+def test_vjp_grad_matches_the_jax_vjp_grad(case, taped):
+    assert_vjp_grad_matches(case, *CASES[case], taped)

@@ -1,10 +1,14 @@
-"""The Fluid book's first programs built and trained by
-`paddle_tpu_torch.fluid` and held against `paddle_tpu.fluid` on the CPU:
-fit_a_line (`tests/test_book_suite.py:29-71`, SGD), recognize_digits
-as LeNet-5 (`tests/test_book_mnist.py:28-38`, Adam) and as the book's
-MLP (fc 200 relu x 2, fc 10 softmax, ``cross_entropy``, Adam), and
+"""The Fluid book's programs built and trained by `paddle_tpu_torch.fluid`
+and held against `paddle_tpu.fluid` on the CPU: fit_a_line
+(`tests/test_book_suite.py:29-71`, SGD), recognize_digits as LeNet-5
+(`tests/test_book_mnist.py:28-38`, Adam) and as the book's MLP (fc 200
+relu x 2, fc 10 softmax, ``cross_entropy``, Adam),
 image_classification's VGG-lite (`tests/test_book_suite.py:261-275`,
-batch_norm + dropout, Adam), each over the book's data readers.
+batch_norm + dropout, Adam), word2vec (`:74-116`: four lookups of one
+shared table, ``concat``, Adam) and recommender_system (`:208-252`: two
+embedding towers, ``concat``, fc tanh, ``cos_sim``, Adam), each over
+the book's data readers (the `imikolov` and `movielens` datasets
+bitwise JAX's too).
 
 For each program:
 * both packages build it dict for dict, main and startup;
@@ -23,7 +27,8 @@ For each program:
   program serve JAX's test-clone outputs (1e-5), the port's Predictor
   serves a directory the JAX package saved likewise, and with
   ``batch_norm_act_fuse`` and ``matmul_bias_act_fuse`` it serves the
-  unfused run's (1e-5).
+  unfused run's (1e-5); the recommender's two tanh towers become
+  ``matmul_bias_act`` there.
 
 A bias added right before a ``batch_norm`` has a gradient of 0 in
 exact arithmetic: both packages' gradients are rounding noise (~1e-9),
@@ -115,9 +120,54 @@ def vgg_lite(pkg, L):
     return avg, acc, logits, pkg.optimizer.AdamOptimizer(learning_rate=2e-3)
 
 
+W2V_EMB, W2V_HID, W2V_N = 16, 64, 5
+MOVIELENS = ["user_id", "gender", "age", "job", "movie_id", "category",
+             "score"]
+
+
+def word2vec(pkg, L):
+    dict_size = len(ptt.dataset.imikolov.build_dict())
+    words = [L.data("w%d" % i, shape=[1], dtype="int64")
+             for i in range(W2V_N)]
+    embs = [L.reshape(L.embedding(w, size=[dict_size, W2V_EMB],
+                                  is_sparse=False,
+                                  param_attr=pkg.ParamAttr(name="shared_w")),
+                      [-1, W2V_EMB]) for w in words[:4]]
+    hidden = L.fc(L.concat(embs, axis=1), size=W2V_HID, act="sigmoid")
+    logits = L.fc(hidden, size=dict_size)
+    avg = L.mean(L.softmax_with_cross_entropy(logits, words[4]))
+    return avg, None, logits, pkg.optimizer.AdamOptimizer(learning_rate=1e-2)
+
+
+def recommender_system(pkg, L):
+    ml = ptt.dataset.movielens
+    uid, gender, age, job, mid, cat = (
+        L.data(n, shape=[1], dtype="int64") for n in MOVIELENS[:6])
+    rating = L.data("score", shape=[1], dtype="float32")
+
+    def tower(parts, size=32):
+        feats = [L.reshape(e, [-1, int(e.shape[-1])]) for e in parts]
+        return L.fc(L.concat(feats, axis=1), size=size, act="tanh")
+
+    usr = tower([L.embedding(uid, [ml.USER_COUNT, 16]),
+                 L.embedding(gender, [2, 8]),
+                 L.embedding(age, [ml.AGE_COUNT, 8]),
+                 L.embedding(job, [ml.JOB_COUNT, 8])])
+    mov = tower([L.embedding(mid, [ml.MOVIE_COUNT, 16]),
+                 L.embedding(cat, [ml.CATEGORY_COUNT, 8])])
+    pred = L.scale(L.ops.cos_sim(usr, mov), scale=5.0)
+    avg = L.mean(L.square_error_cost(pred, rating))
+    return avg, None, pred, pkg.optimizer.AdamOptimizer(learning_rate=5e-3)
+
+
 def _reader(name, b):
     """(feed names, the book's batch reader, image shape or None)."""
     ds = ptt.dataset
+    if name == "word2vec":
+        return (["w%d" % i for i in range(W2V_N)], ptt.batch(
+            ds.imikolov.train(ds.imikolov.build_dict(), W2V_N), b), None)
+    if name == "recommender_system":
+        return MOVIELENS, ptt.batch(ds.movielens.train(), b), None
     if name == "fit_a_line":
         return ["x", "y"], ptt.batch(ds.uci_housing.train(), b), None
     if name == "vgg_lite":
@@ -126,7 +176,12 @@ def _reader(name, b):
 
 
 PROGRAMS = {"fit_a_line": (fit_a_line, 20), "lenet5": (lenet5, 16),
-            "mnist_mlp": (mnist_mlp, 16), "vgg_lite": (vgg_lite, 8)}
+            "mnist_mlp": (mnist_mlp, 16), "vgg_lite": (vgg_lite, 8),
+            "word2vec": (word2vec, 16),
+            "recommender_system": (recommender_system, 32)}
+# the feeds each saved inference program reads
+SERVED = {"word2vec": ["w%d" % i for i in range(4)],
+          "recommender_system": MOVIELENS[:6]}
 
 
 def build(pkg, L, guard, fn):
@@ -145,6 +200,8 @@ def feeds(name):
         feed = ptt.reader.to_feed(batch, names)
         if shape is not None:
             feed["img"] = feed["img"].reshape((-1,) + shape)
+        if "score" in feed:
+            feed["score"] = feed["score"].astype(np.float32)
         out.append(feed)
         if len(out) == STEPS + 1:
             return out
@@ -281,7 +338,7 @@ def test_book_program_trains_as_jax(tmp_path, name):
 
     # save_inference_model / load_inference_model, then the Predictor
     # with both fuse passes against the unfused run
-    in_names = [n for n in feed if n in ("x", "img")]
+    in_names = SERVED.get(name, [n for n in feed if n in ("x", "img")])
     d = str(tmp_path / "model")
     with fluid.scope_guard(scope):
         fluid.io.save_inference_model(d, in_names, [out], exe, main)
@@ -312,3 +369,37 @@ def test_book_program_trains_as_jax(tmp_path, name):
         assert types.count("matmul_bias_act") == 2
     if name == "vgg_lite":
         assert types.count("fused_batch_norm_act") == 1
+    if name == "recommender_system":     # the two tanh towers
+        assert types.count("matmul_bias_act") == 2
+    if name == "word2vec":               # one table, one sigmoid fc
+        assert [p.name for p in main.all_parameters()].count("shared_w") == 1
+        assert types.count("matmul_bias_act") == 0
+
+
+def _examples(reader):
+    return [tuple(np.asarray(f) for f in ex) for ex in reader()]
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_embedding_datasets_are_jax_bitwise(split):
+    import paddle_tpu
+
+    jds, ds = paddle_tpu.dataset, ptt.dataset
+    assert ds.imikolov.build_dict() == jds.imikolov.build_dict()
+    word_dict = ds.imikolov.build_dict()
+    readers = [(getattr(ds.movielens, split)(),
+                getattr(jds.movielens, split)())]
+    for kind in (ds.imikolov.DataType.NGRAM, ds.imikolov.DataType.SEQ):
+        readers.append((getattr(ds.imikolov, split)(word_dict, 5, kind),
+                        getattr(jds.imikolov, split)(word_dict, 5, kind)))
+    for got, want in readers:
+        a, b = _examples(got), _examples(want)
+        assert len(a) == len(b) > 0
+        for ea, eb in zip(a, b):
+            assert len(ea) == len(eb)
+            for fa, fb in zip(ea, eb):
+                assert fa.dtype == fb.dtype
+                np.testing.assert_array_equal(fa, fb)
+    for k in ("USER_COUNT", "MOVIE_COUNT", "JOB_COUNT", "AGE_COUNT",
+              "CATEGORY_COUNT"):
+        assert getattr(ds.movielens, k) == getattr(jds.movielens, k)

@@ -149,7 +149,8 @@ def test_build_time_shape_inference_keeps_dynamic_dims():
             layers.reshape(x, [7, 7])
     with pytest.raises(RuntimeError, match="not registered in the port"):
         with fluid.program_guard(main, start):
-            layers.common.append_simple_op("log_softmax", {"X": x})
+            layers.common.append_simple_op("transpose2", {"X": x},
+                                           {"axis": [0, 2, 1]})
 
 
 def test_executor_errors_and_places():
@@ -191,6 +192,11 @@ def test_port_registry_is_its_own():
 
     from paddle_tpu_torch.fluid.framework import OPTIMIZER_OP_TYPES
 
+    # the ops `fluid.layers.ops` reaches, and concat
+    from test_torch_static_surface import SURFACE
+
+    SURFACE_OPS = {c[0] for c in SURFACE.values()}
+    assert len(SURFACE_OPS) == 78        # 77 and elementwise_floordiv
     ports = set(tregistry.registered_ops())
     assert ports == {
         "cast", "dropout", "elementwise_add", "fill_constant",
@@ -206,7 +212,7 @@ def test_port_registry_is_its_own():
         "conv2d", "depthwise_conv2d", "pool2d", "batch_norm",
         "fused_batch_norm_act", "softmax", "sigmoid", "cross_entropy",
         "top_k", "top_k_v2", "accuracy",
-        "vjp_grad"} | OPTIMIZER_OP_TYPES
+        "vjp_grad"} | OPTIMIZER_OP_TYPES | set(SURFACE_OPS)
     assert ports < set(jregistry.registered_ops())
     assert tregistry.get_op_def("mul") is not jregistry.get_op_def("mul")
     with pytest.raises(ValueError, match="registered twice"):

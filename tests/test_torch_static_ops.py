@@ -21,6 +21,7 @@ from paddle_tpu.fluid.core import registry as jregistry
 from paddle_tpu_torch.fluid.core import dtypes as tdtypes
 from paddle_tpu_torch.fluid.core import registry as tregistry
 
+from test_torch_static_surface import SURFACE, _r
 from torch_static_common import jax_state_unchanged
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -31,10 +32,6 @@ RECORDED_INT64 = {"top_k", "top_k_v2"}
 def _leaves_jax_state_as_found():
     with jax_state_unchanged():
         yield
-
-
-def _r(*shape, seed=0, dtype=np.float32):
-    return np.random.RandomState(seed).standard_normal(shape).astype(dtype)
 
 
 def _ids(shape, high, seed=1):
@@ -297,6 +294,9 @@ CASES = {
                   "Label": [np.array([[1], [3], [0], [6], [5], [2]],
                                      np.int64)]}, {}),
 }
+
+
+CASES.update(SURFACE)
 
 
 def _jax_run(op_type, ins, attrs):
