@@ -88,7 +88,23 @@ with every gradient), serves them through `create_predictor` with
 `matmul_bias_act_fuse` (word2vec: no kernel launch; the recommender: 2
 kernel-5 launches a forward, tanh, kernel 5 at both tower shapes
 against its plain version), and runs every op of `fluid.layers.ops`
-and its gradient on the card against the CPU.
+and its gradient on the card against the CPU; last, builds the WMT
+Transformer-base (512 / 8 / 6 + 6 / 2048 / 32000) as a static program
+(`models.transformer_program`) and trains it through the Executor by
+"Attention Is All You Need"'s recipe (Adam(0.9, 0.98, 1e-9) on
+noam_decay(512, 4000), label smoothing 0.1, dropout 0.1; B = 32 pairs
+of 128 padded source and 120 target tokens, f32): 18 kernel-1 and 18
+backward launches a step (kernel 4, or 2 and 3, as the dispatch picks
+for each of the encoder self, decoder causal self and cross
+attentions), the step counter and the noam rate against float64, one
+dropout-0 step against the plain versions on one run's relu
+decisions, a short-warmup program whose loss falls, kernels 1 and 4 at
+the three attention shapes, the trained logits served with
+`matmul_bias_act_fuse` (18 kernel-1 and 12 kernel-5 launches a
+forward, fused = unfused) with p50 and kernel 5 at its fc1 shapes, and
+every op of the rest of `fluid.layers.tensor` and its gradient on the
+card against the CPU.  The static BERT is served BHSD too (the
+reference's transposes around kernel 1), equal to BSHD.
 
     python3 chip_smoke.py
 
@@ -367,8 +383,9 @@ def flash_bounds(b, s, dtype, causal, masked, d=D):
 
 def _library_attention(q, k, v, do, bias, segs, causal, scale):
     """F.scaled_dot_product_attention's forward, backward alone (on a
-    retained graph) and forward+backward at the same shapes, with the
-    bias and masks as one float mask: the yardstick, timed only."""
+    retained graph) and forward+backward at the same shapes (Sq and Sk
+    may differ), with the bias and masks as one float mask: the
+    yardstick, timed only."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -376,15 +393,16 @@ def _library_attention(q, k, v, do, bias, segs, causal, scale):
     dot = do.transpose(1, 2)
     mask = None
     if bias is not None or segs is not None:
-        b, s = q.shape[0], q.shape[1]
-        mask = torch.zeros(b, 1, s, s, device=q.device)
+        b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+        mask = torch.zeros(b, 1, sq, sk, device=q.device)
         if bias is not None:
             mask = mask + bias
         if segs is not None:
             same = segs[0][:, None, :, None] == segs[1][:, None, None, :]
             mask = torch.where(same, mask, -1e30)
         if causal:
-            vis = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+            vis = torch.ones(sq, sk, dtype=torch.bool,
+                             device=q.device).tril(sk - sq)
             mask = torch.where(vis, mask, -1e30)
         mask = mask.to(q.dtype)
 
@@ -4069,8 +4087,10 @@ def static_serve(ptt):
     B = 1, 4 and 8.  Checks: 12 launches of kernel 1 and 13 of kernel 5
     a forward and no other; kernels 1 and 5 on the path's own arguments
     against their plain versions; one B = 8 batch against the same
-    saved model run through the plain versions on the card (TOL f32);
-    ``compile_count`` 3.  Then p50 latency a batch size over
+    saved model run through the plain versions on the card (TOL f32),
+    and through the same weights built BHSD
+    (``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD``: 48 ``transpose2``, 12 kernel-1
+    launches; TOL f32); ``compile_count`` 3.  Then p50 latency a batch size over
     STATIC_REQUESTS requests and a profile of STATIC_PROFILED (device
     busy time and kernel launches a request)."""
     import shutil
@@ -4082,6 +4102,9 @@ def static_serve(ptt):
     with _env("PADDLE_TPU_FUSED_FFN", None):
         main, startup, feeds, fetches = models.bert_program.bert_program(
             cfg, STATIC_S)
+        with _env("PADDLE_TPU_BERT_HEAD_LAYOUT", "BHSD"):
+            bhsd_main, _, _, bhsd_fetches = \
+                models.bert_program.bert_program(cfg, STATIC_S)
     startup.random_seed = STATIC_SEED
     t1 = time.perf_counter()
     exe = fluid.Executor()
@@ -4093,6 +4116,8 @@ def static_serve(ptt):
         t2 = time.perf_counter()
         fluid.io.save_inference_model(STATIC_DIR, feeds, list(fetches), exe,
                                       main)
+        fluid.io.save_inference_model(STATIC_DIR + "_bhsd", feeds,
+                                      list(bhsd_fetches), exe, bhsd_main)
     del scope
     t3 = time.perf_counter()
     pred = inference.create_predictor(inference.AnalysisConfig(STATIC_DIR))
@@ -4142,6 +4167,27 @@ def static_serve(ptt):
     for name, g, w in zip(pred.get_output_names(), got, want):
         e2e[name] = compare("static %s B=%d" % (name, b), torch.from_numpy(g),
                             torch.from_numpy(w), TOL[torch.float32])
+    # the same weights built BHSD (the reference's q / k / v and context
+    # transposes around kernel 1): a B = 8 forward equal to BSHD's
+    bhsd = inference.create_predictor(inference.AnalysisConfig(
+        STATIC_DIR + "_bhsd"))
+    fluid.ir.apply_passes(bhsd._program, ["matmul_bias_act_fuse"])
+    ops.reset_launch_counts()
+    bhsd_out = bhsd.run(feed)
+    bhsd_launches = ops.launch_counts()
+    _expect_launches("static BHSD forward B=%d" % b, bhsd_launches,
+                     want_launches)
+    bhsd_types = [o.type for o in bhsd._program.global_block.ops]
+    if bhsd_types.count("transpose2") != 4 * L:
+        raise AssertionError("BHSD program: %d transpose2"
+                             % bhsd_types.count("transpose2"))
+    bhsd_err = {name: compare("static BHSD %s B=%d" % (name, b),
+                              torch.from_numpy(g), torch.from_numpy(w),
+                              TOL[torch.float32])
+                for name, g, w in zip(pred.get_output_names(), bhsd_out,
+                                      got)}
+    del bhsd
+    shutil.rmtree(STATIC_DIR + "_bhsd", ignore_errors=True)
     if pred.compile_count != len(STATIC_BATCHES):
         raise AssertionError("compile_count %d, want %d"
                              % (pred.compile_count, len(STATIC_BATCHES)))
@@ -4200,6 +4246,10 @@ def static_serve(ptt):
           "launches_per_forward": per_forward,
           "e2e_vs_plain": {k: {"max_abs_err": v[0], "limit_share": v[1]}
                            for k, v in e2e.items()},
+          "bhsd_vs_bshd": {"B": b, "launches": bhsd_launches,
+                           "transpose2": 4 * L, **{
+                               k: {"max_abs_err": v[0], "limit_share": v[1]}
+                               for k, v in bhsd_err.items()}},
           "compile_count": pred.compile_count, "flops": flops,
           "latency": latency, "run_launches": run_launches,
           "requests": n_req, "profile": profiles})
@@ -5362,21 +5412,23 @@ def _sweep_rel(got, want):
     return err / scale if scale else err
 
 
-def op_sweep(ptt):
+def op_sweep(ptt, cases=None):
     """Every op `fluid.layers.ops` reaches (and concat), at the inputs of
     `tests/test_torch_static_surface.py` (the cases the CPU tests hold
-    against the JAX lowerings): its forward and its ``vjp_grad`` (seeded
-    cotangents on every floating output a program differentiates) on
-    the card against the same on the CPU, each output within SWEEP_REL
-    of its scale.
+    against the JAX lowerings), or the ops of another such table
+    (``cases``): its forward and its ``vjp_grad`` (seeded cotangents on
+    every floating output a program differentiates) on the card against
+    the same on the CPU, each output within SWEEP_REL of its scale
+    (integer and boolean outputs equal).
     Returns {op: {"forward": worst, "grad": worst, "cases": n}}."""
     if os.path.join(ROOT, "tests") not in sys.path:
         sys.path.append(os.path.join(ROOT, "tests"))
-    from test_torch_static_surface import SURFACE
+    if cases is None:
+        from test_torch_static_surface import SURFACE as cases
     from paddle_tpu_torch.fluid.core.registry import LowerContext, get_op_def
 
     worst = {}
-    for case, (op_type, ins, attrs) in sorted(SURFACE.items()):
+    for case, (op_type, ins, attrs) in sorted(cases.items()):
         opdef = get_op_def(op_type)
 
         def run(dev, op, tins, at):
@@ -5549,6 +5601,599 @@ def static_book_embed(ptt):
             "kernel_rows": kernel_rows}
 
 
+# ---------------------------------------------------------------------------
+# the WMT Transformer-base as a static program (`models.transformer_program`),
+# trained by the Executor on Adam + noam_decay and served, through kernels
+# 1 and 4 (or 2 and 3) in training and 1 and 5 in serving, with the rest
+# of `fluid.layers.tensor` swept card against CPU
+# ---------------------------------------------------------------------------
+
+# "Attention Is All You Need" §5.3-5.4 (Transformer-base: Adam(0.9, 0.98,
+# 1e-9) on noam_decay(512, 4000), label smoothing 0.1, dropout 0.1) at
+# about the paper's per-GPU share (25k target tokens over 8 GPUs): 32
+# pairs of 128 source and 120 target tokens, f32
+TR_B, TR_SRC, TR_TGT = 32, 128, 120
+TR_MIN_SRC = 64               # source rows: lengths in [64, 128]
+TR_SEED = 47
+TR_WARMUP, TR_STEPS = 2, 10
+TR_NOAM_WARMUP = 4000
+TR_LEARN_WARMUP, TR_LEARN_STEPS = 10, 30   # the learning gate's own cut
+TR_REL = 1e-4           # kernels vs plain: the loss, gradients, parameters
+TR_LR_REL = 1e-6        # the fetched rate vs noam in float64
+TR_BETAS = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)
+TR_SERVE_BATCHES = (1, TR_B)
+TR_SERVE_REQUESTS = 20
+TR_DIR = os.path.join(ROOT, "build", "static_transformer")
+
+
+def wmt_batch(cfg, seed, b=TR_B, src_len=TR_SRC, tgt_len=TR_TGT,
+              min_len=TR_MIN_SRC):
+    """One batch by `dataset.wmt14`'s law (int64, numpy, as a user feeds
+    it): each source row <s> + words + <e> of a length drawn in
+    [min_len, src_len], padded through ``src_pad_mask``; the target the
+    reversed source words offset by 7 in the vocabulary, <s> first, the
+    labels the target shifted by one with <e>, both cut or padded with
+    <e> to ``tgt_len``."""
+    rng = np.random.RandomState(seed)
+    v = cfg.tgt_vocab_size
+    out = {n: np.zeros((b, src_len if n.startswith("src") else tgt_len),
+                       np.int64)
+           for n in ("src_ids", "src_pos", "tgt_ids", "tgt_pos",
+                     "src_pad_mask", "labels")}
+    for r in range(b):
+        n = int(rng.randint(min_len, src_len + 1))
+        words = rng.randint(3, cfg.src_vocab_size, n - 2)
+        trg = [3 + (w - 3 + 7) % (v - 3) for w in words[::-1]]
+        out["src_ids"][r, :n] = [0] + list(words) + [1]
+        out["src_pad_mask"][r, :n] = 1
+        out["tgt_ids"][r] = ([0] + trg + [1] * tgt_len)[:tgt_len]
+        out["labels"][r] = (trg + [1] * tgt_len)[:tgt_len]
+    out["src_pos"][:] = np.arange(src_len)
+    out["tgt_pos"][:] = np.arange(tgt_len)
+    return out
+
+
+def transformer_train_program(ptt, dropout, warmup=TR_NOAM_WARMUP):
+    """(cfg, main, startup, loss, logits, lr): `models.transformer_program`
+    at Transformer-base with ``dropout`` and Adam on noam_decay(512,
+    ``warmup``), label smoothing 0.1; the startup program seeded."""
+    models, fluid = ptt.models, ptt.fluid
+    cfg = models.TransformerConfig(dropout=dropout)
+    main, startup, _, loss, logits = models.transformer_program(
+        cfg, TR_SRC, TR_TGT, label_smooth_eps=0.1,
+        optimizer=lambda: ptt.optimizer.AdamOptimizer(
+            fluid.layers.noam_decay(cfg.d_model, warmup, 1.0), **TR_BETAS))
+    startup.random_seed = TR_SEED
+    lr = next(main.global_block.var(o.output("Out")[0])
+              for o in main.global_block.ops if o.type == "lr_schedule")
+    return cfg, main, startup, loss, logits, lr
+
+
+def noam64(step, d_model=512, warmup=TR_NOAM_WARMUP):
+    return d_model ** -0.5 * min(step ** -0.5, step * warmup ** -1.5)
+
+
+def transformer_attention_shapes(ops, cfg, b=TR_B):
+    """[(tag, Sq, Sk, causal, fused backward?, launches a step)] of the
+    path's three attention kinds, with the backward
+    `ops.attention._use_fused_bwd` picks for each (f32, D = 64)."""
+    h, d = cfg.n_head, cfg.d_model // cfg.n_head
+    sms = ops.attention._sm_count(torch.device("cuda"))
+    out = []
+    for tag, sq, sk, causal, n in (
+            ("encoder self", TR_SRC, TR_SRC, False, cfg.num_encoder_layers),
+            ("decoder causal self", TR_TGT, TR_TGT, True,
+             cfg.num_decoder_layers),
+            ("cross", TR_TGT, TR_SRC, False, cfg.num_decoder_layers)):
+        out.append((tag, sq, sk, causal, ops.attention._use_fused_bwd(
+            b * h, sq, sk, d, sms, torch.float32), n))
+    return out
+
+
+def _transformer_launches(ops, shapes):
+    """A training step's launches: kernel 1 once an attention, the
+    backward each picks once, nothing else (the FFN is unfused)."""
+    want = {name: 0 for name in ops.KERNEL_WRAPPERS}
+    for *_, fused, n in shapes:
+        want["flash_fwd"] += n
+        for k in (("flash_bwd_fused",) if fused
+                  else ("flash_bwd_dq", "flash_bwd_dkv")):
+            want[k] += n
+    return want
+
+
+def key_bias_weights(main):
+    """{cross-attention key bias: its key weight}.  Softmax is invariant
+    to a shift common to every key, so a key bias's gradient is zero in
+    exact arithmetic: its computed value is rounding noise on the scale
+    of the key weight's gradient, the scale it is held to."""
+    ops_ = main.global_block.ops
+    tgt = next(i for i, o in enumerate(ops_) if o.type == "lookup_table"
+               and o.input("Ids") == ["tgt_ids"])
+    memory = next(o.output("Y")[0] for o in reversed(ops_[:tgt])
+                  if o.type == "layer_norm")           # enc_ln's output
+    kv = [(ops_[i + 1].input("Y")[0], o.input("Y")[0])
+          for i, o in enumerate(ops_)
+          if o.type == "mul" and o.input("X") == [memory]]
+    return dict(kv[::2])        # each decoder layer's k, then v
+
+
+def _adam_first_step64(g, lr):
+    """The adam op's first update of a parameter (zero moments, beta
+    powers beta1 and beta2) in float64."""
+    b1, b2, eps = TR_BETAS["beta1"], TR_BETAS["beta2"], TR_BETAS["epsilon"]
+    g = g.double()
+    lr_t = lr * (1 - b2) ** 0.5 / (1 - b1)
+    return -lr_t * (1 - b1) * g / (((1 - b2) * g * g).sqrt() + eps)
+
+
+class _static_relu_decisions:
+    """Record the decision (x > 0) of every static ``relu`` op in run
+    order, or, given another run's, apply those (x times the mask: the
+    gradient is relu's on that decision) and count the inputs that lie
+    on the other side of 0 here.  A unit whose input lies within
+    rounding of 0 takes one branch in one run and the other in the
+    other, and moves every gradient below it by its whole share: over a
+    step's 47M FFN units a few do, and the target position table's
+    gradient moves by ~1e-3 of its scale whichever attention kind runs
+    through the kernel (`tools/transformer_grad_probe.py`)."""
+
+    def __init__(self, ptt, force=None):
+        from paddle_tpu_torch.fluid.core.registry import get_op_def
+
+        self.opdef = get_op_def("relu")
+        self.force, self.masks, self.flips = force, [], 0
+
+    def __enter__(self):
+        self.real = self.opdef.lower
+        it = iter(self.force or ())
+
+        def lower(ctx, ins, attrs):
+            x = ins["X"][0]
+            if self.force is None:
+                self.masks.append((x > 0).detach())
+                return self.real(ctx, ins, attrs)
+            mask = next(it)
+            self.flips += int(((x > 0) != mask).sum().item())
+            return {"Out": [x * mask.to(x.dtype)]}
+
+        self.opdef.lower = lower
+        return self
+
+    def __exit__(self, *exc):
+        self.opdef.lower = self.real
+        return False
+
+
+def transformer_vs_plain(ptt):
+    """One dropout-0 step of the training program from one seeded
+    startup through the kernels and, from a copy of the same state,
+    through their plain versions on the card (autograd through the plain
+    forwards), on the kernel run's relu decisions
+    (`_static_relu_decisions`; the flips are counted).  Gates, each
+    TR_REL: the loss of itself; each gradient of its scale (max |g|; a
+    cross-attention key bias's of its key weight's gradient,
+    `key_bias_weights`); each updated parameter of its scale beyond what
+    Adam's first step makes of the two runs' own gradients (Adam moves
+    an element by about lr whatever |g| is)."""
+    fluid, ops = ptt.fluid, ptt.ops
+    cfg, main, startup, loss, _, lr = transformer_train_program(ptt, 0.0)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [v.name for v in main.list_vars() if v.persistable]
+    params = [p.name for p in main.all_parameters()]
+    plain_scope = _copy_scope(fluid, scope, names)
+    feed = wmt_batch(cfg, 2)
+    fetch = [loss.name, lr.name] + [n + "@GRAD" for n in params]
+    with _static_relu_decisions(ptt) as rec:
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+    ops.reset_launch_counts()
+    p1, p2 = _plain_static(ops)
+    with p1, p2, _static_relu_decisions(ptt, rec.masks) as forced:
+        want = exe.run(main, feed=feed, fetch_list=fetch,
+                       scope=plain_scope, return_numpy=False)
+    if any(ops.launch_counts().values()):
+        raise AssertionError("the plain step launched %s"
+                             % ops.launch_counts())
+    del rec
+    loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    rate = want[1].item()
+    grads = dict(zip(params, want[2:]))
+    key_bias = key_bias_weights(main)
+    worst_g, worst_p = (-1.0, ""), (-1.0, "")
+    for n, g_k, g_p in zip(params, got[2:], want[2:]):
+        g_scale = grads[key_bias.get(n, n)].abs().max().item()
+        err = (g_k - g_p).abs().max().item()
+        worst_g = max(worst_g, (err / g_scale if g_scale else err, n))
+        a, b_ = scope.find_var(n), plain_scope.find_var(n)
+        upd = _adam_first_step64(g_k, rate) - _adam_first_step64(g_p, rate)
+        scale = b_.abs().max().item()
+        err = ((a.double() - b_.double()) - upd).abs().max().item()
+        worst_p = max(worst_p, (err / scale if scale else err, n))
+    if not (loss_rel <= TR_REL and worst_g[0] <= TR_REL
+            and worst_p[0] <= TR_REL and np.isfinite(got[0].item())):
+        raise AssertionError(
+            "transformer step vs plain: loss %g vs %g (rel %g), worst "
+            "gradient %s at %g of its scale, worst parameter %s at %g of "
+            "its scale beyond the gradients' Adam updates; limit %g" % (
+                got[0].item(), want[0].item(), loss_rel, worst_g[1],
+                worst_g[0], worst_p[1], worst_p[0], TR_REL))
+    return {"loss": got[0].item(), "plain_loss": want[0].item(),
+            "loss_rel_err": loss_rel, "max_grad_rel_err": worst_g[0],
+            "worst_grad": worst_g[1], "max_param_rel_err": worst_p[0],
+            "worst_param": worst_p[1], "key_biases": len(key_bias),
+            "relu_units_flipped": forced.flips, "limit": TR_REL}
+
+
+def transformer_learns(ptt):
+    """The learning gate: the training program with noam_decay(512,
+    TR_LEARN_WARMUP) (under the recipe's warmup of 4000 the rate at step
+    40 is ~7e-6, too small to move the loss in a smoke run: a cut of
+    the warmup only), dropout 0.1, TR_LEARN_STEPS steps on one repeated
+    batch.  Gate: finite losses, the last five steps' mean under the
+    first five's.  Returns the losses."""
+    fluid = ptt.fluid
+    cfg, main, startup, loss, _, _ = transformer_train_program(
+        ptt, 0.1, warmup=TR_LEARN_WARMUP)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = wmt_batch(cfg, 3)
+    outs = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)[0] for _ in range(TR_LEARN_STEPS)]
+    losses = [o.item() for o in outs]
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise AssertionError("transformer learning gate losses: %s"
+                             % losses)
+    return losses
+
+
+def transformer_flash_rows(ops, calls, shapes):
+    """Kernels 1 and 4 (or 2 + 3, as the dispatch picks) on the arguments
+    the training path gave kernel 1, the first call of each of the three
+    attention kinds, with a seeded output gradient: errors against the
+    plain versions (TOL f32, GRAD_TOL f32), then each timed by events
+    and `queued_ms` beside its plain version, SDPA's forward or backward
+    (the library) and its bound (the visible (query, key) pairs: the
+    causal triangle; bias and dbias read and written once)."""
+    gen = torch.Generator(device="cuda").manual_seed(TR_SEED)
+    f32 = torch.float32
+    rows, seen = [], set()
+    kinds = {(sq, sk, causal): (tag, fused)
+             for tag, sq, sk, causal, fused, _ in shapes}
+    per_step = {(sq, sk, causal): n for _, sq, sk, causal, _, n in shapes}
+    for q, k, v, kw in calls:
+        q, k, v = (t.detach() for t in (q, k, v))
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        key = (sq, sk, kw["causal"])
+        if key in seen:
+            continue
+        seen.add(key)
+        tag, fused = kinds[key]
+        bias = kw.get("bias")
+        bias = bias.detach() if bias is not None else None
+        scale, layout, causal = kw["scale"], kw["layout"], kw["causal"]
+        o, lse = ops.flash_fwd(q, k, v, bias, None, scale, causal, layout,
+                               with_lse=True)
+        do = torch.randn(o.shape, device="cuda", generator=gen)
+        o_ref, _ = ops.flash_attention_reference(q, k, v, bias, None, scale,
+                                                 causal, layout)
+        grad_bias = bias is not None
+        got = ops.flash_attention_bwd(q, k, v, o, do, lse, bias, None, scale,
+                                      causal, layout, bias_grad=grad_bias)
+        want = ops.flash_attention_bwd_reference(q, k, v, bias, None, o, do,
+                                                 lse, scale, causal, layout)
+        torch.cuda.synchronize()
+        errs = {"o": compare("transformer %s flash o" % tag, o, o_ref,
+                             TOL[f32])[0]}
+        for t, g_, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
+            if g_ is not None:
+                errs[t] = compare("transformer %s flash %s" % (tag, t), g_,
+                                  w_, GRAD_TOL[f32])[0]
+        lib_fwd, lib_bwd, _ = _library_attention(q, k, v, do, bias, None,
+                                                 causal, scale)
+        xq, xk = b * sq * h * d * 4, b * sk * h * d * 4
+        row = b * h * sq * 4
+        mask = b * sk * 4 if grad_bias else 0
+        dbias = b * h * sk * 4 if grad_bias else 0
+        pairs = b * h * _visible_pairs(sq, sk, causal) * d
+        common = {"shape": tag, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+                  "causal": causal, "bias": list(bias.shape) if grad_bias
+                  else None, "per_step": per_step[key]}
+
+        def fwd():
+            return ops.flash_fwd(q, k, v, bias, None, scale, causal, layout,
+                                 with_lse=True)
+
+        def bwd():
+            return ops.flash_attention_bwd(q, k, v, o, do, lse, bias, None,
+                                           scale, causal, layout,
+                                           bias_grad=grad_bias)
+        rows.append(dict(
+            common, kernel="flash_fwd", max_abs_err=errs["o"],
+            ms=time_ms(fwd), queued_ms=queued_ms(fwd),
+            plain_ms=time_ms(lambda: ops.flash_attention_reference(
+                q, k, v, bias, None, scale, causal, layout), iters=5,
+                warmup=1),
+            library_ms=lib_fwd,
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                2 * xq + 2 * xk + row + mask, 4 * pairs, f32)))))
+        rows.append(dict(
+            common, kernel=("flash_bwd_fused" if fused
+                            else "flash_bwd_dq+flash_bwd_dkv"),
+            dbias=grad_bias, max_abs_err=max(
+                e for t, e in errs.items() if t != "o"), errors=errs,
+            ms=time_ms(bwd), queued_ms=queued_ms(bwd),
+            plain_ms=time_ms(lambda: ops.flash_attention_bwd_reference(
+                q, k, v, bias, None, o, do, lse, scale, causal, layout),
+                iters=5, warmup=1),
+            library_ms=lib_bwd,
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                4 * xq + 4 * xk + row + mask + dbias, 10 * pairs, f32)))))
+    if len(seen) != 3:
+        raise AssertionError("transformer attention kinds seen: %s" % seen)
+    return rows
+
+
+def transformer_serve(ptt, main, logits, exe, scope):
+    """The trained model's logits saved by `save_inference_model` and
+    served by `create_predictor` as saved and with
+    ``matmul_bias_act_fuse`` at B = 1 and TR_B.  Gates: a fused forward
+    launches kernel 1 18 times and kernel 5 12 times (fc1 + relu of
+    every layer) and no other kernel; fused = unfused within TOL f32.
+    Then p50 a batch over TR_SERVE_REQUESTS and kernel 5 at its two fc1
+    shapes (`mba_rows`)."""
+    import shutil
+
+    fluid, inference, ops = ptt.fluid, ptt.inference, ptt.ops
+    cfg = ptt.models.TransformerConfig()
+    feeds = ["src_ids", "src_pos", "tgt_ids", "tgt_pos", "src_pad_mask"]
+    shutil.rmtree(TR_DIR, ignore_errors=True)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(TR_DIR, feeds, [logits], exe, main)
+    disk = sum(os.path.getsize(os.path.join(TR_DIR, f))
+               for f in os.listdir(TR_DIR))
+    plain = inference.create_predictor(inference.AnalysisConfig(TR_DIR))
+    fused = inference.create_predictor(inference.AnalysisConfig(TR_DIR))
+    fluid.ir.apply_passes(fused._program, ["matmul_bias_act_fuse"])
+    types = [o.type for o in fused._program.global_block.ops]
+    n_att = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers
+    n_fc = cfg.num_encoder_layers + cfg.num_decoder_layers
+    want = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    want.update(flash_fwd=n_att, matmul_bias_act=n_fc)
+    if (types.count("flash_attention"), types.count("matmul_bias_act"),
+            types.count("relu")) != (n_att, n_fc, 0):
+        raise AssertionError("served transformer after the pass: %s"
+                             % sorted(set(types)))
+    feeds_b = {b: {n: v[:b] for n, v in wmt_batch(cfg, 9).items()
+                   if n != "labels"} for b in TR_SERVE_BATCHES}
+    launches, errs, calls = {}, {}, []
+    for b, f in feeds_b.items():
+        ops.reset_launch_counts()
+        got, = fused.run(f)
+        launches[b] = ops.launch_counts()
+        _expect_launches("transformer served forward B=%d" % b, launches[b],
+                         want)
+        ref, = plain.run(f)
+        if got.shape != (b, TR_TGT, cfg.tgt_vocab_size) or \
+                not np.isfinite(got).all():
+            raise AssertionError("served logits at B=%d: %s"
+                                 % (b, got.shape))
+        errs[b] = compare("transformer served B=%d fused vs unfused" % b,
+                          torch.from_numpy(got), torch.from_numpy(ref),
+                          TOL[torch.float32])
+        calls += _recorded_calls(ops, lambda: fused.run_async(f))["mba"]
+    rows = mba_rows(ops, calls, "transformer")
+    shapes = sorted({(r["M"], r["K"], r["N"], r["act"]) for r in rows})
+    want_shapes = sorted({(b * s, cfg.d_model, cfg.d_inner, "relu")
+                          for b in TR_SERVE_BATCHES
+                          for s in (TR_SRC, TR_TGT)})
+    if shapes != want_shapes:
+        raise AssertionError("transformer kernel 5 shapes %s, want %s"
+                             % (shapes, want_shapes))
+    latency = {}
+    for b, f in feeds_b.items():
+        for _ in range(2):
+            fused.run(f)
+        ts, ts_dev = [], []
+        for _ in range(TR_SERVE_REQUESTS):
+            t = time.perf_counter()
+            fused.run(f)
+            ts.append((time.perf_counter() - t) * 1e3)
+        for _ in range(TR_SERVE_REQUESTS):
+            t = time.perf_counter()
+            fused.run_async(f)
+            torch.cuda.synchronize()
+            ts_dev.append((time.perf_counter() - t) * 1e3)
+        latency[b] = {"p50_ms": float(np.percentile(ts, 50)),
+                      "p90_ms": float(np.percentile(ts, 90)),
+                      "min_ms": min(ts),
+                      "target_tokens_per_s": b * TR_TGT / (
+                          float(np.percentile(ts, 50)) / 1e3),
+                      # the logits left on the card: the forward without
+                      # the copy of [b, 120, 32000] f32 to the host
+                      "run_async_p50_ms": float(np.percentile(ts_dev, 50))}
+    ops.reset_launch_counts()
+    for f in feeds_b.values():
+        fused.run(f)
+    run_launches = ops.launch_counts()
+    prof = device_profile(lambda: fused.run(feeds_b[TR_B]))
+    del plain, fused
+    shutil.rmtree(TR_DIR, ignore_errors=True)
+    return {"saved_bytes": disk, "ops": len(types),
+            "launches_per_forward": launches,
+            "fused_vs_unfused": {b: {"max_abs_err": e[0], "limit_share": e[1]}
+                                 for b, e in errs.items()},
+            "latency": latency, "kernel_rows": rows,
+            "run_launches": run_launches,
+            "profile_B%d" % TR_B: {k: prof.get(k) for k in (
+                "profiled_wall_ms", "device_busy_ms", "device_idle_share",
+                "by_category_ms")}}
+
+
+def static_transformer(ptt):
+    """The WMT Transformer-base (d_model 512, 8 heads, 6 + 6 layers, FFN
+    2048, vocabularies 32000, nothing cut) as a static program
+    (`models.transformer_program`), trained through the Executor on the
+    card by the paper's recipe (Adam(0.9, 0.98, 1e-9) on
+    noam_decay(512, 4000), label smoothing 0.1, dropout 0.1) at B = 32
+    pairs of 128 source (lengths 64-128, padded) and 120 target tokens,
+    f32, TF32 off, startup seeded 47; two seeded batches alternate over
+    TR_WARMUP + TR_STEPS steps.  Gates: each step launches kernel 1 18
+    times (6 encoder self, 6 decoder causal self, 6 cross attentions)
+    and the backward the dispatch picks for each kind 6 times, none of
+    kernels 5-11; finite losses; after the run the step counter equals
+    the steps taken and the fetched rate noam's float64 value within
+    TR_LR_REL; one dropout-0 step against the plain versions
+    (`transformer_vs_plain`); the learning gate (`transformer_learns`);
+    kernels 1 and 4 (or 2 + 3) at the three attention shapes
+    (`transformer_flash_rows`); the trained logits served with
+    ``matmul_bias_act_fuse`` (`transformer_serve`); every op of this
+    slice and its gradient card against CPU (`op_sweep` over
+    `tests/test_torch_static_tensor.py`'s TENSOR).  Then p50 / p99 a
+    step (CUDA events), target tokens/s, TFLOP/s from the counted FLOPs
+    of a step (`observability.cost.FlopCounter`), peak memory, a
+    profiled step."""
+    import contextlib
+    import io as _io
+
+    from paddle_tpu_torch.observability.cost import FlopCounter
+
+    fluid, ops = ptt.fluid, ptt.ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, main, startup, loss, logits, lr = transformer_train_program(ptt, 0.1)
+    t1 = time.perf_counter()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    types = [o.type for o in main.global_block.ops]
+    shapes = transformer_attention_shapes(ops, cfg)
+    want = _transformer_launches(ops, shapes)
+    feeds = [wmt_batch(cfg, seed) for seed in (0, 1)]
+    steps_taken = [0]
+
+    def step(i):
+        out = exe.run(main, feed=feeds[i % 2], fetch_list=[loss, lr],
+                      scope=scope, return_numpy=False)
+        steps_taken[0] += 1
+        return out
+
+    losses, per_step = [], []
+    for i in range(TR_WARMUP):
+        ops.reset_launch_counts()
+        losses.append(step(i)[0].item())
+        per_step.append(ops.launch_counts())
+        _expect_launches("transformer step %d" % i, per_step[-1], want)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(TR_STEPS + 1)]
+    outs = []
+    t3 = time.perf_counter()
+    evs[0].record()
+    for n in range(TR_STEPS):
+        outs.append(step(TR_WARMUP + n))
+        evs[n + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t3
+    run_launches = ops.launch_counts()
+    _expect_launches("transformer run", run_launches,
+                     {k: v * TR_STEPS for k, v in want.items()})
+    peak = torch.cuda.max_memory_allocated()
+    ms = [evs[n].elapsed_time(evs[n + 1]) for n in range(TR_STEPS)]
+    losses += [o[0].item() for o in outs]
+    if not np.isfinite(losses).all():
+        raise AssertionError("transformer losses: %s" % losses)
+
+    # the arguments kernel 1 got on the path, a counted and a profiled step
+    calls = _recorded_calls(ops, lambda: step(0))
+    with FlopCounter() as counter:
+        step(1)
+    prof = device_profile(lambda: step(0))
+    rate = step(1)[1].item()
+    counter_after = scope.find_var("@LR_DECAY_COUNTER@").item()
+    lr_want = noam64(counter_after, cfg.d_model)
+    lr_rel = abs(rate - lr_want) / lr_want
+    if counter_after != steps_taken[0] or lr_rel > TR_LR_REL:
+        raise AssertionError(
+            "transformer counter %g after %d steps, rate %g vs noam %g "
+            "(rel %g)" % (counter_after, steps_taken[0], rate, lr_want,
+                          lr_rel))
+    flash_rows = transformer_flash_rows(ops, calls["flash"], shapes)
+    del calls
+    serve = transformer_serve(ptt, main, logits, exe, scope)
+    del scope, exe
+    vs_plain = transformer_vs_plain(ptt)
+    learn = transformer_learns(ptt)
+    t4 = time.perf_counter()
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.append(os.path.join(ROOT, "tests"))
+    from test_torch_static_tensor import TENSOR
+
+    with contextlib.redirect_stdout(_io.StringIO()):     # the print op's
+        sweep = op_sweep(ptt, TENSOR)
+    sweep_s = time.perf_counter() - t4
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    p50 = float(np.percentile(ms, 50))
+    flops = counter.flops
+    emit({"phase": "static_transformer", "nvidia_smi": smi,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "config": dict(d_model=cfg.d_model, n_head=cfg.n_head,
+                         encoder_layers=cfg.num_encoder_layers,
+                         decoder_layers=cfg.num_decoder_layers,
+                         d_inner=cfg.d_inner, vocab=cfg.tgt_vocab_size,
+                         B=TR_B, src_len=TR_SRC, tgt_len=TR_TGT,
+                         src_lengths="[%d, %d]" % (TR_MIN_SRC, TR_SRC),
+                         dtype="float32", dropout=0.1, label_smoothing=0.1,
+                         optimizer="Adam(0.9, 0.98, 1e-9) on noam_decay("
+                                   "512, %d)" % TR_NOAM_WARMUP,
+                         startup_seed=TR_SEED),
+          "flash_backward": {tag: "fused (kernel 4)" if fused
+                             else "pair (kernels 2 and 3)"
+                             for tag, _, _, _, fused, _ in shapes},
+          "build_s": t1 - t0, "startup_s": t2 - t1,
+          "ops_per_step": len(types),
+          "op_types": {t: types.count(t) for t in sorted(set(types))},
+          "parameters": len(main.all_parameters()),
+          "launches_per_step": per_step[-1], "run_launches": run_launches,
+          "steps": TR_STEPS, "losses": losses, "step_ms": ms, "p50_ms": p50,
+          "p99_ms": float(np.percentile(ms, 99)), "wall_s": wall,
+          "target_tokens_per_s": TR_B * TR_TGT * TR_STEPS / (sum(ms) / 1e3),
+          "counted_flops_per_step": flops,
+          "model_tflops_at_p50": flops / p50 / 1e9,
+          "peak_memory_gb": peak / 1e9,
+          "counter": {"steps_taken": steps_taken[0],
+                      "counter": counter_after, "rate": rate,
+                      "noam_float64": lr_want, "rel_err": lr_rel},
+          "vs_plain": vs_plain,
+          "learning_gate": {"losses": learn, "noam_warmup": TR_LEARN_WARMUP,
+                            "note": "the warmup is a cut: under 4000 the "
+                                    "rate at step 40 is ~7e-6"},
+          "kernel_rows": flash_rows,
+          "serve": {k: v for k, v in serve.items() if k != "run_launches"},
+          "op_sweep": sweep, "op_sweep_limit": SWEEP_REL,
+          "op_sweep_s": sweep_s, "profile": prof})
+    return {"per_step": per_step[-1], "run_launches": run_launches,
+            "steps": TR_STEPS, "flash_rows": flash_rows,
+            "serve_per_forward": serve["launches_per_forward"][TR_B],
+            "serve_run_launches": serve["run_launches"],
+            "mba_rows": serve["kernel_rows"]}
+
+
 REDESIGNED_KERNELS = ("matmul_fwd_tc", "conv_bn_relu_tc", "conv_bn_stats_tc",
                       "decode_dense_kernel", "decode_paged_kernel",
                       "tf32x3")
@@ -5641,6 +6286,7 @@ def main():
     static_tr = static_train(ptt)
     book = static_book(ptt)
     embed = static_book_embed(ptt)
+    tr = static_transformer(ptt)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -5688,6 +6334,21 @@ def main():
                    embed["per_forward"][name]}
         if name == "matmul_bias_act":
             out["shapes"] = embed["kernel_rows"]
+        return out
+
+    def transformer_entry(name):
+        """The kernel on the static Transformer-base path: launches a
+        training step and over the timed steps, a served forward's and
+        over the served run, and its rows at the path's shapes."""
+        out = {"launches_per_step": tr["per_step"][name],
+               "run_launches": tr["run_launches"][name],
+               "steps": tr["steps"],
+               "launches_per_served_forward": tr["serve_per_forward"][name],
+               "serve_run_launches": tr["serve_run_launches"][name]}
+        rows = [r for r in tr["flash_rows"] + tr["mba_rows"]
+                if name in r["kernel"].split("+")]
+        if rows:
+            out["shapes"] = rows
         return out
 
     def flash_entry(name, source, line, n, max_abs_err, ms, plain_ms,
@@ -5744,7 +6405,8 @@ def main():
              static_serve=static_entry("flash_fwd"),
              static_train=static_train_entry("flash_fwd"),
              static_book=static_book_entry("flash_fwd"),
-             static_book_embed=embed_entry("flash_fwd")),
+             static_book_embed=embed_entry("flash_fwd"),
+             static_transformer=transformer_entry("flash_fwd")),
         dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
                          pair_launches["flash_bwd_dq"], err["pair_dq"],
                          main["dq_ms"], main["plain_bwd_ms"],
@@ -5753,7 +6415,8 @@ def main():
              train_lamb_run_launches=lamb_launches["flash_bwd_dq"],
              static_train=static_train_entry("flash_bwd_dq"),
              static_book=static_book_entry("flash_bwd_dq"),
-             static_book_embed=embed_entry("flash_bwd_dq")),
+             static_book_embed=embed_entry("flash_bwd_dq"),
+             static_transformer=transformer_entry("flash_bwd_dq")),
         dict(flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
                          pair_launches["flash_bwd_dkv"],
                          max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
@@ -5762,7 +6425,8 @@ def main():
              train_lamb_run_launches=lamb_launches["flash_bwd_dkv"],
              static_train=static_train_entry("flash_bwd_dkv"),
              static_book=static_book_entry("flash_bwd_dkv"),
-             static_book_embed=embed_entry("flash_bwd_dkv")),
+             static_book_embed=embed_entry("flash_bwd_dkv"),
+             static_transformer=transformer_entry("flash_bwd_dkv")),
         dict(flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
                          train_launches["flash_bwd_fused"],
                          max(err["fused_dq"], err["fused_dk"],
@@ -5772,7 +6436,8 @@ def main():
              train_lamb_run_launches=lamb_launches["flash_bwd_fused"],
              static_train=static_train_entry("flash_bwd_fused"),
              static_book=static_book_entry("flash_bwd_fused"),
-             static_book_embed=embed_entry("flash_bwd_fused")),
+             static_book_embed=embed_entry("flash_bwd_fused"),
+             static_transformer=transformer_entry("flash_bwd_fused")),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="paddle_tpu/ops/pallas/decode_attention.py:73",
@@ -5782,6 +6447,7 @@ def main():
              static_train=static_train_entry("decode_attention"),
              static_book=static_book_entry("decode_attention"),
              static_book_embed=embed_entry("decode_attention"),
+             static_transformer=transformer_entry("decode_attention"),
              **dense_row),
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
@@ -5801,7 +6467,9 @@ def main():
                  "disagg_decode", "disagg_int8_decode")],
              static_train=static_train_entry("paged_attention"),
              static_book=static_book_entry("paged_attention"),
-             static_book_embed=embed_entry("paged_attention"), **paged_row),
+             static_book_embed=embed_entry("paged_attention"),
+             static_transformer=transformer_entry("paged_attention"),
+             **paged_row),
     ]
 
     # the fused-epilogue GEMM kernels at the FFN's shape (M = 30720, K =
@@ -5827,18 +6495,21 @@ def main():
              static_serve=static_entry("matmul_bias_act"),
              static_train=static_train_entry("matmul_bias_act"),
              static_book=static_book_entry("matmul_bias_act"),
-             static_book_embed=embed_entry("matmul_bias_act")),
+             static_book_embed=embed_entry("matmul_bias_act"),
+             static_transformer=transformer_entry("matmul_bias_act")),
         dict(mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"],
                       "dx"), tile=mm_main["bwd_tile"], splits=1,
              static_train=static_train_entry("matmul_bwd_dx"),
              static_book=static_book_entry("matmul_bwd_dx"),
-             static_book_embed=embed_entry("matmul_bwd_dx")),
+             static_book_embed=embed_entry("matmul_bwd_dx"),
+             static_transformer=transformer_entry("matmul_bwd_dx")),
         dict(mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
                       max(mm_err["dw"], mm_err["dbias"]), "dw"),
              tile=mm_main["bwd_tile"], splits=mm_main["dw_splits"],
              static_train=static_train_entry("matmul_bwd_dw"),
              static_book=static_book_entry("matmul_bwd_dw"),
-             static_book_embed=embed_entry("matmul_bwd_dw")),
+             static_book_embed=embed_entry("matmul_bwd_dw"),
+             static_transformer=transformer_entry("matmul_bwd_dw")),
     ]
 
     # the 1x1 conv + BN + relu kernel over one bf16 ResNet-50 forward at
@@ -5871,6 +6542,7 @@ def main():
         static_train=static_train_entry("conv_bn_relu"),
         static_book=static_book_entry("conv_bn_relu"),
         static_book_embed=embed_entry("conv_bn_relu"),
+        static_transformer=transformer_entry("conv_bn_relu"),
         per_shape=[{k: r[k] for k in keep} for r in conv_rows]))
 
     # the 1x1 conv + BN-statistics kernel over one bf16 ResNet-50 train
@@ -5904,6 +6576,7 @@ def main():
         static_train=static_train_entry("conv_bn_stats"),
         static_book=static_book_entry("conv_bn_stats"),
         static_book_embed=embed_entry("conv_bn_stats"),
+        static_transformer=transformer_entry("conv_bn_stats"),
         per_shape=[{k: r[k] for k in keep11} for r in stats_main]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

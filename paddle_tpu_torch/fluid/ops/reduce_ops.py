@@ -1,13 +1,17 @@
 """Reduction ops: reduce_sum, reduce_mean, reduce_max, reduce_min,
-reduce_prod, mean, top_k, top_k_v2.
+reduce_prod, mean, arg_max, arg_min, top_k, top_k_v2, argsort.
 
 Counterpart of the matching part of `paddle_tpu/fluid/ops/reduce_ops.py`
-(``_register_reduce`` :20 and the reductions :27-31, mean :46, top_k
-and top_k_v2 :68-75; cf. Paddle's reduce_ops/): ``dim``
+(``_register_reduce`` :20 and the reductions :27-31, mean :46, arg_max
+:51, arg_min :61, top_k and top_k_v2 :68-75, argsort :77; cf. Paddle's
+reduce_ops/, arg_min_max_op_base.h, argsort_op.cc): ``dim``
 (default [0], negatives from the end), ``keep_dim``, ``reduce_all``.
 reduce_max / reduce_min split a tie's gradient evenly among the tied
 elements (``torch.amax`` / ``amin``, as JAX's ``jnp.max``); an int32
-input's sum and product stay int32, as the reference's.
+input's sum and product stay int32, as the reference's.  The index ops
+return int64 (recorded int32 in a program, as the reference's 32-bit
+JAX computes them); arg_max / arg_min take the first of tied elements
+and argsort is stable, as JAX's.
 """
 
 import torch
@@ -54,6 +58,18 @@ def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(ins["X"][0])]}
 
 
+@register_op("arg_max", inputs=["X"], outputs=["Out"], grad=None)
+def _arg_max(ctx, ins, attrs):
+    return {"Out": [torch.argmax(ins["X"][0], dim=attrs.get("axis", -1),
+                                 keepdim=bool(attrs.get("keepdims",
+                                                        False)))]}
+
+
+@register_op("arg_min", inputs=["X"], outputs=["Out"], grad=None)
+def _arg_min(ctx, ins, attrs):
+    return {"Out": [torch.argmin(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
 @register_op("top_k", inputs=["X"], outputs=["Out", "Indices"], grad=None)
 def _top_k(ctx, ins, attrs):
     """The k largest along the last axis, largest first, and their int64
@@ -64,3 +80,14 @@ def _top_k(ctx, ins, attrs):
 
 register_op("top_k_v2", inputs=["X"], outputs=["Out", "Indices"],
             grad=None)(_top_k)
+
+
+@register_op("argsort", inputs=["X"], outputs=["Out", "Indices"], grad=None)
+def _argsort(ctx, ins, attrs):
+    """A stable sort along ``axis``, of -X when ``descending`` (so ties
+    keep their order either way, as the reference's ``jnp.argsort``)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    idx = torch.sort(-x if attrs.get("descending", False) else x, dim=axis,
+                     stable=True).indices
+    return {"Out": [torch.gather(x, axis, idx)], "Indices": [idx]}

@@ -1,6 +1,7 @@
 """Models of the port: BERT pretraining, the decoder-only
-`TransformerLM`, the blocks they share, and the ResNet family; and
-BERT as a static program (`bert_program`)."""
+`TransformerLM`, the blocks they share, and the ResNet family; BERT
+(`bert_program`) and the WMT encoder-decoder Transformer
+(`transformer_program`) as static programs."""
 
 from . import bert_program  # noqa: F401
 
@@ -30,6 +31,10 @@ from .resnet import (  # noqa: F401
     resnet50,
     resnet101,
     resnet152,
+)
+from .transformer_program import (  # noqa: F401
+    TransformerConfig,
+    transformer_program,
 )
 from .transformer_lm import (  # noqa: F401
     TransformerLM,

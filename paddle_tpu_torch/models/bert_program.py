@@ -12,8 +12,10 @@ attention_mask)`` in static mode, with the fused FFN on
 (``PADDLE_TPU_FUSED_FFN=1``: fc1 + gelu as one ``matmul_bias_act``) and
 off (``mul`` -> ``elementwise_add`` -> ``gelu``, which
 ``fluid.ir``'s ``matmul_bias_act_fuse`` folds into the same op).
-Attention is the BSHD ``flash_attention`` op with the padding mask as
-an additive bias.
+Attention is the ``flash_attention`` op with the padding mask as an
+additive bias, BSHD, or BHSD with the reference's transposes under
+``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD`` (`MultiHeadAttention`, which the
+Transformer program shares).
 
     main, startup, feeds, (seq, pooled) = bert_program(cfg, seq_len=128)
     exe = fluid.Executor(); exe.run(startup)
@@ -38,17 +40,6 @@ from ..fluid.layers.common import append_simple_op
 from .bert import _fused_ffn_enabled, _head_layout
 
 FEED_NAMES = ("input_ids", "token_type_ids", "position_ids", "attention_mask")
-
-
-def _check_head_layout():
-    """The reference builds BHSD attention (with materialized
-    transposes) under ``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD``; the port has
-    no ``transpose2`` op yet, so it builds the default BSHD only."""
-    if _head_layout() != "BSHD":
-        raise NotImplementedError(
-            "bert_program builds BSHD attention only (the transpose2 op "
-            "of the BHSD layout is not ported yet); got "
-            "PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD")
 
 
 class _Linear:
@@ -118,6 +109,75 @@ def _dropout(x, p):
     return out
 
 
+class MultiHeadAttention:
+    """The reference's ``MultiHeadAttention`` (`paddle_tpu/models/bert.py
+    :122-236`) in static mode, shared by BERT and the Transformer:
+    self-attention through one fused ``[d, 3d]`` projection
+    (``self_attention=True``) or cross attention through separate q, k
+    and v projections, then the ``flash_attention`` op (kernel 1), the
+    output projection and dropout.  The heads stay BSHD, or are
+    transposed to BHSD and back under ``PADDLE_TPU_BERT_HEAD_LAYOUT=
+    BHSD``, as the reference builds them."""
+
+    def __init__(self, cfg, d, n_head, dropout, self_attention=False):
+        self.n_head, self.d_head = n_head, d // n_head
+        self.dropout = dropout
+        self.fused_qkv = bool(self_attention)
+        if self.fused_qkv:
+            self.qkv_proj = _Linear(cfg, d, 3 * d)
+        else:
+            self.q_proj = _Linear(cfg, d, d)
+            self.k_proj = _Linear(cfg, d, d)
+            self.v_proj = _Linear(cfg, d, d)
+        self.out_proj = _Linear(cfg, d, d)
+
+    def _split(self, x, seq_len):
+        return T.reshape(x, [0, seq_len, self.n_head, self.d_head])
+
+    def __call__(self, query, key=None, attn_bias=None, causal=False):
+        """``query`` [B, Sq, d] over ``key`` [B, Sk, d] (the query
+        itself when None); ``attn_bias`` an additive [B, 1, 1, Sk]
+        padding bias; ``causal``: bottom-right causal masking."""
+        key = query if key is None else key
+        q_len, kv_len = int(query.shape[1]), int(key.shape[1])
+        d = self.n_head * self.d_head
+        if self.fused_qkv:
+            if key is not query:
+                raise ValueError(
+                    "fused-qkv attention is self-attention only; build "
+                    "with self_attention=False for cross attention")
+            qkv = self.qkv_proj(query)
+            q, k, v = (self._split(T.slice(qkv, [2], [i * d],
+                                           [(i + 1) * d]), q_len)
+                       for i in range(3))
+        else:
+            q = self._split(self.q_proj(query), q_len)
+            k = self._split(self.k_proj(key), kv_len)
+            v = self._split(self.v_proj(key), kv_len)
+        layout = _head_layout()
+        if layout == "BHSD":
+            q, k, v = (T.transpose(t, [0, 2, 1, 3]) for t in (q, k, v))
+        ins = {"Q": q, "K": k, "V": v}
+        if attn_bias is not None:
+            ins["Bias"] = attn_bias
+        ctxv = append_simple_op(
+            "flash_attention", ins,
+            {"scale": self.d_head ** -0.5, "causal": causal,
+             "layout": layout})
+        if layout == "BHSD":
+            ctxv = T.transpose(ctxv, [0, 2, 1, 3])
+        ctxv = T.reshape(ctxv, [0, q_len, d])
+        return _dropout(self.out_proj(ctxv), self.dropout)
+
+
+def pad_bias(pad_mask):
+    """``pad_mask`` [B, S] (1 = token, 0 = pad) as the additive
+    [B, 1, 1, S] attention bias: 0 at a token, -1e4 at a pad."""
+    m = T.cast(pad_mask, "float32")
+    m = T.reshape(m, [0, 1, 1, int(pad_mask.shape[-1])])
+    return (m + (-1.0)) * 10000.0
+
+
 class _EncoderLayer:
     """The reference's post-LN ``TransformerEncoderLayer`` with fused-QKV
     self-attention: parameters in its construction order."""
@@ -125,33 +185,16 @@ class _EncoderLayer:
     def __init__(self, cfg):
         d = cfg.hidden_size
         self.cfg = cfg
-        self.qkv_proj = _Linear(cfg, d, 3 * d)
-        self.out_proj = _Linear(cfg, d, d)
+        self.attn = MultiHeadAttention(cfg, d, cfg.num_attention_heads,
+                                       cfg.attention_probs_dropout_prob,
+                                       self_attention=True)
         self.ln1 = _LayerNorm(d)
         self.fc1 = _Linear(cfg, d, cfg.intermediate_size)
         self.fc2 = _Linear(cfg, cfg.intermediate_size, d)
         self.ln2 = _LayerNorm(d)
 
-    def _attention(self, x, attn_bias):
-        cfg = self.cfg
-        d, n_head = cfg.hidden_size, cfg.num_attention_heads
-        d_head = d // n_head
-        s = int(x.shape[1])
-        qkv = self.qkv_proj(x)
-        q, k, v = (T.reshape(T.slice(qkv, [2], [i * d], [(i + 1) * d]),
-                             [0, s, n_head, d_head]) for i in range(3))
-        ins = {"Q": q, "K": k, "V": v}
-        if attn_bias is not None:
-            ins["Bias"] = attn_bias
-        ctxv = append_simple_op(
-            "flash_attention", ins,
-            {"scale": d_head ** -0.5, "causal": False, "layout": "BSHD"})
-        ctxv = T.reshape(ctxv, [0, s, d])
-        return _dropout(self.out_proj(ctxv),
-                        cfg.attention_probs_dropout_prob)
-
     def __call__(self, x, attn_bias, fused_ffn):
-        h = self.ln1(x + self._attention(x, attn_bias))
+        h = self.ln1(x + self.attn(x, attn_bias=attn_bias))
         if fused_ffn:
             f = append_simple_op(
                 "matmul_bias_act",
@@ -170,7 +213,6 @@ class _BertModel:
     order when built, its forward ops when called."""
 
     def __init__(self, cfg):
-        _check_head_layout()
         self.cfg = cfg
         d = cfg.hidden_size
         self.word = _Embedding(cfg, cfg.vocab_size)
@@ -184,11 +226,8 @@ class _BertModel:
                  attention_mask=None):
         cfg, d = self.cfg, self.cfg.hidden_size
         fused_ffn = _fused_ffn_enabled()
-        attn_bias = None
-        if attention_mask is not None:
-            m = T.cast(attention_mask, "float32")
-            m = T.reshape(m, [0, 1, 1, int(attention_mask.shape[-1])])
-            attn_bias = (m + (-1.0)) * 10000.0  # 0 -> -1e4, 1 -> 0
+        attn_bias = None if attention_mask is None else pad_bias(
+            attention_mask)
         emb = self.word(input_ids) + self.position(position_ids) \
             + self.token_type(token_type_ids)
         h = _dropout(self.emb_ln(emb), cfg.hidden_dropout_prob)

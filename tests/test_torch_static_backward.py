@@ -33,6 +33,7 @@ from paddle_tpu_torch.fluid.core import registry as tregistry
 
 from test_torch_static_ops import CASES
 from test_torch_static_surface import SURFACE
+from test_torch_static_tensor import TENSOR
 from torch_static_common import jax_state_unchanged
 
 FWD = dict(rtol=1e-5, atol=1e-5)
@@ -355,7 +356,8 @@ def _vjp_attrs(op_type, ins, attrs, outs, slots):
 
 def test_every_auto_grad_op_has_a_grad_case():
     covered = ({CASES[c][0] for c in GRAD_CASES}
-               | {SURFACE[c][0] for c in grad_cases(SURFACE)})
+               | {SURFACE[c][0] for c in grad_cases(SURFACE)}
+               | {TENSOR[c][0] for c in grad_cases(TENSOR)})
     auto = {t for t in tregistry.registered_ops()
             if tregistry.get_op_def(t).grad_maker is not None}
     # no floating input to differentiate: fill_constant; vjp_grad is the

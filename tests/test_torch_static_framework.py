@@ -59,9 +59,19 @@ def test_bert_program_is_the_traced_jax_bert(monkeypatch, fused_ffn):
 
 
 def test_bert_program_refuses_the_bhsd_layout(monkeypatch):
+    """The BHSD layout it once refused: now the traced JAX program, its
+    q / k / v and context transposes included, dict for dict."""
+    monkeypatch.delenv("PADDLE_TPU_FUSED_FFN", raising=False)
     monkeypatch.setenv("PADDLE_TPU_BERT_HEAD_LAYOUT", "BHSD")
-    with pytest.raises(NotImplementedError, match="transpose2"):
-        bert_program.bert_program(models.BertConfig.tiny(), S)
+    jmain, jstart, _, _ = jax_bert()
+    main, start, _, _ = bert_program.bert_program(models.BertConfig.tiny(),
+                                                  S)
+    assert main.to_dict() == jmain.to_dict()
+    assert start.to_dict() == jstart.to_dict()
+    types = [o.type for o in main.global_block.ops]
+    assert types.count("transpose2") == 4 * 2
+    assert all(o.attrs["layout"] == "BHSD" for o in main.global_block.ops
+               if o.type == "flash_attention")
 
 
 @pytest.mark.parametrize("build", ["bert", "mlp"])
@@ -149,8 +159,8 @@ def test_build_time_shape_inference_keeps_dynamic_dims():
             layers.reshape(x, [7, 7])
     with pytest.raises(RuntimeError, match="not registered in the port"):
         with fluid.program_guard(main, start):
-            layers.common.append_simple_op("transpose2", {"X": x},
-                                           {"axis": [0, 2, 1]})
+            layers.common.append_simple_op("shuffle_channel", {"X": x},
+                                           {"group": 5})
 
 
 def test_executor_errors_and_places():
@@ -194,6 +204,8 @@ def test_port_registry_is_its_own():
 
     # the ops `fluid.layers.ops` reaches, and concat
     from test_torch_static_surface import SURFACE
+    # the rest of `fluid.layers.tensor`, the index ops, lr_schedule
+    from test_torch_static_tensor import NEW_OP_TYPES
 
     SURFACE_OPS = {c[0] for c in SURFACE.values()}
     assert len(SURFACE_OPS) == 78        # 77 and elementwise_floordiv
@@ -212,7 +224,8 @@ def test_port_registry_is_its_own():
         "conv2d", "depthwise_conv2d", "pool2d", "batch_norm",
         "fused_batch_norm_act", "softmax", "sigmoid", "cross_entropy",
         "top_k", "top_k_v2", "accuracy",
-        "vjp_grad"} | OPTIMIZER_OP_TYPES | set(SURFACE_OPS)
+        "vjp_grad"} | OPTIMIZER_OP_TYPES | set(SURFACE_OPS) | set(
+            NEW_OP_TYPES)
     assert ports < set(jregistry.registered_ops())
     assert tregistry.get_op_def("mul") is not jregistry.get_op_def("mul")
     with pytest.raises(ValueError, match="registered twice"):

@@ -146,11 +146,11 @@ def test_load_refuses_an_op_the_port_lacks(tmp_path):
     from paddle_tpu.fluid import unique_name as jun
 
     with jun.guard(), jfluid.program_guard(main, startup):
-        x = jfluid.data("x", [-1, 4], "float32")
-        out = jlayers.transpose(jlayers.fc(x, 3), [1, 0])
-    d = str(tmp_path / "transpose2")
+        x = jfluid.data("x", [-1, 4, 2, 2], "float32")
+        out = jlayers.shuffle_channel(jlayers.scale(x, 2.0), 2)
+    d = str(tmp_path / "shuffle_channel")
     jax_save(d, main, startup, ["x"], [out])
     with pytest.raises(ProgramVerificationError) as e:
         io.load_inference_model(d, fluid.Executor(fluid.CPUPlace()))
-    assert any(f.code == "unknown-op" and f.op_type == "transpose2"
+    assert any(f.code == "unknown-op" and f.op_type == "shuffle_channel"
                for f in e.value.diagnostics.errors())

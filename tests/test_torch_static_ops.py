@@ -22,6 +22,7 @@ from paddle_tpu_torch.fluid.core import dtypes as tdtypes
 from paddle_tpu_torch.fluid.core import registry as tregistry
 
 from test_torch_static_surface import SURFACE, _r
+from test_torch_static_tensor import TENSOR
 from torch_static_common import jax_state_unchanged
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -340,9 +341,12 @@ def test_every_registered_op_has_a_case():
     # in test_torch_static_backward.py
     from paddle_tpu_torch.fluid.framework import OPTIMIZER_OP_TYPES
 
+    # the tensor ops of `fluid.layers.tensor`, arg_max / arg_min /
+    # argsort and lr_schedule are held in test_torch_static_tensor.py
     covered = {c[0] for c in CASES.values()} | {"gaussian_random",
                                                  "uniform_random",
-                                                 "vjp_grad"}
+                                                 "vjp_grad"} | {
+        c[0] for c in TENSOR.values()}
     assert covered | OPTIMIZER_OP_TYPES == set(tregistry.registered_ops())
 
 
