@@ -104,7 +104,16 @@ the three attention shapes, the trained logits served with
 forward, fused = unfused) with p50 and kernel 5 at its fc1 shapes, and
 every op of the rest of `fluid.layers.tensor` and its gradient on the
 card against the CPU.  The static BERT is served BHSD too (the
-reference's transposes around kernel 1), equal to BSHD.
+reference's transposes around kernel 1), equal to BSHD.  Then the same
+Transformer-base as the eager `models.Transformer` (`eager_transformer`):
+the repaired index ops at bad ids, card against CPU; the reference's
+eager f32 recipe (18 kernel-1 launches a step and the dispatch's
+backward), one dropout-0 step against the plain versions, the eager
+forward against the static program; 10 bf16 `ShardedTrainStep` steps,
+the first one's loss and gradients against the plain versions at the
+bf16 policy; served at B = 1 and 32.  Last the eager vision zoo
+(`eager_vision`): MobileNetV1 served in f32 (13 kernel-10 launches) and
+trained in bf16 (13 kernel-11 launches a step), VGG-16-BN and LeNet-5.
 
     python3 chip_smoke.py
 
@@ -146,6 +155,7 @@ rate, 67 TFLOP/s, is no floor).  `bound_by` names the larger term,
 "bytes" or "operations"; the settings line names the rates.
 """
 
+import contextlib
 import ctypes
 import json
 import os
@@ -1928,15 +1938,18 @@ def device_ms(fn, category, iters=20, warmup=3):
     """One launch's device time of the kernel of ``category`` in ``fn``:
     its time summed over ``iters`` calls from torch.profiler's CUDA
     activity, over its launches.  Back-to-back CUDA events around a
-    short kernel's wrapper read the host's time to enqueue it instead."""
+    short kernel's wrapper read the host's time to enqueue it instead.
+    A profile that shows fewer launches than calls (CUPTI can drop an
+    activity record) is taken once more; a second short one raises."""
     for _ in range(warmup):
         fn()
-    prof = device_profile(lambda: [fn() for _ in range(iters)])
-    ms, n = prof["by_category_ms"].get(category, (0.0, 0))
-    if n < iters:
-        raise AssertionError("device_ms: %d %s launches in %d calls"
-                             % (n, category, iters))
-    return ms / n
+    for _ in range(2):
+        prof = device_profile(lambda: [fn() for _ in range(iters)])
+        ms, n = prof["by_category_ms"].get(category, (0.0, 0))
+        if n >= iters:
+            return ms / n
+    raise AssertionError("device_ms: %d %s launches in %d calls"
+                         % (n, category, iters))
 
 
 def profile_engine(gen, model, reqs):
@@ -3129,35 +3142,41 @@ def check_conv_bn_main_shape(ops):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    rows = []
-    for dt in (torch.float32, torch.bfloat16):
-        for b, hw, k, n, per_fwd in (CONV_EXPERIMENT,) + CONV_PATH:
-            m = b * hw * hw
-            err, share, t = conv_bn_case(ops, gen, m, k, n, dt)
-            x, w, scale, shift = t["x"], t["w"], t["scale"], t["shift"]
-            gamma, beta, mean, var = t["bn_vectors"]
-            x4 = x.view(b, hw, hw, k).permute(0, 3, 1, 2)   # channels-last
-            w4 = w.view(n, k, 1, 1)
-            bms, by = bound(*conv_bn_work(m, k, n, dt), dt)
-            rows.append({
-                "M": m, "K": k, "N": n, "dtype": str(dt).replace("torch.", ""),
-                "per_forward": per_fwd, "bn": t.get("bn"),
-                "ctas": t.get("ctas"), "max_abs_err": err,
-                "limit_share": share,
-                "ms": time_ms(lambda: ops.conv1x1_bn_relu(x, w, scale,
-                                                          shift)),
-                "queued_ms": queued_ms(lambda: ops.conv1x1_bn_relu(
-                    x, w, scale, shift)),
-                "plain_ms": time_ms(lambda: ops.conv1x1_bn_relu_reference(
-                    x, w, scale, shift)),
-                "library_ms": time_ms(lambda: F.relu_(F.batch_norm(
-                    F.conv2d(x4, w4), mean, var, gamma, beta, False, 0.0,
-                    1e-5))),
-                "cublas_gemm_ms": time_ms(lambda: torch.matmul(x, w.t())),
-                "bound_ms": bms, "bound_by": by})
-            del x, w, x4, w4, t
+    rows = [conv_bn_row(ops, gen, b, hw, k, n, dt, per_fwd)
+            for dt in (torch.float32, torch.bfloat16)
+            for b, hw, k, n, per_fwd in (CONV_EXPERIMENT,) + CONV_PATH]
     emit({"phase": "conv_bn_main_shape", "rows": rows})
     return rows
+
+
+def conv_bn_row(ops, gen, b, hw, k, n, dt, per_fwd):
+    """Kernel 10 at one shape (B images of hw x hw, K -> N channels):
+    `conv_bn_case`'s check, then its time (events and `queued_ms`)
+    beside its plain version, the library's same function (channels-last
+    cuDNN F.conv2d, then F.batch_norm eval and relu), cuBLAS's bare GEMM
+    and the bound."""
+    import torch.nn.functional as F
+
+    m = b * hw * hw
+    err, share, t = conv_bn_case(ops, gen, m, k, n, dt)
+    x, w, scale, shift = t["x"], t["w"], t["scale"], t["shift"]
+    gamma, beta, mean, var = t["bn_vectors"]
+    x4 = x.view(b, hw, hw, k).permute(0, 3, 1, 2)   # channels-last
+    w4 = w.view(n, k, 1, 1)
+    bms, by = bound(*conv_bn_work(m, k, n, dt), dt)
+    return {
+        "M": m, "K": k, "N": n, "dtype": str(dt).replace("torch.", ""),
+        "per_forward": per_fwd, "bn": t.get("bn"),
+        "ctas": t.get("ctas"), "max_abs_err": err, "limit_share": share,
+        "ms": time_ms(lambda: ops.conv1x1_bn_relu(x, w, scale, shift)),
+        "queued_ms": queued_ms(lambda: ops.conv1x1_bn_relu(
+            x, w, scale, shift)),
+        "plain_ms": time_ms(lambda: ops.conv1x1_bn_relu_reference(
+            x, w, scale, shift)),
+        "library_ms": time_ms(lambda: F.relu_(F.batch_norm(
+            F.conv2d(x4, w4), mean, var, gamma, beta, False, 0.0, 1e-5))),
+        "cublas_gemm_ms": time_ms(lambda: torch.matmul(x, w.t())),
+        "bound_ms": bms, "bound_by": by}
 
 
 def _resnet(ptt, dt, params):
@@ -3476,30 +3495,36 @@ def check_conv_bn_stats_main_shape(ops):
     the f32 upcast)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     dt = torch.bfloat16
-    rows = []
-    for m, k, n, per_step in (CONV_STATS_EXPERIMENT,) + CONV_STATS_PATH:
-        row, t = conv_stats_case(ops, gen, m, k, n, dt)
-        x, w = t["x"], t["w"]
-
-        def library():
-            y = torch.matmul(x, w.t())
-            return y, torch.var_mean(y.float(), dim=0, unbiased=False)
-
-        bms, by = bound(*conv_stats_work(m, k, n, dt), dt)
-        row.update({
-            "per_step": per_step,
-            "ms": time_ms(lambda: ops.conv1x1_bn_stats(x, w)),
-            "queued_ms": queued_ms(lambda: ops.conv1x1_bn_stats(x, w)),
-            "plain_ms": time_ms(
-                lambda: ops.conv1x1_bn_stats_reference(x, w)),
-            "library_ms": time_ms(library),
-            "cublas_gemm_ms": time_ms(lambda: torch.matmul(x, w.t())),
-            "bound_ms": bms, "bound_by": by})
-        rows.append(row)
-        del x, w, t
+    rows = [conv_stats_row(ops, gen, m, k, n, dt, per_step)
+            for m, k, n, per_step in (CONV_STATS_EXPERIMENT,)
+            + CONV_STATS_PATH]
     emit({"phase": "conv_bn_stats_main_shape", "dtype": "bfloat16",
           "rows": rows})
     return rows
+
+
+def conv_stats_row(ops, gen, m, k, n, dt, per_step):
+    """Kernel 11 at one shape: `conv_stats_case`'s check, then its time
+    (events and `queued_ms`) beside its plain version, the library's
+    same function (torch.matmul, then torch.var_mean of the f32
+    upcast), cuBLAS's bare GEMM and the bound."""
+    row, t = conv_stats_case(ops, gen, m, k, n, dt)
+    x, w = t["x"], t["w"]
+
+    def library():
+        y = torch.matmul(x, w.t())
+        return y, torch.var_mean(y.float(), dim=0, unbiased=False)
+
+    bms, by = bound(*conv_stats_work(m, k, n, dt), dt)
+    row.update({
+        "per_step": per_step,
+        "ms": time_ms(lambda: ops.conv1x1_bn_stats(x, w)),
+        "queued_ms": queued_ms(lambda: ops.conv1x1_bn_stats(x, w)),
+        "plain_ms": time_ms(lambda: ops.conv1x1_bn_stats_reference(x, w)),
+        "library_ms": time_ms(library),
+        "cublas_gemm_ms": time_ms(lambda: torch.matmul(x, w.t())),
+        "bound_ms": bms, "bound_by": by})
+    return row
 
 
 def resnet_loss_fn(model, batch):
@@ -3976,20 +4001,47 @@ def _recorded_calls(ops, run):
     return calls
 
 
-def _plain_static(ops):
-    """Patches under which the static ops reach the plain versions of
-    kernels 1 and 5, on the card, instead of the kernels."""
+def plain_sdpa(ops):
+    """`ops.scaled_dot_product_attention`'s plain version (autograd
+    through plain PyTorch), for a patch in its place."""
     def sdpa(q, k, v, bias=None, segment_ids=None, scale=None,
              causal=False, layout="BHSD"):
         return ops.flash_attention_reference(q, k, v, bias, segment_ids,
                                              scale, causal, layout)[0]
+    return sdpa
 
+
+def plain_flash(ops):
+    """Patches under which the flash op's autograd Function runs the
+    kernels' plain versions on the card instead of the kernels: the
+    forward's (o, LSE) of `flash_attention_reference` and the backward
+    of `flash_attention_bwd_reference` from them (its delta from the
+    stored o, as the kernels form it)."""
+    att = ops.attention
+
+    def fwd(q, k, v, bias=None, segment_ids=None, scale=None, causal=False,
+            layout="BSHD", with_lse=False):
+        return ops.flash_attention_reference(q, k, v, bias, segment_ids,
+                                             scale, causal, layout)
+
+    def bwd(q, k, v, o, do, lse, bias=None, segment_ids=None, scale=None,
+            causal=False, layout="BSHD", bias_grad=False):
+        return att._plain_bwd(q, k, v, o, do, lse, bias, segment_ids, scale,
+                              causal, layout, bias_grad)
+
+    return (patch.object(att, "flash_fwd", fwd),
+            patch.object(att, "flash_attention_bwd", bwd))
+
+
+def _plain_static(ops):
+    """Patches under which the static ops reach the plain versions of
+    kernels 1 and 5, on the card, instead of the kernels."""
     def mba(x, w, bias=None, activation="none", approximate=False):
         return ops.matmul_bias_act_reference(x, w, bias, activation,
                                              approximate)[0]
 
     return (patch.object(ops.attention, "scaled_dot_product_attention",
-                         sdpa),
+                         plain_sdpa(ops)),
             patch.object(ops.matmul, "matmul_bias_act", mba))
 
 
@@ -5403,10 +5455,15 @@ def embed_train(ptt, main, startup, loss, train, epochs):
 
 
 def _sweep_rel(got, want):
-    """|got - want| over max |want| (an integer output: 0 if equal)."""
+    """|got - want| over max |want| (an integer output: 0 if equal; NaN
+    where want is NaN and nowhere else, or inf)."""
     got = got.cpu()
     if not want.is_floating_point():
         return 0.0 if torch.equal(got, want) else float("inf")
+    nan = want.isnan()
+    if not torch.equal(got.isnan(), nan):
+        return float("inf")
+    got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
     scale = want.abs().max().item()
     err = (got.double() - want.double()).abs().max().item()
     return err / scale if scale else err
@@ -5673,10 +5730,10 @@ def noam64(step, d_model=512, warmup=TR_NOAM_WARMUP):
     return d_model ** -0.5 * min(step ** -0.5, step * warmup ** -1.5)
 
 
-def transformer_attention_shapes(ops, cfg, b=TR_B):
+def transformer_attention_shapes(ops, cfg, b=TR_B, dtype=torch.float32):
     """[(tag, Sq, Sk, causal, fused backward?, launches a step)] of the
     path's three attention kinds, with the backward
-    `ops.attention._use_fused_bwd` picks for each (f32, D = 64)."""
+    `ops.attention._use_fused_bwd` picks for each (``dtype``, D = 64)."""
     h, d = cfg.n_head, cfg.d_model // cfg.n_head
     sms = ops.attention._sm_count(torch.device("cuda"))
     out = []
@@ -5686,7 +5743,7 @@ def transformer_attention_shapes(ops, cfg, b=TR_B):
              cfg.num_decoder_layers),
             ("cross", TR_TGT, TR_SRC, False, cfg.num_decoder_layers)):
         out.append((tag, sq, sk, causal, ops.attention._use_fused_bwd(
-            b * h, sq, sk, d, sms, torch.float32), n))
+            b * h, sq, sk, d, sms, dtype), n))
     return out
 
 
@@ -5851,16 +5908,16 @@ def transformer_learns(ptt):
     return losses
 
 
-def transformer_flash_rows(ops, calls, shapes):
+def transformer_flash_rows(ops, calls, shapes, bias_grad=True):
     """Kernels 1 and 4 (or 2 + 3, as the dispatch picks) on the arguments
     the training path gave kernel 1, the first call of each of the three
     attention kinds, with a seeded output gradient: errors against the
-    plain versions (TOL f32, GRAD_TOL f32), then each timed by events
-    and `queued_ms` beside its plain version, SDPA's forward or backward
-    (the library) and its bound (the visible (query, key) pairs: the
-    causal triangle; bias and dbias read and written once)."""
+    plain versions (TOL and GRAD_TOL of the arguments' dtype), then each
+    timed by events and `queued_ms` beside its plain version, SDPA's
+    forward or backward (the library) and its bound (the visible (query,
+    key) pairs: the causal triangle; bias and, with ``bias_grad`` (a
+    path whose bias takes a gradient), dbias read and written once)."""
     gen = torch.Generator(device="cuda").manual_seed(TR_SEED)
-    f32 = torch.float32
     rows, seen = [], set()
     kinds = {(sq, sk, causal): (tag, fused)
              for tag, sq, sk, causal, fused, _ in shapes}
@@ -5874,36 +5931,42 @@ def transformer_flash_rows(ops, calls, shapes):
             continue
         seen.add(key)
         tag, fused = kinds[key]
+        dt = q.dtype
         bias = kw.get("bias")
         bias = bias.detach() if bias is not None else None
         scale, layout, causal = kw["scale"], kw["layout"], kw["causal"]
         o, lse = ops.flash_fwd(q, k, v, bias, None, scale, causal, layout,
                                with_lse=True)
-        do = torch.randn(o.shape, device="cuda", generator=gen)
-        o_ref, _ = ops.flash_attention_reference(q, k, v, bias, None, scale,
-                                                 causal, layout)
-        grad_bias = bias is not None
+        do = torch.randn(o.shape, device="cuda", generator=gen).to(dt)
+        qf, kf, vf, of, dof = upcast(q, k, v, o, do)
+        o_ref, _ = ops.flash_attention_reference(qf, kf, vf, bias, None,
+                                                 scale, causal, layout)
+        grad_bias = bias is not None and bias_grad
         got = ops.flash_attention_bwd(q, k, v, o, do, lse, bias, None, scale,
                                       causal, layout, bias_grad=grad_bias)
-        want = ops.flash_attention_bwd_reference(q, k, v, bias, None, o, do,
-                                                 lse, scale, causal, layout)
+        want = ops.flash_attention_bwd_reference(qf, kf, vf, bias, None, of,
+                                                 dof, lse, scale, causal,
+                                                 layout)
         torch.cuda.synchronize()
-        errs = {"o": compare("transformer %s flash o" % tag, o, o_ref,
-                             TOL[f32])[0]}
+        name = str(dt).replace("torch.", "")
+        errs = {"o": compare("transformer %s %s flash o" % (tag, name), o,
+                             o_ref, TOL[dt])[0]}
         for t, g_, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
             if g_ is not None:
-                errs[t] = compare("transformer %s flash %s" % (tag, t), g_,
-                                  w_, GRAD_TOL[f32])[0]
+                errs[t] = compare("transformer %s %s flash %s" % (
+                    tag, name, t), g_, w_, GRAD_TOL[dt])[0]
         lib_fwd, lib_bwd, _ = _library_attention(q, k, v, do, bias, None,
                                                  causal, scale)
-        xq, xk = b * sq * h * d * 4, b * sk * h * d * 4
+        elt = q.element_size()
+        xq, xk = b * sq * h * d * elt, b * sk * h * d * elt
         row = b * h * sq * 4
-        mask = b * sk * 4 if grad_bias else 0
+        mask = b * sk * 4 if bias is not None else 0
         dbias = b * h * sk * 4 if grad_bias else 0
         pairs = b * h * _visible_pairs(sq, sk, causal) * d
-        common = {"shape": tag, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
-                  "causal": causal, "bias": list(bias.shape) if grad_bias
-                  else None, "per_step": per_step[key]}
+        common = {"shape": tag, "dtype": name, "B": b, "Sq": sq, "Sk": sk,
+                  "H": h, "D": d, "causal": causal,
+                  "bias": list(bias.shape) if bias is not None else None,
+                  "per_step": per_step[key]}
 
         def fwd():
             return ops.flash_fwd(q, k, v, bias, None, scale, causal, layout,
@@ -5921,7 +5984,7 @@ def transformer_flash_rows(ops, calls, shapes):
                 warmup=1),
             library_ms=lib_fwd,
             **dict(zip(("bound_ms", "bound_by"), bound(
-                2 * xq + 2 * xk + row + mask, 4 * pairs, f32)))))
+                2 * xq + 2 * xk + row + mask, 4 * pairs, dt)))))
         rows.append(dict(
             common, kernel=("flash_bwd_fused" if fused
                             else "flash_bwd_dq+flash_bwd_dkv"),
@@ -5933,7 +5996,7 @@ def transformer_flash_rows(ops, calls, shapes):
                 iters=5, warmup=1),
             library_ms=lib_bwd,
             **dict(zip(("bound_ms", "bound_by"), bound(
-                4 * xq + 4 * xk + row + mask + dbias, 10 * pairs, f32)))))
+                4 * xq + 4 * xk + row + mask + dbias, 10 * pairs, dt)))))
     if len(seen) != 3:
         raise AssertionError("transformer attention kinds seen: %s" % seen)
     return rows
@@ -6194,6 +6257,812 @@ def static_transformer(ptt):
             "mba_rows": serve["kernel_rows"]}
 
 
+# ---------------------------------------------------------------------------
+# the WMT Transformer-base, eager (`models.Transformer`): trained by the
+# reference's own eager recipe in f32 and under ShardedTrainStep in bf16,
+# and served, through kernels 1 and 4 (or 2 and 3); the repaired index
+# ops at bad ids on the card
+# ---------------------------------------------------------------------------
+
+ETR_CFG = {}                   # TransformerConfig's defaults: nothing cut
+ETR_SEED = 53                  # init_transformer_params
+ETR_REL_LOSS = 1e-6            # kernels vs plain, f32: the loss
+ETR_REL = 1e-5                 # ... gradients, parameters, of their scale
+ETR_STATIC_LOGITS = 1e-5       # eager vs static: logits of their scale
+ETR_BF16_FWD, ETR_BF16_GRAD = 2e-2, 5e-2    # the port's bf16 policy
+ETR_LEARN_WARMUP, ETR_LEARN_STEPS = 10, 20  # the learning gate's cut
+ETR_BF16_STEPS, ETR_BF16_LR = 10, 1e-4
+
+
+def index_ops_on_card(ptt):
+    """The repaired index ops at negative and out-of-range ids on the
+    card against the CPU (`tests/test_torch_index_ops.py`'s BAD_IDS,
+    forward and ``vjp_grad``, NaN where the CPU's is NaN), and the eager
+    embedding's row take at bad ids, forward and gradient; then a
+    synchronize, so a device-side assert would fail here."""
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.append(os.path.join(ROOT, "tests"))
+    from test_torch_index_ops import BAD_IDS
+
+    sweep = op_sweep(ptt, BAD_IDS)
+    ids = torch.tensor([[-1, 3, 32000], [-32001, 0, 40000]])
+    got = {}
+    for dev in ("cuda", "cpu"):
+        w = torch.arange(32000 * 4, dtype=torch.float32, device=dev).reshape(
+            32000, 4).requires_grad_()
+        out = ptt.ops.nn_ops.take(w, ids.to(dev), 0)
+        out.nan_to_num(0.0).sum().backward()
+        got[dev] = (out.detach().cpu(), w.grad.cpu())
+    torch.cuda.synchronize()
+    if not (_sweep_rel(got["cuda"][0], got["cpu"][0]) == 0.0
+            and torch.equal(got["cuda"][1], got["cpu"][1])
+            and got["cpu"][0][0, 2].isnan().all()
+            and got["cpu"][1].sum().item() == 3 * 4):
+        raise AssertionError("the embedding's row take at bad ids: card %s, "
+                             "CPU %s" % (got["cuda"][0], got["cpu"][0]))
+    return {"ops": sweep, "embedding_take": "card = CPU, NaN rows, no "
+            "gradient to bad ids"}
+
+
+def eager_transformer_model(ptt, dropout, seed=ETR_SEED):
+    cfg = ptt.models.TransformerConfig(**ETR_CFG, dropout=dropout)
+    model = ptt.models.Transformer(cfg, device="cuda")
+    model.load_state_dict(ptt.models.from_jax_state_dict(
+        ptt.models.init_transformer_params(cfg, seed)))
+    return cfg, model
+
+
+def eager_feeds(cfg, seed, b=TR_B):
+    """`wmt_batch`'s batch as tensors on the card: (the five model
+    inputs, labels)."""
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in wmt_batch(cfg, seed, b).items()}
+    return ([batch[k] for k in ("src_ids", "src_pos", "tgt_ids", "tgt_pos",
+                                "src_pad_mask")], batch["labels"])
+
+
+def eager_noam_adam(ptt, warmup=TR_NOAM_WARMUP):
+    """The paper's Adam(0.9, 0.98, 1e-9) on NoamDecay(512, warmup):
+    (optimizer, schedule)."""
+    sched = ptt.learning_rate_scheduler.NoamDecay(512, warmup)
+    return ptt.optimizer.AdamOptimizer(sched, **TR_BETAS), sched
+
+
+def eager_step(model, opt, feeds, labels, params=None):
+    """The reference's eager recipe: the loss, ``backward``, ``minimize``
+    over the model's parameters, the gradients cleared.  Returns the
+    loss (a tensor on the card)."""
+    loss = model.loss(model(*feeds), labels, 0.1)
+    loss.backward()
+    opt.minimize(loss, parameter_list=params or list(model.parameters()))
+    model.zero_grad(set_to_none=True)
+    return loss
+
+
+def _eager_sdpa(ptt, fn):
+    """A patch of the attention the eager blocks call."""
+    return patch.object(ptt.models.bert, "scaled_dot_product_attention", fn)
+
+
+def _recorded_eager_flash(ptt, run):
+    """The arguments kernel 1 gets from the eager blocks in one call of
+    ``run``, each call still launching it."""
+    calls, real = [], ptt.models.bert.scaled_dot_product_attention
+
+    def rec(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+
+    with _eager_sdpa(ptt, rec):
+        run()
+    return calls
+
+
+def _key_bias_scales(grads):
+    """{name: the gradient scale a tensor is held to}: its own max |g|,
+    but a cross attention's k_proj bias (exact gradient 0: softmax is
+    shift-invariant) its k_proj weight's."""
+    out = {}
+    for n, g in grads.items():
+        ref = n.replace("k_proj.bias", "k_proj.weight") \
+            if n.endswith("cross_attn.k_proj.bias") else n
+        out[n] = grads[ref].abs().max().item()
+    return out
+
+
+def eager_transformer_vs_plain(ptt):
+    """One dropout-0 f32 step of the eager recipe through the kernels
+    and, from the same weights, through their plain versions on the card
+    (autograd through the plain attention), on the kernel run's relu
+    decisions (`_relu_decisions`).  Gates: the loss within ETR_REL_LOSS
+    of itself; each gradient within ETR_REL of its scale
+    (`_key_bias_scales`); each new parameter within ETR_REL of its scale
+    beyond what Adam's first step makes of the two runs' own
+    gradients."""
+    runs, relus = {}, _relu_decisions()
+    for tag in ("kernel", "plain"):
+        cfg, model = eager_transformer_model(ptt, 0.0)
+        opt, sched = eager_noam_adam(ptt)
+        feeds, labels = eager_feeds(cfg, 2)
+        params = dict(model.named_parameters())
+        sdpa = (ptt.models.bert.scaled_dot_product_attention
+                if tag == "kernel" else plain_sdpa(ptt.ops))
+        dec = relus if tag == "kernel" else _relu_decisions(force=relus.masks)
+        with _eager_sdpa(ptt, sdpa), dec:
+            loss = model.loss(model(*feeds), labels, 0.1)
+            loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in params.items()}
+        opt.minimize(loss, parameter_list=list(params.values()))
+        runs[tag] = (loss.item(), grads,
+                     {n: p.detach() for n, p in params.items()},
+                     sched.get_lr())
+        del model, opt
+    (lk, gk, pk, rate), (lp, gp, pp, _) = runs["kernel"], runs["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    scales = _key_bias_scales(gp)
+    worst_g, worst_p = (-1.0, ""), (-1.0, "")
+    for n in gk:
+        err = (gk[n] - gp[n]).abs().max().item()
+        worst_g = max(worst_g, (err / scales[n] if scales[n] else err, n))
+        upd = _adam_first_step64(gk[n], rate) - _adam_first_step64(gp[n],
+                                                                    rate)
+        scale = pp[n].abs().max().item()
+        err = ((pk[n].double() - pp[n].double()) - upd).abs().max().item()
+        worst_p = max(worst_p, (err / scale if scale else err, n))
+    out = {"loss": lk, "plain_loss": lp, "loss_rel_err": loss_rel,
+           "max_grad_rel_err": worst_g[0], "worst_grad": worst_g[1],
+           "max_param_rel_err": worst_p[0], "worst_param": worst_p[1],
+           "rate": rate, "relu_units": sum(m.numel() for m in relus.masks),
+           "limits": {"loss": ETR_REL_LOSS, "grads_params": ETR_REL}}
+    if not (loss_rel <= ETR_REL_LOSS and worst_g[0] <= ETR_REL
+            and worst_p[0] <= ETR_REL and np.isfinite(lk)):
+        raise AssertionError("eager transformer step vs plain: %s" % out)
+    return out
+
+
+def eager_vs_static(ptt):
+    """The eager model's forward and loss against the static
+    `transformer_program` at dropout 0 from the same weights, mapped in
+    the reference's creation order (`models.program_params_from_eager`,
+    which checks every shape), on the same batch.  Gates: the loss
+    within ETR_REL_LOSS of the static one, the logits within
+    ETR_STATIC_LOGITS of their scale."""
+    fluid, models = ptt.fluid, ptt.models
+    cfg, model = eager_transformer_model(ptt, 0.0)
+    model.eval()
+    main, startup, _, loss, logits = models.transformer_program(
+        cfg, TR_SRC, TR_TGT, label_smooth_eps=0.1)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    mapped = models.program_params_from_eager(model, main)
+    for name, t in mapped.items():
+        scope.set(name, t)
+    batch = wmt_batch(cfg, 4)
+    want_logits, want_loss = exe.run(main, feed=batch,
+                                     fetch_list=[logits, loss], scope=scope,
+                                     return_numpy=False)
+    feeds, labels = eager_feeds(cfg, 4)
+    with torch.no_grad():
+        got = model(*feeds)
+        got_loss = model.loss(got, labels, 0.1)
+    loss_rel = abs(got_loss.item() - want_loss.item()) / abs(
+        want_loss.item())
+    logits_rel = ((got - want_logits).abs().max()
+                  / want_logits.abs().max()).item()
+    out = {"parameters_mapped": len(mapped), "loss": got_loss.item(),
+           "static_loss": want_loss.item(), "loss_rel_err": loss_rel,
+           "logits_rel_err": logits_rel,
+           "limits": {"loss": ETR_REL_LOSS, "logits": ETR_STATIC_LOGITS}}
+    if not (loss_rel <= ETR_REL_LOSS and logits_rel <= ETR_STATIC_LOGITS):
+        raise AssertionError("eager vs static transformer: %s" % out)
+    return out
+
+
+def eager_learns(ptt):
+    """The learning gate: the f32 eager recipe under NoamDecay(512,
+    ETR_LEARN_WARMUP) (a cut of the warmup only, as the static phase's),
+    dropout 0.1, ETR_LEARN_STEPS steps on one repeated batch: finite
+    losses, the last five's mean under the first five's."""
+    cfg, model = eager_transformer_model(ptt, 0.1)
+    opt, _ = eager_noam_adam(ptt, ETR_LEARN_WARMUP)
+    feeds, labels = eager_feeds(cfg, 3)
+    params = list(model.parameters())
+    losses = [eager_step(model, opt, feeds, labels, params)
+              for _ in range(ETR_LEARN_STEPS)]
+    losses = [x.item() for x in losses]
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise AssertionError("eager transformer learning gate: %s" % losses)
+    return losses
+
+
+def _bf16_grads(ptt, step, state, batch, tag, relus, amp="bf16"):
+    """One `ShardedTrainStep` pass (loss, f32 gradients) from ``state``
+    on ``batch``, dropout drawn from one seed, through the kernels
+    ("kernel"), their plain versions ("plain", `plain_flash`) or autograd
+    over the plain forward ("autograd", `plain_sdpa`), under ``relus``,
+    with ``amp`` ("bf16", or None for f32).  A pass that is not
+    "kernel" must launch no kernel."""
+    ops = ptt.ops
+    masters = {k: v.detach().requires_grad_()
+               for k, v in state["params"].items()}
+    old, step.amp = step.amp, amp
+    try:
+        with contextlib.ExitStack() as stack:
+            if tag == "plain":
+                for p_ in plain_flash(ops):
+                    stack.enter_context(p_)
+            elif tag == "autograd":
+                stack.enter_context(_eager_sdpa(ptt, plain_sdpa(ops)))
+            stack.enter_context(relus)
+            ops.reset_launch_counts()
+            loss, grads = step._losses_and_grads(
+                masters, state["buffers"], batch, 7)
+            if tag != "kernel" and any(ops.launch_counts().values()):
+                raise AssertionError("the %s bf16 pass launched %s"
+                                     % (tag, ops.launch_counts()))
+    finally:
+        step.amp = old
+    return loss.item(), {n: g.float() for n, g in grads.items()}
+
+
+def _grad_distances(a, b, scales):
+    """{name: (max |a - b| / scale, ||a - b|| / ||b||)}, the second
+    left out (None) for a cross attention's k_proj bias (exact gradient
+    0, `_key_bias_scales`)."""
+    out = {}
+    for n in a:
+        fro = None
+        if not n.endswith("cross_attn.k_proj.bias"):
+            fro = ((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30)).item()
+        out[n] = ((a[n] - b[n]).abs().max().item() / (scales[n] or 1.0),
+                  fro)
+    return out
+
+
+def _bf16_step_vs_plain(ptt, step, state, batch):
+    """The bf16 step from the initial weights through the kernels against
+    its plain versions (`plain_flash`), on the kernel run's relu
+    decisions.  Gate, the port's bf16 policy: the loss within
+    ETR_BF16_FWD of itself, each gradient within ETR_BF16_GRAD of its
+    scale (`_key_bias_scales`).  The numbers are emitted before the gate
+    is applied."""
+    relus = _relu_decisions()
+    lk, gk = _bf16_grads(ptt, step, state, batch, "kernel", relus)
+    lp, gp = _bf16_grads(ptt, step, state, batch, "plain",
+                         _relu_decisions(force=relus.masks))
+    errs = _grad_distances(gk, gp, _key_bias_scales(gp))
+    worst = sorted(errs, key=lambda n: errs[n][0])[::-1][:5]
+    out = {"state": "initial", "loss": lk, "plain_loss": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "worst_grads": [[n, *errs[n]] for n in worst],
+           "limits": {"forward": ETR_BF16_FWD, "grads": ETR_BF16_GRAD}}
+    emit({"phase": "eager_transformer_bf16_vs_plain", **out})
+    if not (out["loss_rel_err"] <= ETR_BF16_FWD
+            and errs[worst[0]][0] <= ETR_BF16_GRAD):
+        raise AssertionError("eager transformer bf16 step vs plain: %s"
+                             % out)
+    return out
+
+
+def eager_bf16(ptt):
+    """Transformer-base under ``ShardedTrainStep(amp="bf16")`` with
+    AdamW(ETR_BF16_LR), dropout 0.1, the two seeded batches alternating
+    over ETR_BF16_STEPS steps.  Gates: each step launches bf16 kernel 1
+    18 times and the backward the dispatch picks at bf16 for each kind 6
+    times; finite losses, the last three's mean under the first three's;
+    the first step's loss and f32 gradients through the kernels against
+    the same through the kernels' plain versions (`_bf16_step_vs_plain`);
+    after training, kernels 1 and 4 (or 2 + 3) on the arguments the step
+    gives them against their plain versions (`transformer_flash_rows`,
+    bf16 limits).  Returns (the phase's row, the launches a
+    step, the kernel rows)."""
+    ops = ptt.ops
+    cfg, model = eager_transformer_model(ptt, 0.1)
+
+    def loss_fn(m, batch):
+        return m.loss(m(*[batch[k] for k in (
+            "src_ids", "src_pos", "tgt_ids", "tgt_pos", "src_pad_mask")]),
+            batch["labels"], 0.1)
+
+    step = ptt.distributed.ShardedTrainStep(
+        model, ptt.optimizer.AdamWOptimizer(ETR_BF16_LR), loss_fn,
+        amp="bf16")
+    shapes = transformer_attention_shapes(ops, cfg, dtype=torch.bfloat16)
+    want = _transformer_launches(ops, shapes)
+    batches = [step.place_batch(wmt_batch(cfg, seed)) for seed in (0, 1)]
+    vs_plain = _bf16_step_vs_plain(ptt, step, step.init(), batches[0])
+    state = step.init()
+    losses, per_step = [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(ETR_BF16_STEPS + 1)]
+    evs[0].record()
+    for i in range(ETR_BF16_STEPS):
+        ops.reset_launch_counts()
+        state, loss = step(state, batches[i % 2])
+        evs[i + 1].record()
+        launches = ops.launch_counts()
+        _expect_launches("eager transformer bf16 step %d" % i, launches,
+                         want)
+        per_step = launches
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = [evs[n].elapsed_time(evs[n + 1]) for n in range(ETR_BF16_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError("eager transformer bf16 losses: %s" % losses)
+    calls = _recorded_eager_flash(ptt, lambda: step._losses_and_grads(
+        {k: v.detach().requires_grad_() for k, v in state["params"].items()},
+        state["buffers"], batches[0], 8))
+    rows = transformer_flash_rows(ops, calls, shapes, bias_grad=False)
+    del calls
+    row = {"optimizer": "AdamW(%g)" % ETR_BF16_LR, "steps": ETR_BF16_STEPS,
+           "losses": losses, "step_ms": ms,
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "target_tokens_per_s": TR_B * TR_TGT * ETR_BF16_STEPS
+           / (sum(ms) / 1e3), "peak_memory_gb": peak / 1e9,
+           "flash_backward": {tag: "fused (kernel 4)" if fused
+                              else "pair (kernels 2 and 3)"
+                              for tag, _, _, _, fused, _ in shapes},
+           "launches_per_step": per_step, "vs_plain": vs_plain}
+    return row, per_step, rows
+
+
+def eager_serve(ptt, model, cfg):
+    """``model.eval()``, then ``encode`` + ``decode`` under
+    `torch.no_grad()` at B = 1 and TR_B: each forward launches kernel 1
+    18 times and nothing else; the logits against the same forward
+    through the plain attention within ETR_STATIC_LOGITS of their scale;
+    p50 over TR_SERVE_REQUESTS forwards with the logits left on the card
+    (host clock around a forward ending in a synchronize)."""
+    ops = ptt.ops
+    model.eval()
+    n_att = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers
+    want = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    want["flash_fwd"] = n_att
+    out = {}
+    for b in TR_SERVE_BATCHES:
+        (src, spos, tgt, tpos, mask), _ = eager_feeds(cfg, 9, b)
+
+        def fwd():
+            with torch.no_grad():
+                mem = model.encode(src, spos, mask)
+                return model.decode(tgt, tpos, mem, mask)
+
+        ops.reset_launch_counts()
+        got = fwd()
+        launches = ops.launch_counts()
+        _expect_launches("eager transformer served B=%d" % b, launches, want)
+        with _eager_sdpa(ptt, plain_sdpa(ops)):
+            ref = fwd()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        if not (rel <= ETR_STATIC_LOGITS and torch.isfinite(got).all()
+                and got.shape == (b, TR_TGT, cfg.tgt_vocab_size)):
+            raise AssertionError("eager transformer served B=%d: logits "
+                                 "%s, %g of their scale from plain"
+                                 % (b, tuple(got.shape), rel))
+        for _ in range(2):
+            fwd()
+        ts = []
+        for _ in range(TR_SERVE_REQUESTS):
+            t = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        out[b] = {"launches_per_forward": launches,
+                  "vs_plain_rel_err": rel,
+                  "p50_ms": float(np.percentile(ts, 50)),
+                  "p90_ms": float(np.percentile(ts, 90)), "min_ms": min(ts),
+                  "target_tokens_per_s": b * TR_TGT / (
+                      float(np.percentile(ts, 50)) / 1e3)}
+    return out
+
+
+def eager_transformer(ptt):
+    """The WMT Transformer-base as the eager `models.Transformer`
+    (d_model 512, 8 heads, 6 + 6 layers, FFN 2048, vocabularies 32000,
+    nothing cut; weights `init_transformer_params(cfg, ETR_SEED)`), at
+    B = 32 pairs of `wmt_batch`'s (the static phase's batches: 128
+    source tokens, lengths 64-128 padded, 120 target), TF32 off.  First
+    the repaired index ops at bad ids on the card (`index_ops_on_card`).
+    f32, the reference's own eager recipe (`eager_step`: Adam(0.9, 0.98,
+    1e-9) on NoamDecay(512, 4000), label smoothing 0.1, dropout 0.1),
+    TR_WARMUP + TR_STEPS steps, the two batches alternating.  Gates:
+    each step launches kernel 1 18 times and the backward the dispatch
+    picks for each of the three kinds 6 times, nothing else; finite
+    losses; one dropout-0 step against the plain versions
+    (`eager_transformer_vs_plain`); the eager forward against the static
+    program (`eager_vs_static`); the learning gate (`eager_learns`);
+    bf16 under ShardedTrainStep (`eager_bf16`); served (`eager_serve`);
+    kernels 1 and 4 (or 2 + 3) at the three attention shapes in f32 and
+    bf16 (`transformer_flash_rows`).  Then p50 / p99 a step (CUDA
+    events), target tokens/s, TFLOP/s from the counted FLOPs of a step,
+    peak memory, a profiled step."""
+    from paddle_tpu_torch.observability.cost import FlopCounter
+
+    ops = ptt.ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    index_ops = index_ops_on_card(ptt)
+    t1 = time.perf_counter()
+    cfg, model = eager_transformer_model(ptt, 0.1)
+    opt, sched = eager_noam_adam(ptt)
+    params = list(model.parameters())
+    n_params = len(params)
+    feeds = [eager_feeds(cfg, seed) for seed in (0, 1)]
+    shapes = transformer_attention_shapes(ops, cfg)
+    want = _transformer_launches(ops, shapes)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    def step(i):
+        return eager_step(model, opt, *feeds[i % 2], params)
+
+    losses, per_step = [], None
+    for i in range(TR_WARMUP):
+        ops.reset_launch_counts()
+        losses.append(step(i).item())
+        per_step = ops.launch_counts()
+        _expect_launches("eager transformer step %d" % i, per_step, want)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(TR_STEPS + 1)]
+    outs = []
+    t3 = time.perf_counter()
+    evs[0].record()
+    for n in range(TR_STEPS):
+        outs.append(step(TR_WARMUP + n))
+        evs[n + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t3
+    run_launches = ops.launch_counts()
+    _expect_launches("eager transformer run", run_launches,
+                     {k: v * TR_STEPS for k, v in want.items()})
+    peak = torch.cuda.max_memory_allocated()
+    ms = [evs[n].elapsed_time(evs[n + 1]) for n in range(TR_STEPS)]
+    losses += [o.item() for o in outs]
+    if not np.isfinite(losses).all():
+        raise AssertionError("eager transformer losses: %s" % losses)
+    calls = _recorded_eager_flash(ptt, lambda: step(0))
+    with FlopCounter() as counter:
+        step(1)
+    prof = device_profile(lambda: step(0))
+    flash_rows = transformer_flash_rows(ops, calls, shapes, bias_grad=False)
+    del calls
+    serve = eager_serve(ptt, model, cfg)
+    del model, opt, params, feeds
+    vs_plain = eager_transformer_vs_plain(ptt)
+    vs_static = eager_vs_static(ptt)
+    learn = eager_learns(ptt)
+    ops.reset_launch_counts()
+    bf16, bf16_per_step, bf16_rows = eager_bf16(ptt)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    p50 = float(np.percentile(ms, 50))
+    flops = counter.flops
+    emit({"phase": "eager_transformer", "nvidia_smi": smi,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "config": dict(d_model=cfg.d_model, n_head=cfg.n_head,
+                         encoder_layers=cfg.num_encoder_layers,
+                         decoder_layers=cfg.num_decoder_layers,
+                         d_inner=cfg.d_inner, vocab=cfg.tgt_vocab_size,
+                         B=TR_B, src_len=TR_SRC, tgt_len=TR_TGT,
+                         src_lengths="[%d, %d]" % (TR_MIN_SRC, TR_SRC),
+                         dtype="float32", dropout=0.1, label_smoothing=0.1,
+                         optimizer="Adam(0.9, 0.98, 1e-9) on NoamDecay("
+                                   "512, %d), eager minimize"
+                                   % TR_NOAM_WARMUP, weights_seed=ETR_SEED),
+          "index_ops_on_card": index_ops,
+          "flash_backward": {tag: "fused (kernel 4)" if fused
+                             else "pair (kernels 2 and 3)"
+                             for tag, _, _, _, fused, _ in shapes},
+          "index_check_s": t1 - t0, "setup_s": t2 - t1,
+          "parameters": n_params,
+          "launches_per_step": per_step, "run_launches": run_launches,
+          "steps": TR_STEPS, "losses": losses, "step_ms": ms, "p50_ms": p50,
+          "p99_ms": float(np.percentile(ms, 99)), "wall_s": wall,
+          "target_tokens_per_s": TR_B * TR_TGT * TR_STEPS / (sum(ms) / 1e3),
+          "counted_flops_per_step": flops,
+          "model_tflops_at_p50": flops / p50 / 1e9,
+          "peak_memory_gb": peak / 1e9, "vs_plain": vs_plain,
+          "vs_static": vs_static,
+          "learning_gate": {"losses": learn,
+                            "noam_warmup": ETR_LEARN_WARMUP},
+          "bf16": bf16, "serve": serve, "kernel_rows": flash_rows,
+          "bf16_kernel_rows": bf16_rows, "profile": prof})
+    return {"per_step": per_step, "run_launches": run_launches,
+            "steps": TR_STEPS, "flash_rows": flash_rows + bf16_rows,
+            "bf16_per_step": bf16_per_step,
+            "serve_per_forward": serve[TR_B]["launches_per_forward"]}
+
+
+# ---------------------------------------------------------------------------
+# the eager vision zoo: MobileNetV1 (its 13 pointwise layers through
+# kernels 10 and 11), VGG-16-BN and LeNet-5 (no hand-written kernel)
+# ---------------------------------------------------------------------------
+
+MB_CLASSES, MB_HW, MB_SEED = 1000, 224, 59
+MB_EVAL_B, MB_TRAIN_B = 64, 128
+MB_PW = 13                    # pointwise 1x1 stride-1 layers a forward
+MB_STEPS, MB_WARMUP = 10, 2
+MB_EVAL_REL = 1e-5            # kernel 10 vs plain: logits of their scale
+MB_CHECK_B, MB_CHECK_HW = 4, 64      # the f32 step vs plain (ResNet's)
+VGG_B, VGG_HW, VGG_STEPS = 64, 224, 4
+LENET_B, LENET_STEPS = 128, 6
+ZOO_LR = 0.01
+
+
+def _mobilenet(ptt, dt=torch.float32, seed=MB_SEED):
+    model = ptt.models.MobileNetV1(num_classes=MB_CLASSES, device="cuda",
+                                   dtype=dt)
+    model.load_state_dict(ptt.models.from_jax_state_dict(
+        ptt.models.init_mobilenet_params(MB_CLASSES, 1.0, seed,
+                                         bn_stats="random")))
+    return model
+
+
+def _images(b, c, hw, seed, classes=MB_CLASSES):
+    rng = np.random.RandomState(seed)
+    return {"image": rng.standard_normal((b, c, hw, hw)).astype(np.float32),
+            "label": rng.randint(0, classes, (b, 1)).astype(np.int32)}
+
+
+def mobilenet_eval(ptt):
+    """MobileNetV1 (scale 1, 1000 classes, 224) eval in f32 at B =
+    MB_EVAL_B: each forward launches kernel 10 MB_PW times and nothing
+    else; the logits against the same forward with kernel 10's plain
+    version in its place within MB_EVAL_REL of their scale; p50 a batch
+    (host clock around a forward ending in a synchronize)."""
+    ops = ptt.ops
+    model = _mobilenet(ptt).eval()
+    x = torch.from_numpy(_images(MB_EVAL_B, 3, MB_HW, 1)["image"]).cuda()
+
+    def fwd():
+        with torch.no_grad():
+            return model(x)
+
+    ops.reset_launch_counts()
+    got = fwd()
+    launches = ops.launch_counts()
+    _expect_launches("MobileNetV1 eval forward", launches,
+                     {k: MB_PW if k == "conv_bn_relu" else 0
+                      for k in ops.KERNEL_WRAPPERS})
+    with patch.object(ops, "conv1x1_bn_relu", ops.conv1x1_bn_relu_reference):
+        ref = fwd()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    if not (rel <= MB_EVAL_REL and torch.isfinite(got).all()):
+        raise AssertionError("MobileNetV1 eval: %g of the logits' scale "
+                             "from plain" % rel)
+    for _ in range(2):
+        fwd()
+    ts = []
+    for _ in range(10):
+        t = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    p50 = float(np.percentile(ts, 50))
+    return {"B": MB_EVAL_B, "dtype": "float32",
+            "launches_per_forward": launches, "vs_plain_rel_err": rel,
+            "p50_ms": p50, "images_per_s": MB_EVAL_B / p50 * 1e3}
+
+
+def _mobilenet_step(ptt, model, amp=None, lr=0.1):
+    return ptt.distributed.ShardedTrainStep(
+        model, ptt.optimizer.MomentumOptimizer(lr, 0.9), resnet_loss_fn,
+        amp=amp)
+
+
+def mobilenet_train_check(ptt):
+    """One f32 Momentum(0.01, 0.9) step of full-width MobileNetV1 (1000
+    classes) at B = MB_CHECK_B, MB_CHECK_HW², through kernel 11 on the
+    13 pointwise layers and, from the same weights, through its plain
+    version on the card, on the kernel run's relu decisions: the ResNet
+    step's gates (`resnet_train_model_check`): the loss within
+    RESNET_CARD_VS_CPU of itself, every gradient (the step's first
+    Velocity), new parameter and running statistic within
+    RESNET_CARD_VS_CPU of its scale."""
+    batch = _images(MB_CHECK_B, 3, MB_CHECK_HW, 7)
+    runs, relus = {}, _relu_decisions()
+    for tag, fn in (("kernel", ptt.ops.conv1x1_bn_stats),
+                    ("plain", ptt.ops.conv1x1_bn_stats_reference)):
+        step = _mobilenet_step(ptt, _mobilenet(ptt), lr=0.01)
+        ptt.ops.reset_launch_counts()
+        dec = relus if tag == "kernel" else _relu_decisions(force=relus.masks)
+        with patch.object(ptt.ops, "conv1x1_bn_stats", fn), dec:
+            state, loss = step(step.init(), batch)
+        torch.cuda.synchronize()
+        runs[tag] = (loss.item(), {
+            "grads": {n: st["Velocity"] for n, st in state["opt"].items()},
+            "params": state["params"], "running_stats": state["buffers"]},
+            ptt.ops.launch_counts())
+        del step, state
+    _expect_launches("MobileNetV1 f32 step", runs["kernel"][2],
+                     {"conv_bn_stats": MB_PW, "conv_bn_relu": 0})
+    _expect_launches("MobileNetV1 f32 step, plain", runs["plain"][2],
+                     {"conv_bn_stats": 0})
+    out = {"B": MB_CHECK_B, "HW": MB_CHECK_HW, "loss": runs["kernel"][0],
+           "plain_loss": runs["plain"][0], "limit": RESNET_CARD_VS_CPU}
+    for kind in ("grads", "params", "running_stats"):
+        out[kind] = _check_rel("MobileNetV1 step %s, kernel 11 vs plain"
+                               % kind, _rel_errs(runs["kernel"][1][kind],
+                                                 runs["plain"][1][kind]),
+                               RESNET_CARD_VS_CPU)
+    if not abs(runs["kernel"][0] - runs["plain"][0]) <= \
+            RESNET_CARD_VS_CPU * abs(runs["plain"][0]):
+        raise AssertionError("MobileNetV1 step loss: %s" % out)
+    return out
+
+
+def mobilenet_train(ptt):
+    """MobileNetV1 trained as the ResNet step is (`resnet_train`):
+    ShardedTrainStep(amp="bf16") + Momentum(0.1, 0.9) at B = MB_TRAIN_B,
+    224, MB_WARMUP steps then MB_STEPS timed with CUDA events on one
+    repeated batch.  Gates: kernel 11 launches MB_PW times a step and
+    nothing else launches; finite losses, the last under the first; the
+    running statistics move.  Returns (the phase's row, run
+    launches)."""
+    ops = ptt.ops
+    step = _mobilenet_step(ptt, _mobilenet(ptt), amp="bf16")
+    state = step.init()
+    before = {k: v.clone() for k, v in state["buffers"].items()}
+    batch = step.place_batch(_images(MB_TRAIN_B, 3, MB_HW, 0))
+    state, warm, _ = _run_steps(step, state, [batch], [0] * MB_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, losses, ms = _run_steps(step, state, [batch], [0] * MB_STEPS)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _expect_launches("MobileNetV1 train run", launches,
+                     {k: MB_PW * MB_STEPS if k == "conv_bn_stats" else 0
+                      for k in ops.KERNEL_WRAPPERS})
+    losses = warm + losses
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("MobileNetV1 bf16 losses: %s" % losses)
+    moved = max((state["buffers"][k] - before[k]).abs().max().item()
+                for k in before)
+    if not moved > 0:
+        raise AssertionError("MobileNetV1's running statistics never moved")
+    p50 = float(np.percentile(ms, 50))
+    return {"B": MB_TRAIN_B, "amp": "bf16", "optimizer": "Momentum(0.1, 0.9)",
+            "losses": losses, "step_ms": ms, "p50_ms": p50,
+            "p99_ms": float(np.percentile(ms, 99)),
+            "images_per_s": MB_TRAIN_B / p50 * 1e3,
+            "peak_memory_gb": peak / 1e9, "running_stats_max_move": moved,
+            "launches_per_step": {k: v // MB_STEPS
+                                  for k, v in launches.items()}}, launches
+
+
+def mobilenet_conv_rows(ops):
+    """Kernel 10 (f32, the eval path's dtype, B = MB_EVAL_B) and kernel
+    11 (bf16, the train step's, B = MB_TRAIN_B) at MobileNetV1's
+    narrowest pointwise shape (112², K = 32 -> N = 64, below any ResNet
+    width) and its widest (7², 1024 -> 1024), each against its plain
+    version and timed (`conv_bn_row`, `conv_stats_row`)."""
+    gen = torch.Generator(device="cuda").manual_seed(MB_SEED)
+    shapes = ((112, 32, 64), (7, 1024, 1024))
+    rows = [dict(conv_bn_row(ops, gen, MB_EVAL_B, hw, k, n, torch.float32,
+                             1), kernel="conv_bn_relu")
+            for hw, k, n in shapes]
+    rows += [dict(conv_stats_row(ops, gen, MB_TRAIN_B * hw * hw, k, n,
+                                 torch.bfloat16, 1), kernel="conv_bn_stats")
+             for hw, k, n in shapes]
+    return rows
+
+
+def zoo_train_and_serve(ptt, name, model, b, hw, c, classes, steps):
+    """``steps`` f32 eager Momentum(ZOO_LR, 0.9) steps (the reference's
+    recipe: ``backward``, ``minimize``, clear the gradients) on one
+    repeated batch of B = ``b`` ``hw``² images of ``c`` channels
+    (``classes`` labels), then eval twice on it.  Each Dropout draws
+    from a generator of its own, seeded anew before every step: the same
+    masks each step, so that the losses fall by the optimizer and not by
+    the draw (VGG's two masks moved its loss by more than four steps do).
+    Gates: finite losses, the last under the first; the two evals'
+    logits equal (VGG's downgrade_in_infer dropout is deterministic);
+    no hand-written kernel launches.  p50 a step (CUDA events)."""
+    ops = ptt.ops
+    model.load_state_dict(ptt.models.from_jax_state_dict(
+        ptt.models.init_vision_params(model, MB_SEED)))
+    data = _images(b, c, hw, 3, classes)
+    x = torch.from_numpy(data["image"]).cuda()
+    lab = torch.from_numpy(data["label"]).cuda()
+    opt = ptt.optimizer.MomentumOptimizer(ZOO_LR, 0.9)
+    params = list(model.parameters())
+    drops = [m for m in model.modules()
+             if isinstance(m, ptt.models.bert.Dropout)]
+    for m in drops:
+        m.generator = torch.Generator(device="cuda")
+    model.train()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    evs[0].record()
+    for i in range(steps):
+        for j, m in enumerate(drops):
+            m.generator.manual_seed(MB_SEED + j)
+        loss = ptt.ops.nn_ops.softmax_with_cross_entropy(model(x),
+                                                         lab).mean()
+        loss.backward()
+        opt.minimize(loss, parameter_list=params)
+        model.zero_grad(set_to_none=True)
+        losses.append(loss)
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    ms = [evs[n].elapsed_time(evs[n + 1]) for n in range(steps)]
+    losses = [x_.item() for x_ in losses]
+    model.eval()
+    with torch.no_grad():
+        e1, e2 = model(x), model(x)
+    launches = ops.launch_counts()
+    _expect_launches("%s steps and evals" % name, launches,
+                     {k: 0 for k in ops.KERNEL_WRAPPERS})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and torch.equal(e1, e2) and torch.isfinite(e1).all()):
+        raise AssertionError("%s: losses %s, evals equal %s"
+                             % (name, losses, torch.equal(e1, e2)))
+    return {"B": b, "HW": hw, "dtype": "float32",
+            "optimizer": "Momentum(%g, 0.9), eager minimize" % ZOO_LR,
+            "losses": losses, "step_ms": ms,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "evals_equal": True, "launches": launches}
+
+
+def eager_vision(ptt):
+    """The eager vision zoo on the card, f32 with TF32 off unless said:
+    MobileNetV1 (scale 1, 1000 classes, 224, nothing cut; weights
+    `init_mobilenet_params(..., bn_stats="random")`) served in f32
+    (`mobilenet_eval`: 13 kernel-10 launches a forward) and trained in
+    bf16 (`mobilenet_train`: 13 kernel-11 launches a step), its f32 step
+    against kernel 11's plain version (`mobilenet_train_check`), kernels
+    10 and 11 at its narrowest and widest pointwise shapes
+    (`mobilenet_conv_rows`); VGG-16-BN (1000 classes, 224, B = VGG_B)
+    and LeNet-5 (28², B = LENET_B) trained a few steps and served
+    (`zoo_train_and_serve`), no hand-written kernel on their paths."""
+    models = ptt.models
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ev = mobilenet_eval(ptt)
+    check = mobilenet_train_check(ptt)
+    train, run_launches = mobilenet_train(ptt)
+    rows = mobilenet_conv_rows(ptt.ops)
+    t1 = time.perf_counter()
+    vgg = zoo_train_and_serve(ptt, "VGG-16-BN", models.vgg16(
+        num_classes=MB_CLASSES, device="cuda"), VGG_B, VGG_HW, 3, MB_CLASSES,
+        VGG_STEPS)
+    lenet = zoo_train_and_serve(ptt, "LeNet-5", models.LeNet5(
+        device="cuda"), LENET_B, 28, 1, 10, LENET_STEPS)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    emit({"phase": "eager_vision", "nvidia_smi": smi,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "mobilenet": {"config": "MobileNetV1 scale 1.0, %d classes, "
+                                  "%d²" % (MB_CLASSES, MB_HW),
+                        "eval": ev, "train_check": check, "train": train,
+                        "kernel_rows": rows, "seconds": t1 - t0},
+          "vgg16_bn": vgg, "lenet5": lenet})
+    return {"eval_per_forward": ev["launches_per_forward"],
+            "train_per_step": train["launches_per_step"],
+            "train_run_launches": run_launches, "steps": MB_STEPS,
+            "rows": rows}
+
+
 REDESIGNED_KERNELS = ("matmul_fwd_tc", "conv_bn_relu_tc", "conv_bn_stats_tc",
                       "decode_dense_kernel", "decode_paged_kernel",
                       "tf32x3")
@@ -6287,6 +7156,8 @@ def main():
     book = static_book(ptt)
     embed = static_book_embed(ptt)
     tr = static_transformer(ptt)
+    etr = eager_transformer(ptt)
+    vis = eager_vision(ptt)
 
     prefill = next(r for r in flash_rows
                    if r["S"] == 1024 and r["dtype"] == "float32"
@@ -6351,6 +7222,38 @@ def main():
             out["shapes"] = rows
         return out
 
+    def eager_transformer_entry(name):
+        """The kernel on the eager Transformer-base path: launches an f32
+        step and over the timed steps, a bf16 step's, a served forward's,
+        and its rows at the path's shapes (f32 and bf16)."""
+        out = {"launches_per_step": etr["per_step"][name],
+               "run_launches": etr["run_launches"][name],
+               "steps": etr["steps"],
+               "bf16_launches_per_step": etr["bf16_per_step"][name],
+               "launches_per_served_forward": etr["serve_per_forward"][name]}
+        rows = [r for r in etr["flash_rows"]
+                if name in r["kernel"].split("+")]
+        if rows:
+            out["shapes"] = rows
+        return out
+
+    def eager_vision_entry(name):
+        """The kernel on the eager vision path: launches a MobileNetV1
+        eval forward, a bf16 train step and over the timed steps, and
+        its rows at MobileNetV1's narrowest and widest pointwise
+        shapes."""
+        out = {"launches_per_mobilenet_eval_forward":
+                   vis["eval_per_forward"][name],
+               "launches_per_mobilenet_train_step":
+                   vis["train_per_step"][name],
+               "mobilenet_train_run_launches":
+                   vis["train_run_launches"][name],
+               "steps": vis["steps"]}
+        rows = [r for r in vis["rows"] if r["kernel"] == name]
+        if rows:
+            out["shapes"] = rows
+        return out
+
     def flash_entry(name, source, line, n, max_abs_err, ms, plain_ms,
                     library_ms):
         return dict(name=name, route="cuda", source=src + source,
@@ -6406,7 +7309,9 @@ def main():
              static_train=static_train_entry("flash_fwd"),
              static_book=static_book_entry("flash_fwd"),
              static_book_embed=embed_entry("flash_fwd"),
-             static_transformer=transformer_entry("flash_fwd")),
+             static_transformer=transformer_entry("flash_fwd"),
+             eager_transformer=eager_transformer_entry("flash_fwd"),
+             eager_vision=eager_vision_entry("flash_fwd")),
         dict(flash_entry("flash_bwd_dq", "flash_bwd.cu", "343",
                          pair_launches["flash_bwd_dq"], err["pair_dq"],
                          main["dq_ms"], main["plain_bwd_ms"],
@@ -6416,7 +7321,9 @@ def main():
              static_train=static_train_entry("flash_bwd_dq"),
              static_book=static_book_entry("flash_bwd_dq"),
              static_book_embed=embed_entry("flash_bwd_dq"),
-             static_transformer=transformer_entry("flash_bwd_dq")),
+             static_transformer=transformer_entry("flash_bwd_dq"),
+             eager_transformer=eager_transformer_entry("flash_bwd_dq"),
+             eager_vision=eager_vision_entry("flash_bwd_dq")),
         dict(flash_entry("flash_bwd_dkv", "flash_bwd.cu", "399",
                          pair_launches["flash_bwd_dkv"],
                          max(err["pair_dk"], err["pair_dv"]), main["dkv_ms"],
@@ -6426,7 +7333,9 @@ def main():
              static_train=static_train_entry("flash_bwd_dkv"),
              static_book=static_book_entry("flash_bwd_dkv"),
              static_book_embed=embed_entry("flash_bwd_dkv"),
-             static_transformer=transformer_entry("flash_bwd_dkv")),
+             static_transformer=transformer_entry("flash_bwd_dkv"),
+             eager_transformer=eager_transformer_entry("flash_bwd_dkv"),
+             eager_vision=eager_vision_entry("flash_bwd_dkv")),
         dict(flash_entry("flash_bwd_fused", "flash_bwd_fused.cu", "490",
                          train_launches["flash_bwd_fused"],
                          max(err["fused_dq"], err["fused_dk"],
@@ -6437,7 +7346,9 @@ def main():
              static_train=static_train_entry("flash_bwd_fused"),
              static_book=static_book_entry("flash_bwd_fused"),
              static_book_embed=embed_entry("flash_bwd_fused"),
-             static_transformer=transformer_entry("flash_bwd_fused")),
+             static_transformer=transformer_entry("flash_bwd_fused"),
+             eager_transformer=eager_transformer_entry("flash_bwd_fused"),
+             eager_vision=eager_vision_entry("flash_bwd_fused")),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="paddle_tpu/ops/pallas/decode_attention.py:73",
@@ -6448,6 +7359,8 @@ def main():
              static_book=static_book_entry("decode_attention"),
              static_book_embed=embed_entry("decode_attention"),
              static_transformer=transformer_entry("decode_attention"),
+             eager_transformer=eager_transformer_entry("decode_attention"),
+             eager_vision=eager_vision_entry("decode_attention"),
              **dense_row),
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
@@ -6469,6 +7382,8 @@ def main():
              static_book=static_book_entry("paged_attention"),
              static_book_embed=embed_entry("paged_attention"),
              static_transformer=transformer_entry("paged_attention"),
+             eager_transformer=eager_transformer_entry("paged_attention"),
+             eager_vision=eager_vision_entry("paged_attention"),
              **paged_row),
     ]
 
@@ -6496,20 +7411,26 @@ def main():
              static_train=static_train_entry("matmul_bias_act"),
              static_book=static_book_entry("matmul_bias_act"),
              static_book_embed=embed_entry("matmul_bias_act"),
-             static_transformer=transformer_entry("matmul_bias_act")),
+             static_transformer=transformer_entry("matmul_bias_act"),
+             eager_transformer=eager_transformer_entry("matmul_bias_act"),
+             eager_vision=eager_vision_entry("matmul_bias_act")),
         dict(mm_entry("matmul_bwd_dx", "matmul_bwd.cu", "272", mm_err["dx"],
                       "dx"), tile=mm_main["bwd_tile"], splits=1,
              static_train=static_train_entry("matmul_bwd_dx"),
              static_book=static_book_entry("matmul_bwd_dx"),
              static_book_embed=embed_entry("matmul_bwd_dx"),
-             static_transformer=transformer_entry("matmul_bwd_dx")),
+             static_transformer=transformer_entry("matmul_bwd_dx"),
+             eager_transformer=eager_transformer_entry("matmul_bwd_dx"),
+             eager_vision=eager_vision_entry("matmul_bwd_dx")),
         dict(mm_entry("matmul_bwd_dw", "matmul_bwd.cu", "296",
                       max(mm_err["dw"], mm_err["dbias"]), "dw"),
              tile=mm_main["bwd_tile"], splits=mm_main["dw_splits"],
              static_train=static_train_entry("matmul_bwd_dw"),
              static_book=static_book_entry("matmul_bwd_dw"),
              static_book_embed=embed_entry("matmul_bwd_dw"),
-             static_transformer=transformer_entry("matmul_bwd_dw")),
+             static_transformer=transformer_entry("matmul_bwd_dw"),
+             eager_transformer=eager_transformer_entry("matmul_bwd_dw"),
+             eager_vision=eager_vision_entry("matmul_bwd_dw")),
     ]
 
     # the 1x1 conv + BN + relu kernel over one bf16 ResNet-50 forward at
@@ -6543,6 +7464,8 @@ def main():
         static_book=static_book_entry("conv_bn_relu"),
         static_book_embed=embed_entry("conv_bn_relu"),
         static_transformer=transformer_entry("conv_bn_relu"),
+        eager_transformer=eager_transformer_entry("conv_bn_relu"),
+        eager_vision=eager_vision_entry("conv_bn_relu"),
         per_shape=[{k: r[k] for k in keep} for r in conv_rows]))
 
     # the 1x1 conv + BN-statistics kernel over one bf16 ResNet-50 train
@@ -6577,6 +7500,8 @@ def main():
         static_book=static_book_entry("conv_bn_stats"),
         static_book_embed=embed_entry("conv_bn_stats"),
         static_transformer=transformer_entry("conv_bn_stats"),
+        eager_transformer=eager_transformer_entry("conv_bn_stats"),
+        eager_vision=eager_vision_entry("conv_bn_stats"),
         per_shape=[{k: r[k] for k in keep11} for r in stats_main]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

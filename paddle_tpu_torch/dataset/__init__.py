@@ -9,4 +9,5 @@ return zero-arg callables producing example generators, what
 The other dataset modules wait for the programs that read them.
 """
 
-from . import cifar, imikolov, mnist, movielens, uci_housing  # noqa: F401
+from . import (  # noqa: F401
+    cifar, imikolov, mnist, movielens, uci_housing, wmt14, wmt16)

@@ -1,12 +1,13 @@
 """NN ops: conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm,
-dropout and its grad, flash_attention, lookup_table,
+dropout and its grad, flash_attention, lookup_table, lookup_table_v2,
 softmax_with_cross_entropy, cross_entropy, square_error_cost, prelu.
 
 Counterpart of `paddle_tpu/fluid/ops/nn_ops.py` (conv2d :23,
 depthwise_conv2d :62, pool2d :116 and `_adaptive_pool_general` :162,
 batch_norm :258, layer_norm :372, dropout :402, dropout_grad :425,
-flash_attention :438, lookup_table :603, softmax_with_cross_entropy
-:652, cross_entropy :683, square_error_cost :708, prelu :737).
+flash_attention :438, lookup_table :603, lookup_table_v2 :621,
+softmax_with_cross_entropy :652, cross_entropy :683, square_error_cost
+:708, prelu :737).
 ``flash_attention`` is the op that reaches a hand kernel: it calls
 `ops.attention.scaled_dot_product_attention` (kernel 1), which
 launches the kernel on a CUDA tensor and takes its plain version on a
@@ -279,15 +280,23 @@ def _flash_attention(ctx, ins, attrs):
 @register_op("lookup_table", inputs=["W", "Ids"], outputs=["Out"],
              no_grad_slots=("Ids",), grad="lookup_table_grad_maker")
 def _lookup_table(ctx, ins, attrs):
-    """Embedding gather (cf. lookup_table_op.cc).  padding_idx rows zeroed."""
+    """Embedding gather (cf. lookup_table_op.cc).  padding_idx rows
+    zeroed.  The rows are `ops.nn_ops.take`'s, the reference's
+    ``jnp.take``: an id in [-V, 0) counts from the end, one outside
+    [-V, V) gives a NaN row and no gradient."""
     w, ids = ins["W"][0], ins["Ids"][0]
     padding_idx = attrs.get("padding_idx", -1)
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    out = F.embedding(ids.long(), w)
+    out = _nn.take(w, ids, 0)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids == padding_idx)[..., None], 0.0, out)
     return {"Out": [out]}
+
+
+register_op("lookup_table_v2", inputs=["W", "Ids"], outputs=["Out"],
+            no_grad_slots=("Ids",), grad="lookup_table_grad_maker")(
+    _lookup_table)
 
 
 @register_op(

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops import nn_ops
 from ..core.dtypes import to_torch
 from ..core.registry import register_op
 
@@ -176,21 +177,35 @@ def _fill_any_like(ctx, ins, attrs):
              no_grad_slots=("Index",))
 def _gather(ctx, ins, attrs):
     """Rows ``Index`` of ``X`` along ``axis`` (``jnp.take``: the index's
-    shape takes the axis' place)."""
-    x, idx = ins["X"][0], ins["Index"][0]
-    axis = attrs.get("axis", 0)
-    axis = axis if axis >= 0 else axis + x.dim()
-    out = x.index_select(axis, idx.reshape(-1).long())
-    return {"Out": [out.reshape(x.shape[:axis] + idx.shape
-                                + x.shape[axis + 1:])]}
+    shape takes the axis' place; an id in [-n, 0) counts from the end,
+    one outside [-n, n) gives a NaN row and no gradient,
+    `ops.nn_ops.take`)."""
+    return {"Out": [nn_ops.take(ins["X"][0], ins["Index"][0],
+                                attrs.get("axis", 0))]}
 
 
 @register_op("gather_nd", inputs=["X", "Index"], outputs=["Out"],
              no_grad_slots=("Index",))
 def _gather_nd(ctx, ins, attrs):
+    """``X[Index[..., 0], Index[..., 1], ...]`` with JAX's indexing rule:
+    an id in [-n, 0) counts from the end, then every id is clamped into
+    [0, n).  The gradient reaches only the elements of in-range ids: an
+    element read through a clamp gets none, as JAX's gather VJP drops
+    it."""
     x, index = ins["X"][0], ins["Index"][0].long()
-    return {"Out": [x[tuple(index[..., i]
-                            for i in range(index.shape[-1]))]]}
+    parts, valid = [], None
+    for i in range(index.shape[-1]):
+        n = x.shape[i]
+        part = index[..., i]
+        part = torch.where(part < 0, part + n, part)
+        ok = (part >= 0) & (part < n)
+        valid = ok if valid is None else valid & ok
+        parts.append(part.clamp(0, n - 1))
+    out = x[tuple(parts)]
+    if valid is not None and out.requires_grad:
+        keep = valid.reshape(valid.shape + (1,) * (out.dim() - valid.dim()))
+        out = torch.where(keep, out, out.detach())
+    return {"Out": [out]}
 
 
 @register_op("scatter", inputs=["X", "Ids", "Updates"], outputs=["Out"],
@@ -199,10 +214,18 @@ def _scatter(ctx, ins, attrs):
     """Rows ``Ids`` of ``X`` set to ``Updates`` (``overwrite``; with
     repeated ids the card names no winner, so hold it to unique ids),
     or ``Updates`` added onto them, repeated ids summing (the
-    reference's ``.at[ids].add``)."""
+    reference's ``.at[ids].add``).  An id in [-n, 0) counts from the
+    end; the update of an id outside [-n, n) is dropped, as JAX drops
+    it: it lands in a scratch row past the end that is sliced off, so
+    no bad id reaches the device and nothing is read on the host."""
     x, ids, upd = ins["X"][0], ins["Ids"][0].long(), ins["Updates"][0]
-    return {"Out": [x.index_put((ids,), upd, accumulate=not attrs.get(
-        "overwrite", True))]}
+    n = x.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    padded = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    out = padded.index_put((ids,), upd.to(x.dtype),
+                           accumulate=not attrs.get("overwrite", True))
+    return {"Out": [out[:n]]}
 
 
 @register_op("one_hot", inputs=["X"], outputs=["Out"], grad=None)
@@ -231,9 +254,13 @@ def _tile(ctx, ins, attrs):
 @register_op("pad", inputs=["X"], outputs=["Out"])
 def _pad(ctx, ins, attrs):
     """``paddings`` = [before_0, after_0, before_1, ...], constant
-    ``pad_value``."""
+    ``pad_value``; a negative padding raises, as in ``jnp.pad``."""
     x = ins["X"][0]
     p = attrs["paddings"]
+    if any(int(v) < 0 for v in p[:2 * x.dim()]):
+        # `jnp.pad` refuses them; `F.pad` would crop
+        raise ValueError("pad: paddings must not be negative, got %s"
+                         % (list(p),))
     flat = []
     for i in reversed(range(x.dim())):
         flat += [int(p[2 * i]), int(p[2 * i + 1])]

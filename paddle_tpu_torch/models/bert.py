@@ -5,7 +5,9 @@ Counterpart of `paddle_tpu.models.bert`: learned word / position /
 token-type embeddings, post-LN encoder layers (fused-QKV self-attention
 through the flash kernels, exact-erf gelu FFN), the MLM head over the
 masked positions with the decoder tied to the word embeddings, and the
-NSP head.  `MultiHeadAttention` also carries the engine's prefill
+NSP head.  `MultiHeadAttention` is self-attention over a fused QKV
+projection or, as the WMT Transformer's decoder needs, cross attention
+over separate q, k and v projections; it also carries the engine's prefill
 (``use_cache``) and cache-attention (``cache``) hooks, dense, paged and
 paged int8: one query row a slot (the decode step) or C > 1 (a chunked
 prefill or a speculative verify).
@@ -15,8 +17,6 @@ The reference's two environment knobs of `bench.py --autotune`:
 fused-epilogue GEMM (`nn.functional.fused_linear`);
 ``PADDLE_TPU_BERT_HEAD_LAYOUT=BHSD`` materializes the head transposes
 around the flash op (the default BSHD reads strided views, no copy).
-
-Not ported yet, and raising `NotImplementedError`: cross attention.
 
 State-dict keys match the JAX package (``bert.encoder.0.attn.qkv_proj
 .weight`` ...); the Linear weights are PyTorch's ``[out, in]``
@@ -48,18 +48,26 @@ __all__ = ["BertConfig", "BertEmbeddings", "BertForPretraining", "BertModel",
 
 
 class Dropout(nn.Module):
-    """``upscale_in_train`` dropout (`ops.nn_ops.dropout`) drawing its
-    keep mask from ``self.generator``: None uses PyTorch's default
-    generator of the input's device; `ShardedTrainStep` sets one seeded
-    from (seed, step) before each step."""
+    """Dropout (`ops.nn_ops.dropout`) with the reference's
+    ``dropout_implementation`` and its default, ``downgrade_in_infer``
+    (`fluid/dygraph/nn.py:302-306`), drawing its keep mask from
+    ``self.generator``: None uses PyTorch's default generator of the
+    input's device; `ShardedTrainStep` sets one seeded from (seed, step)
+    before each step."""
 
-    def __init__(self, p):
+    def __init__(self, p=0.5, dropout_implementation="downgrade_in_infer"):
         super().__init__()
+        if dropout_implementation not in nn_ops.DROPOUT_MODES:
+            raise ValueError(
+                "dropout_implementation must be one of %s, got %r"
+                % (nn_ops.DROPOUT_MODES, dropout_implementation))
         self.p = float(p)
+        self.dropout_implementation = dropout_implementation
         self.generator = None
 
     def forward(self, x):
-        return nn_ops.dropout(x, self.p, self.generator, self.training)
+        return nn_ops.dropout(x, self.p, self.generator, self.training,
+                              self.dropout_implementation)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -134,42 +142,69 @@ class BertConfig:
 
 class MultiHeadAttention(nn.Module):
     """Self-attention over one fused ``[D, 3D]`` QKV projection (Q | K | V
-    column order, as `paddle_tpu.models.bert.MultiHeadAttention`)."""
+    column order) with ``self_attention=True``, or attention of a query
+    over another sequence through separate ``q_proj``, ``k_proj`` and
+    ``v_proj`` (each ``[D, D]``), as
+    `paddle_tpu.models.bert.MultiHeadAttention`."""
 
     def __init__(self, cfg, d_model=None, n_head=None, dropout=None,
                  self_attention=False, device=None):
         super().__init__()
-        if not self_attention:
-            raise NotImplementedError(
-                "MultiHeadAttention: only fused-QKV self-attention is "
-                "ported; cross attention comes with a later slice")
         device = resolve_device(device)
         d = d_model or cfg.hidden_size
         self.n_head = n_head or cfg.num_attention_heads
         self.d_head = d // self.n_head
-        self.qkv_proj = nn.Linear(d, 3 * d, device=device)
+        self.fused_qkv = bool(self_attention)
+        if self.fused_qkv:
+            self.qkv_proj = nn.Linear(d, 3 * d, device=device)
+        else:
+            self.q_proj = nn.Linear(d, d, device=device)
+            self.k_proj = nn.Linear(d, d, device=device)
+            self.v_proj = nn.Linear(d, d, device=device)
         self.out_proj = nn.Linear(d, d, device=device)
         self.dropout = Dropout(
             dropout if dropout is not None
-            else cfg.attention_probs_dropout_prob)
+            else cfg.attention_probs_dropout_prob, "upscale_in_train")
 
-    def forward(self, query, attn_bias=None, causal=False, segment_ids=None,
-                cache=None, use_cache=False):
-        """``attn_bias``: an additive row bias [B, 1 or H, 1, S] (padding
-        masks); ``segment_ids``: [B, S] ids of a packed batch, attention
-        confined to equal ids.  ``use_cache=True`` (prefill): also
-        returns the projected ``(k, v)`` as ``[B, S, H, Dh]`` views of
-        the QKV projection.  ``cache`` (decode): see
+    def forward(self, query, key=None, value=None, attn_bias=None,
+                causal=False, segment_ids=None, cache=None,
+                use_cache=False):
+        """``key`` / ``value``: the sequence attended over (default: the
+        query, and ``value`` the key); a fused-QKV layer takes none.
+        ``attn_bias``: an additive row bias [B, 1 or H, 1, Sk] (padding
+        masks); ``segment_ids``: [B, S] ids of a packed batch, or a
+        ``(q_seg, kv_seg)`` pair for cross attention over packed memory,
+        attention confined to equal ids.  ``use_cache=True`` (prefill):
+        also returns the projected ``(k, v)`` as ``[B, Sk, H, Dh]``
+        views of the projections.  ``cache`` (decode): see
         `_decode_with_cache`."""
-        b, s, _ = query.shape
+        key = query if key is None else key
+        value = key if value is None else value
+        b, sq, _ = query.shape
+        sk = key.shape[1]
         d = self.n_head * self.d_head
-        qkv = self.qkv_proj(query)                           # [B, S, 3D]
-        # BSHD views of the Q | K | V columns: the flash kernel reads
-        # them through their strides, so no head transpose or copy
-        q, k, v = (t.view(b, s, self.n_head, self.d_head)
-                   for t in qkv.split(d, dim=2))
+        if self.fused_qkv:
+            if key is not query or value is not key:
+                raise ValueError(
+                    "fused-qkv attention is self-attention only; build "
+                    "with self_attention=False for cross attention")
+            qkv = self.qkv_proj(query)                       # [B, S, 3D]
+            # BSHD views of the Q | K | V columns: the flash kernel reads
+            # them through their strides, so no head transpose or copy
+            q, k, v = (t.view(b, sq, self.n_head, self.d_head)
+                       for t in qkv.split(d, dim=2))
+        else:
+            q = self.q_proj(query).view(b, sq, self.n_head, self.d_head)
+            k = self.k_proj(key).view(b, sk, self.n_head, self.d_head)
+            v = self.v_proj(value).view(b, sk, self.n_head, self.d_head)
         if cache is not None:
             return self._decode_with_cache(q, k, v, cache)
+        if segment_ids is not None and not isinstance(segment_ids,
+                                                      (tuple, list)):
+            if key is not query:
+                raise ValueError(
+                    "cross-attention with packed segments needs a "
+                    "(q_seg, kv_seg) pair, got a single id array")
         layout = _head_layout()
         qa, ka, va = q, k, v
         if layout == "BHSD":
@@ -179,7 +214,7 @@ class MultiHeadAttention(nn.Module):
             scale=self.d_head ** -0.5, causal=causal, layout=layout)
         if layout == "BHSD":
             ctx = ctx.transpose(1, 2)
-        out = self.dropout(self.out_proj(ctx.reshape(b, s, d)))
+        out = self.dropout(self.out_proj(ctx.reshape(b, sq, d)))
         if use_cache:
             return out, (k, v)
         return out
@@ -306,7 +341,7 @@ class TransformerEncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, cfg.intermediate_size, device=device)
         self.fc2 = nn.Linear(cfg.intermediate_size, d, device=device)
         self.ln2 = LayerNorm(d, device=device)
-        self.dropout = Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob, "upscale_in_train")
 
     def forward(self, x, attn_bias=None, segment_ids=None):
         h = self.ln1(x + self.attn(x, attn_bias=attn_bias,
@@ -331,7 +366,7 @@ class BertEmbeddings(nn.Module):
                                      device=device)
         self.token_type = nn.Embedding(cfg.type_vocab_size, d, device=device)
         self.ln = LayerNorm(d, device=device)
-        self.dropout = Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob, "upscale_in_train")
 
     def forward(self, input_ids, token_type_ids, position_ids):
         emb = (self.word(input_ids) + self.position(position_ids)

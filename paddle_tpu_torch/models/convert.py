@@ -12,13 +12,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state_dict", "init_bert_params", "init_params",
-           "init_resnet_params", "train_state_from_jax"]
+__all__ = ["from_jax_state_dict", "init_bert_params", "init_mobilenet_params",
+           "init_params", "init_resnet_params", "init_transformer_params",
+           "init_vision_params", "program_params_from_eager",
+           "train_state_from_jax"]
 
 # every Linear of the model families (BERT's heads, the LM's blocks, the
-# separate projections of pre-fusion BERT checkpoints, ResNet's fc)
+# separate projections of pre-fusion BERT checkpoints and of cross
+# attention, the Transformer's FFN and output projection, ResNet's and
+# LeNet-5's fc, VGG's and MobileNet's head, LeNet-5's out)
 _LINEARS = ("qkv_proj", "q_proj", "k_proj", "v_proj", "out_proj", "fc1",
-            "fc2", "pooler", "mlm_transform", "nsp", "fc")
+            "fc2", "pooler", "mlm_transform", "nsp", "fc", "head", "out")
 
 
 def _is_linear_weight(key):
@@ -180,3 +184,119 @@ def init_resnet_params(depth=50, num_classes=1000, seed=0, in_channels=3,
             val = np.zeros(shape)
         p[key] = val.astype(np.float32)
     return p
+
+
+def _jax_shapes(model):
+    """{key: JAX-layout shape} of a port model's ``state_dict`` (a model
+    built on the meta device), Linear weights reversed to ``[in, out]``,
+    and the set of Linear weight keys."""
+    linear = {n + ".weight" for n, m in model.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    return ({k: tuple(v.shape)[::-1] if k in linear else tuple(v.shape)
+             for k, v in model.state_dict().items()}, linear)
+
+
+def init_transformer_params(cfg, seed=0):
+    """`Transformer` parameters in the JAX layout (the keys of
+    `paddle_tpu.models.Transformer(cfg).state_dict`), as numpy float32,
+    made from ``seed`` alone with no JAX by the reference's laws: every
+    Linear and Embedding weight N(0, 0.02) (`_winit`,
+    `paddle_tpu/models/bert.py:87`), zero biases, unit LayerNorm
+    scales.  The keys and shapes are the port's model's, built on the
+    meta device."""
+    from .transformer import Transformer
+
+    rng = np.random.default_rng(seed)
+    std = cfg._bert_cfg().initializer_range
+    shapes, linear = _jax_shapes(Transformer(cfg, device="meta"))
+    p = {}
+    for key, shape in shapes.items():
+        if key in linear or key.endswith(("emb.word.weight",
+                                          "emb.pos.weight")):
+            p[key] = rng.standard_normal(shape, dtype=np.float32) \
+                * np.float32(std)
+        elif key.endswith(".weight"):                      # LayerNorm
+            p[key] = np.ones(shape, np.float32)
+        else:
+            p[key] = np.zeros(shape, np.float32)
+    return p
+
+
+def init_vision_params(model, seed=0, bn_stats="unit"):
+    """Parameters of a port vision model (LeNet-5, VGG, MobileNetV1;
+    built on any device, the meta one too) in the JAX layout, as numpy
+    float32, made from ``seed`` alone with no JAX by the reference's
+    laws: conv weights N(0, sqrt(2 / fan_in)) (`fluid/dygraph/nn.py:60`,
+    fan_in = Cin / groups · k · k), Linear weights Xavier-uniform
+    U(±sqrt(6 / (in + out))) (the default weight initializer), zero
+    biases.  BatchNorm: ``bn_stats="unit"`` gives γ 1, β 0, mean 0, var
+    1 (the reference's init); ``"random"`` seeded non-trivial values
+    (γ U(0.5, 1.5), β N(0, 0.1), mean N(0, 0.1), var U(0.5, 2)), so a
+    BN fold that drops a term shows."""
+    from .layers import BatchNorm
+
+    if bn_stats not in ("unit", "random"):
+        raise ValueError("bn_stats must be 'unit' or 'random', got %r"
+                         % (bn_stats,))
+    rng = np.random.default_rng(seed)
+    shapes, linear = _jax_shapes(model)
+    bns = {n for n, m in model.named_modules() if isinstance(m, BatchNorm)}
+    unit = {"weight": np.ones, "bias": np.zeros, "_mean": np.zeros,
+            "_variance": np.ones}
+    drawn = {"weight": lambda n: rng.uniform(0.5, 1.5, n),
+             "bias": lambda n: rng.standard_normal(n) * 0.1,
+             "_mean": lambda n: rng.standard_normal(n) * 0.1,
+             "_variance": lambda n: rng.uniform(0.5, 2.0, n)}
+    p = {}
+    for key, shape in shapes.items():
+        owner, name = key.rsplit(".", 1)
+        if owner in bns:
+            val = (unit if bn_stats == "unit" else drawn)[name](shape[0])
+        elif key in linear:
+            bound = np.sqrt(6.0 / (shape[0] + shape[1]))
+            val = rng.uniform(-bound, bound, shape)
+        elif name == "weight":                             # a conv
+            val = rng.standard_normal(shape) * np.sqrt(
+                2.0 / np.prod(shape[1:]))
+        else:
+            val = np.zeros(shape)
+        p[key] = val.astype(np.float32)
+    return p
+
+
+def init_mobilenet_params(num_classes=1000, scale=1.0, seed=0,
+                          in_channels=3, bn_stats="unit"):
+    """`MobileNetV1` parameters in the JAX layout (the keys of
+    `paddle_tpu.models.MobileNetV1(num_classes, scale).state_dict`), by
+    `init_vision_params`' laws."""
+    from .mobilenet import MobileNetV1
+
+    return init_vision_params(
+        MobileNetV1(num_classes, scale, in_channels, device="meta"), seed,
+        bn_stats)
+
+
+def program_params_from_eager(model, program):
+    """{parameter name: tensor} that give a static program the weights of
+    the eager ``model`` computing the same function (`Transformer` and
+    `transformer_program`, whose parameters are created in the same
+    order, the reference's): the program's parameters in creation order
+    against the model's, each Linear weight transposed to the static
+    ``[in, out]``.  Raises where the counts or any shape disagree.  The
+    tensors are detached copies on the model's device."""
+    linear = {n + ".weight" for n, m in model.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    named = list(model.named_parameters())
+    params = program.all_parameters()
+    if len(named) != len(params):
+        raise ValueError("the model has %d parameters, the program %d"
+                         % (len(named), len(params)))
+    out = {}
+    for p, (name, t) in zip(params, named):
+        t = t.detach()
+        t = (t.t() if name in linear else t).contiguous().clone()
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError("%s %s lands on %s %s" % (
+                name, tuple(t.shape), p.name, tuple(p.shape)))
+        out[p.name] = t
+    return out

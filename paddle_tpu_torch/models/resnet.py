@@ -46,70 +46,56 @@ parameters and ``_mean`` and ``_variance`` buffers, as the reference's
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
 from ..device import resolve_device
 from ..ops import nn_ops
+from .layers import BatchNorm, Conv2D
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ConvBNLayer", "ResNet",
            "resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]
 
-class _Conv2D(nn.Module):
-    """A bias-free Conv2D's weight ``[Cout, Cin, k, k]`` (OIHW), kept in
-    channels-last memory as the trunk's activations are."""
-
-    def __init__(self, in_ch, out_ch, k, device, dtype):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(
-            out_ch, in_ch, k, k, device=device, dtype=dtype).contiguous(
-                memory_format=torch.channels_last))
-
-
-class _BatchNorm(nn.Module):
-    """BatchNorm's state in f32 whatever the trunk's dtype: the
-    parameters ``weight`` (γ) and ``bias`` (β), the running-statistic
-    buffers ``_mean`` and ``_variance``."""
-
-    def __init__(self, ch, device):
-        super().__init__()
-
-        def full(val):
-            return torch.full((ch,), val, dtype=torch.float32, device=device)
-
-        self.weight = nn.Parameter(full(1.0))
-        self.bias = nn.Parameter(full(0.0))
-        self.register_buffer("_mean", full(0.0))
-        self.register_buffer("_variance", full(1.0))
-
-
 class ConvBNLayer(nn.Module):
-    """Conv2D (no bias, padding (k - 1) // 2) + BatchNorm + an optional
-    relu.  A 1x1, stride-1 layer is one launch of the conv + BN-statistics
-    kernel in train mode, and with ``act="relu"`` one launch of the conv +
-    BN + relu kernel in eval mode."""
+    """Conv2D (no bias, padding (k - 1) // 2, ``groups``) + BatchNorm + an
+    optional relu.  A 1x1, stride-1, ungrouped layer is one launch of the
+    conv + BN-statistics kernel in train mode, and with ``act="relu"``
+    one launch of the conv + BN + relu kernel in eval mode.  ``names``:
+    the attribute names of the conv and the BatchNorm, so that the
+    ``state_dict`` keys are the reference model's (ResNet's ``_conv`` /
+    ``_bn``, MobileNet's ``conv`` / ``bn``)."""
 
     def __init__(self, in_ch, out_ch, filter_size, stride=1, act=None,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, groups=1,
+                 names=("_conv", "_bn")):
         super().__init__()
         if act not in (None, "relu"):
             raise ValueError("ConvBNLayer act must be None or 'relu', got %r"
                              % (act,))
         device = resolve_device(device)
-        self._stride = stride
-        self._padding = (filter_size - 1) // 2
         self._act = act
-        self._pointwise = filter_size == 1 and stride == 1
+        self._pointwise = filter_size == 1 and stride == 1 and groups == 1
         self._fused = self._pointwise and act == "relu"
-        self._conv = _Conv2D(in_ch, out_ch, filter_size, device, dtype)
-        self._bn = _BatchNorm(out_ch, device)
+        self._names = tuple(names)
+        setattr(self, self._names[0], Conv2D(
+            in_ch, out_ch, filter_size, stride, (filter_size - 1) // 2,
+            groups, bias=False, device=device, dtype=dtype,
+            channels_last=True))
+        setattr(self, self._names[1], BatchNorm(out_ch, device=device))
+
+    @property
+    def conv_layer(self):
+        return self._modules[self._names[0]]
+
+    @property
+    def bn_layer(self):
+        return self._modules[self._names[1]]
 
     def _rows(self, x):
         """The channels-last x and the 1x1 weight as the kernels' 2-D
         views: ``[B·H·W, Cin]`` and ``[Cout, Cin]``."""
         c = x.shape[1]
-        weight = self._conv.weight
+        weight = self.conv_layer.weight
         return (x.permute(0, 2, 3, 1).view(-1, c),
                 weight.view(weight.shape[0], c))
 
@@ -118,33 +104,20 @@ class ConvBNLayer(nn.Module):
         b, _, h, w = like.shape
         return y2d.view(b, h, w, -1).permute(0, 3, 1, 2)
 
-    def _conv2d(self, x):
-        return F.conv2d(x, self._conv.weight, None, self._stride,
-                        self._padding)
-
     def forward(self, x):
-        bn = self._bn
-        if self.training:
-            stats = None
-            if self._pointwise:
-                y2d, mean, var = ops.conv1x1_bn_stats(*self._rows(x))
-                y, stats = self._image(y2d, x), (mean, var)
-            else:
-                y = self._conv2d(x)
-            y, mean_out, var_out = nn_ops.batch_norm_train(
-                y, bn.weight, bn.bias, bn._mean, bn._variance,
-                batch_stats=stats)
-            with torch.no_grad():
-                bn._mean.copy_(mean_out)
-                bn._variance.copy_(var_out)
-        elif self._fused:
+        bn = self.bn_layer
+        if self._fused and not self.training:
             scale, shift = ops.fold_bn(bn.weight, bn.bias, bn._mean,
                                        bn._variance, nn_ops.BN_EPS)
             return self._image(ops.conv1x1_bn_relu(*self._rows(x), scale,
                                                    shift), x)
+        stats = None
+        if self.training and self._pointwise:
+            y2d, mean, var = ops.conv1x1_bn_stats(*self._rows(x))
+            y, stats = self._image(y2d, x), (mean, var)
         else:
-            y = nn_ops.batch_norm_eval(self._conv2d(x), bn.weight, bn.bias,
-                                       bn._mean, bn._variance)
+            y = self.conv_layer(x)
+        y = bn(y, batch_stats=stats)
         return y.relu_() if self._act == "relu" else y
 
 

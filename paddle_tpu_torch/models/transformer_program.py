@@ -2,10 +2,11 @@
 counterpart of `paddle_tpu.models.Transformer` and its ``.loss`` traced
 under ``program_guard``.
 
-The port has no eager ``Transformer`` module, so this module emits the
-ops itself through the port's `fluid.layers`, as `bert_program` does
-for BERT: under a fresh `unique_name.guard()` it gives the same op
-types in the same order, the same attrs, and the same parameter,
+This module emits the ops itself through the port's `fluid.layers`, as
+`bert_program` does for BERT (the eager `models.transformer` computes
+the same function and defines `TransformerConfig`): under a fresh
+`unique_name.guard()` it gives the same op types in the same order,
+the same attrs, and the same parameter,
 variable and startup-op names and shapes as the reference's
 ``Transformer(cfg)(src_ids, src_pos, tgt_ids, tgt_pos, src_pad_mask)``
 followed by ``.loss(logits, labels, label_smooth_eps)`` in static mode.
@@ -34,7 +35,6 @@ from ..fluid import framework, unique_name
 from ..fluid.layers import loss as Loss
 from ..fluid.layers import ops as L
 from ..fluid.layers import tensor as T
-from .bert import BertConfig
 from .bert_program import (
     MultiHeadAttention,
     _dropout,
@@ -43,58 +43,10 @@ from .bert_program import (
     _Linear,
     pad_bias,
 )
+from .transformer import TransformerConfig  # noqa: F401
 
 FEED_NAMES = ("src_ids", "src_pos", "tgt_ids", "tgt_pos", "src_pad_mask",
               "labels")
-
-
-class TransformerConfig:
-    """The reference's ``TransformerConfig`` (Transformer-base on WMT14
-    En-De by default: d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
-    vocabularies of 32000, dropout 0.1)."""
-
-    def __init__(
-        self,
-        src_vocab_size=32000,
-        tgt_vocab_size=32000,
-        d_model=512,
-        n_head=8,
-        num_encoder_layers=6,
-        num_decoder_layers=6,
-        d_inner=2048,
-        max_length=256,
-        dropout=0.1,
-    ):
-        self.src_vocab_size = src_vocab_size
-        self.tgt_vocab_size = tgt_vocab_size
-        self.d_model = d_model
-        self.n_head = n_head
-        self.num_encoder_layers = num_encoder_layers
-        self.num_decoder_layers = num_decoder_layers
-        self.d_inner = d_inner
-        self.max_length = max_length
-        self.dropout = dropout
-
-    def _bert_cfg(self):
-        """The BERT config the shared blocks read (widths, the 0.02
-        initializer range, dropout)."""
-        return BertConfig(
-            vocab_size=self.src_vocab_size,
-            hidden_size=self.d_model,
-            num_attention_heads=self.n_head,
-            intermediate_size=self.d_inner,
-            max_position_embeddings=self.max_length,
-            hidden_dropout_prob=self.dropout,
-            attention_probs_dropout_prob=self.dropout,
-        )
-
-    @staticmethod
-    def tiny():
-        return TransformerConfig(
-            src_vocab_size=64, tgt_vocab_size=64, d_model=16, n_head=2,
-            num_encoder_layers=2, num_decoder_layers=2, d_inner=32,
-            max_length=32, dropout=0.0,
-        )
 
 
 class _FFN:

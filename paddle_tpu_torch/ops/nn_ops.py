@@ -4,7 +4,8 @@ reference's conventions where they differ from PyTorch's defaults.
 Counterparts of `paddle_tpu/fluid/ops/nn_ops.py` (`layer_norm` :413,
 `dropout` :401, `softmax_with_cross_entropy` :652, `batch_norm` :259
 in both branches, `pool2d` :116) and of the `fluid.layers` `gelu` /
-`take_along_axis` / `reduce_mean` ops.  No Pallas kernel lies here:
+`take_along_axis` / `reduce_mean` ops, and `take`, the row take of the
+index ops (`jnp.take`'s default mode).  No Pallas kernel lies here:
 each is a PyTorch composition or an `autograd.Function` over plain
 tensor ops.
 """
@@ -14,10 +15,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BN_EPS", "BN_MOMENTUM", "LN_EPS", "batch_norm_eval",
-           "batch_norm_train", "dropout", "gelu", "global_avg_pool",
+__all__ = ["BN_EPS", "BN_MOMENTUM", "DROPOUT_MODES", "LN_EPS",
+           "batch_norm_eval", "batch_norm_train", "dropout", "gelu",
+           "global_avg_pool",
            "layer_norm", "max_pool_3x3s2", "running_update",
-           "softmax_with_cross_entropy", "take_along_axis"]
+           "softmax_with_cross_entropy", "take", "take_along_axis"]
 
 # `fluid/dygraph/nn.py:259` LayerNorm's default epsilon
 LN_EPS = 1e-5
@@ -36,23 +38,80 @@ def layer_norm(x, weight, bias, eps=LN_EPS):
     return y.to(x.dtype)
 
 
-def dropout(x, p, generator=None, training=True):
-    """``upscale_in_train`` dropout: kept values scaled by 1 / (1 - p) in
-    training, identity in eval.  The keep mask comes from ``generator``
+DROPOUT_MODES = ("downgrade_in_infer", "upscale_in_train")
+
+
+def dropout(x, p, generator=None, training=True, mode="upscale_in_train"):
+    """Dropout in the reference's two ``dropout_implementation``s
+    (`nn_ops.py:401-421`): ``upscale_in_train`` scales the kept values by
+    1 / (1 - p) in training and is the identity in eval;
+    ``downgrade_in_infer`` keeps them as they are in training and scales
+    everything by 1 - p in eval.  The keep mask comes from ``generator``
     (a `torch.Generator` on x's device), so a step's noise is a function
     of its seed alone."""
-    if not training or p == 0.0:
+    if mode not in DROPOUT_MODES:
+        raise ValueError("dropout_implementation must be one of %s, got %r"
+                         % (DROPOUT_MODES, mode))
+    upscale = mode == "upscale_in_train"
+    if not training:
+        return x if upscale or p == 0.0 else (x * (1.0 - p)).to(x.dtype)
+    if p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device,
                       dtype=torch.float32) >= p
-    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x / (1.0 - p) if upscale else x,
+                       0.0).to(x.dtype)
 
 
 def gelu(x):
     """Exact-erf gelu (`gelu` op with ``approximate=False``)."""
     return F.gelu(x)
+
+
+def _fill_value(dtype):
+    """`jnp.take`'s fill for an index out of range: NaN for floating
+    types, the least value for signed integers, the largest for unsigned
+    ones, True for booleans."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).min if dtype.is_signed else \
+        torch.iinfo(dtype).max
+
+
+def take(x, idx, axis=0):
+    """`jnp.take(x, idx, axis)` in its default ("fill") mode: the rows
+    ``idx`` of ``x`` along ``axis``, the index's shape in the axis'
+    place.  An id in [-n, 0) counts from the end (``id + n``); an id
+    outside [-n, n) gives a row of `_fill_value` (NaN for floats) and,
+    in the backward, no contribution to any row, as the gradient of
+    JAX's ``take`` drops it.  The mask is formed on the device: no host
+    sync, and the gathered index is always in range, so no bad id
+    reaches a device-side assert.  A ``[V, D]`` table on axis 0 (an
+    embedding) gathers through `F.embedding`, whose CUDA backward sums
+    each row's repeats in f32 in a fixed order (``index_select``'s adds
+    them atomically in x's dtype: bf16 under AMP, in no fixed order)."""
+    axis = axis if axis >= 0 else axis + x.dim()
+    n = x.shape[axis]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    shape = x.shape[:axis] + idx.shape + x.shape[axis + 1:]
+    fill = _fill_value(x.dtype)
+    if n == 0:
+        return torch.full(shape, fill, dtype=x.dtype, device=x.device)
+    safe = torch.where(valid, idx, 0)
+    if x.dim() == 2 and axis == 0:
+        out = F.embedding(safe, x)
+    else:
+        out = x.index_select(axis, safe.reshape(-1)).reshape(shape)
+    keep = valid.reshape((1,) * axis + tuple(idx.shape)
+                         + (1,) * (x.dim() - axis - 1))
+    return torch.where(keep, out, torch.full((), fill, dtype=x.dtype,
+                                              device=x.device))
 
 
 def take_along_axis(x, idx, axis):
@@ -63,15 +122,20 @@ def take_along_axis(x, idx, axis):
     return torch.gather(x, axis, idx.long().expand(shape))
 
 
-def softmax_with_cross_entropy(logits, label, ignore_index=-100):
-    """Per-row loss ``[..., 1]`` of hard labels (``label`` ``[..., 1]`` or
-    ``[...]``), from log-softmax of the f32-upcast logits and cast back
-    to the logits' dtype, as `nn_ops.py:665-680`.  Rows whose label is
-    ``ignore_index`` get 0."""
+def softmax_with_cross_entropy(logits, label, ignore_index=-100,
+                               soft_label=False):
+    """Per-row loss ``[..., 1]`` from log-softmax of the f32-upcast logits,
+    cast back to the logits' dtype, as `nn_ops.py:665-680`: of hard
+    labels (``label`` ``[..., 1]`` or ``[...]``; rows whose label is
+    ``ignore_index`` get 0), or with ``soft_label`` of a distribution
+    ``label`` shaped like the logits (``-Σ label · log p``)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    if soft_label:
+        loss = -(label.float() * logp).sum(dim=-1, keepdim=True)
+        return loss.to(logits.dtype)
     if label.dim() == logits.dim() and label.shape[-1] == 1:
         label = label[..., 0]
     label = label.long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
     valid = label != ignore_index
     loss = -torch.gather(logp, -1, torch.where(valid, label, 0)[..., None])
     loss = torch.where(valid[..., None], loss, 0.0)

@@ -651,8 +651,7 @@ class MomentumOptimizer(Optimizer):
     slots = (("Velocity", "param", 0.0),)
     op_type, acc_names = "momentum", ("velocity",)
 
-    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False,
-                 **kw):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
         super().__init__(learning_rate, **kw)
         self.momentum = float(momentum)
         self.use_nesterov = bool(use_nesterov)

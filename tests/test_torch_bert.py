@@ -215,8 +215,20 @@ def test_convert_legacy_qkv_state_dict_round_trips(pair):
 
 
 def test_cross_attention_raises():
-    with pytest.raises(NotImplementedError, match="cross attention"):
-        models.MultiHeadAttention(models.BertConfig.tiny(), device="cpu")
+    """Cross attention builds separate q / k / v projections and raises
+    where the reference does: a fused-QKV layer given a distinct key,
+    packed cross attention given one id array instead of a pair."""
+    cfg = models.BertConfig.tiny()
+    cross = models.MultiHeadAttention(cfg, device="cpu")
+    assert {"q_proj.weight", "k_proj.weight", "v_proj.weight"} <= set(
+        cross.state_dict())
+    q, mem = torch.randn(2, 3, 32), torch.randn(2, 5, 32)
+    assert cross(q, key=mem).shape == (2, 3, 32)
+    fused = models.MultiHeadAttention(cfg, self_attention=True, device="cpu")
+    with pytest.raises(ValueError, match="cross attention"):
+        fused(q, key=mem)
+    with pytest.raises(ValueError, match="pair"):
+        cross(q, key=mem, segment_ids=torch.zeros(2, 3, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

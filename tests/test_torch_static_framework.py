@@ -213,7 +213,8 @@ def test_port_registry_is_its_own():
     assert ports == {
         "cast", "dropout", "elementwise_add", "fill_constant",
         "flash_attention", "gaussian_random", "gelu", "layer_norm",
-        "lookup_table", "matmul_bias_act", "mul", "relu", "reshape2",
+        "lookup_table", "lookup_table_v2", "matmul_bias_act", "mul",
+        "relu", "reshape2",
         "scale", "slice", "tanh", "uniform_random",
         # the static training slice's ops and the 13 update ops
         "elementwise_sub", "elementwise_mul", "elementwise_div", "square",

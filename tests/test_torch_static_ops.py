@@ -120,6 +120,8 @@ CASES = {
         (2, 3), 10)]}, {"padding_idx": -1}),
     "lookup_table-padding": ("lookup_table", {"W": [_r(10, 4)], "Ids": [
         _ids((2, 3, 1), 10)]}, {"padding_idx": 2}),
+    "lookup_table_v2": ("lookup_table_v2", {"W": [_r(10, 4)], "Ids": [
+        _ids((2, 3), 10)]}, {"padding_idx": 4}),
     # the ops of the static training slice
     "elementwise_sub": ("elementwise_sub", {"X": [_r(2, 3, 4)],
                                             "Y": [_r(4, seed=1)]},

@@ -124,7 +124,7 @@ def test_functional_optimizer_slots_follow_the_optimizer():
     optimizer the port lacks raises."""
     w = torch.zeros(4, 3, 2, 2).contiguous(memory_format=torch.channels_last)
     st = distributed.FunctionalOptimizer(
-        optimizer.MomentumOptimizer(0.1)).init_state({"w": w})
+        optimizer.MomentumOptimizer(0.1, momentum=0.9)).init_state({"w": w})
     assert list(st["w"]) == ["Velocity"]
     assert st["w"]["Velocity"].is_contiguous(
         memory_format=torch.channels_last)

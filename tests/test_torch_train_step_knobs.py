@@ -338,7 +338,8 @@ def test_functional_optimizer_raises_for_the_eight_minimize_optimizers():
     for opt in others:
         with pytest.raises(NotImplementedError, match="minimize"):
             distributed.FunctionalOptimizer(opt)
-    for opt in (optimizer.SGDOptimizer(0.1), optimizer.MomentumOptimizer(0.1),
+    for opt in (optimizer.SGDOptimizer(0.1),
+                optimizer.MomentumOptimizer(0.1, momentum=0.9),
                 optimizer.AdamOptimizer(), optimizer.AdamWOptimizer(),
                 optimizer.LambOptimizer()):
         distributed.FunctionalOptimizer(opt)
